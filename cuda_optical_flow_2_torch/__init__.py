@@ -1,0 +1,61 @@
+"""Dense pyramidal Lucas-Kanade optical flow in PyTorch with CUDA kernels.
+
+The PyTorch port of ``cuda_optical_flow_2_tpu`` (the JAX reference, which
+stays beside it).  Same module names, same layouts: images are
+``(..., H, W)`` float32, flow is ``(..., H, W, 2)`` with ``[..., 0] = u``.
+A function runs on the device of its input tensors: on CUDA tensors the hot
+stages launch hand-written Hopper kernels (``kernels/``, built from
+``csrc/`` with nvcc at first use); on CPU tensors they take the kernels'
+plain PyTorch versions.
+
+    import cuda_optical_flow_2_torch as of
+
+    flow = of.pyramidal_lk(prev_gray, next_gray, of.LKConfig(levels=4))
+"""
+
+from cuda_optical_flow_2_torch.config import (
+    PAPER_1080P,
+    REFERENCE_CPU,
+    REFERENCE_GPU,
+    BilateralConfig,
+    LKConfig,
+)
+from cuda_optical_flow_2_torch.models.lucas_kanade import (
+    coarse_to_fine,
+    compose_flow_pyramid,
+    lk_level,
+    preprocess,
+    pyramidal_lk,
+    pyramidal_lk_pyramid,
+    solve_flow,
+)
+from cuda_optical_flow_2_torch.models.streaming import (
+    FlowState,
+    RecoveryConfig,
+    init_state,
+    process_sequence,
+    step,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BilateralConfig",
+    "LKConfig",
+    "PAPER_1080P",
+    "REFERENCE_CPU",
+    "REFERENCE_GPU",
+    "FlowState",
+    "RecoveryConfig",
+    "coarse_to_fine",
+    "compose_flow_pyramid",
+    "init_state",
+    "lk_level",
+    "preprocess",
+    "process_sequence",
+    "pyramidal_lk",
+    "pyramidal_lk_pyramid",
+    "solve_flow",
+    "step",
+    "__version__",
+]

@@ -1,0 +1,13 @@
+// LK residual flow between prev and (already warped) next: Sobel Ix, Iy,
+// temporal It, five weighted window sums and the guarded 2x2 solve, one
+// shared-memory tile per block (of2_lk_tile.cuh).
+#include "of2_lk_tile.cuh"
+
+// prev, nxt: (B, H, W) float32; flow: (B, H, W, 2) float32 output.
+// taps: 2r+1 host floats; masks: 27 host floats (Sobel-x, Sobel-y, temporal).
+extern "C" int of2_lk_residual(const float* prev, const float* nxt, float* flow, int B, int H,
+                               int W, int r, const float* taps, const float* masks,
+                               float det_eps, void* stream) {
+  return of2_lk_launch<false>(prev, nxt, nullptr, flow, B, H, W, r, taps, masks, det_eps, 0.f,
+                              stream);
+}

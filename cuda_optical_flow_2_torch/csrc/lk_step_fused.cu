@@ -1,0 +1,14 @@
+// One LK level iteration: clip the flow to +-max_disp, warp next by it,
+// solve the residual against prev and add it to the clipped flow, one
+// shared-memory tile per block (of2_lk_tile.cuh).
+#include "of2_lk_tile.cuh"
+
+// prev, nxt: (B, H, W) float32; flow_in, flow_out: (B, H, W, 2) float32,
+// distinct buffers.  taps: 2r+1 host floats; masks: 27 host floats.
+extern "C" int of2_lk_level_step(const float* prev, const float* nxt, const float* flow_in,
+                                 float* flow_out, int B, int H, int W, int r, const float* taps,
+                                 const float* masks, float det_eps, float max_disp,
+                                 void* stream) {
+  return of2_lk_launch<true>(prev, nxt, flow_in, flow_out, B, H, W, r, taps, masks, det_eps,
+                             max_disp, stream);
+}

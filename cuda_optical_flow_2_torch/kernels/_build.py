@@ -1,0 +1,126 @@
+"""Build the CUDA kernels with nvcc and bind them with ctypes.
+
+The sources are ``cuda_optical_flow_2_torch/csrc/*.cu`` and ``*.cuh``.  At the
+first CUDA launch they are compiled for Hopper (``sm_90a``) into one shared
+library with a plain C interface, under ``cuda_optical_flow_2_torch/_build/``
+in a directory named by a hash of the sources and flags, so an edit rebuilds
+and an unchanged tree reuses the library.  Importing this module needs
+neither nvcc nor a GPU.
+
+Every C entry point takes device pointers and the CUDA stream as
+``c_void_p``, sizes as ``c_int``, and returns ``cudaGetLastError()`` after its
+launch; :func:`launch` passes the stream and raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["library", "launch", "require_cuda", "build_seconds", "SOURCES_DIR"]
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCES_DIR = _PKG / "csrc"
+_BUILD_DIR = _PKG / "_build"
+_LIB_NAME = "libof2kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# name -> argtypes; every function returns a cudaError_t as int.
+_SIGNATURES = {
+    "of2_lk_residual": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P],
+    "of2_lk_level_step": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P],
+    "of2_warp_select": [_P, _P, _P, _I, _I, _I, _F, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+_build_seconds: float | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(list(SOURCES_DIR.glob("*.cu")) + list(SOURCES_DIR.glob("*.cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build the kernels")
+
+
+def _build() -> Path:
+    """Compile the sources unless a library for this exact tree exists."""
+    global _build_seconds
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = _BUILD_DIR / digest.hexdigest()[:16]
+    lib_path = out_dir / _LIB_NAME
+    if lib_path.exists():
+        _build_seconds = 0.0
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES_DIR.glob("*.cu"))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _build_seconds = time.perf_counter() - t0
+    # ptxas -v: registers, shared memory and spills per kernel
+    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(_build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def build_seconds() -> float | None:
+    """Seconds the last build in this process took (0.0: cached library)."""
+    return _build_seconds
+
+
+def launch(device: torch.device, name: str, *args) -> None:
+    """Call C entry point ``name`` with ``args`` plus the current stream of
+    ``device``, with that device current; raise if the launch failed."""
+    with torch.cuda.device(device):
+        status = getattr(library(), name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+
+def require_cuda(*tensors: torch.Tensor) -> torch.device:
+    """Raise unless all tensors lie on one CUDA device; return it."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernels run on CUDA or CPU tensors, got {dev}")
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
+    return dev

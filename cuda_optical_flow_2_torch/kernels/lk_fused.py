@@ -1,0 +1,96 @@
+"""Fused LK residual kernel: gradients + window sums + 2x2 solve in one pass.
+
+Replaces ``cuda_optical_flow_2_tpu/kernels/lk_fused.py::lk_residual`` (the
+``centered=False`` form; the DIS ``centered`` mode is not ported yet).  The
+CUDA source is ``csrc/lk_fused.cu`` with the tile body in
+``csrc/of2_lk_tile.cuh``.
+
+What bounds it on an H100: bytes.  Per pixel it reads two f32 planes and
+writes one (u, v) pair, against a few hundred flops of stencil and window
+arithmetic, far below the card's flop/byte ratio.  The design keeps every
+intermediate (Ix, Iy, It, the five product sums) in shared memory: one block
+per 16 x 32 output tile loads its tile plus an (r + 1)-pixel halo once, zero
+outside the image, and runs the window as a row pass then a column pass with
+the taps of ``ops.window.window_weight_taps`` (box, tri and gauss alike).
+What the TPU kernel did about its own limits (rolls on 128-lane padded rows,
+the O(log r) run-doubling box sum) has no counterpart here.
+
+:func:`lk_residual` launches the kernel for CUDA tensors and takes
+:func:`lk_residual_plain` for CPU tensors; ``lk_residual.launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cuda_optical_flow_2_torch.config import LKConfig
+from cuda_optical_flow_2_torch.constants import MASKS
+from cuda_optical_flow_2_torch.kernels import _build
+from cuda_optical_flow_2_torch.ops.gradients import (
+    sobel_scale,
+    spatial_gradients,
+    temporal_gradient,
+    temporal_mask,
+)
+from cuda_optical_flow_2_torch.ops.solve import solve_flow
+from cuda_optical_flow_2_torch.ops.window import structure_tensor_sums, window_weight_taps
+
+__all__ = ["lk_residual", "lk_residual_plain", "MAX_WINDOW"]
+
+MAX_WINDOW = 65  # csrc/of2_common.cuh OF2_MAX_R = 32
+
+
+def lk_residual_plain(prev: torch.Tensor, nxt: torch.Tensor, config: LKConfig) -> torch.Tensor:
+    """The plain PyTorch version: the ops composition of the JAX package's
+    ``models/lucas_kanade._lk_residual_xla``."""
+    ix, iy = spatial_gradients(prev, config.normalize_gradients)
+    it = temporal_gradient(prev, nxt, config.temporal_kernel, config.normalize_gradients)
+    sums = structure_tensor_sums(
+        ix, iy, it, config.window, config.window_method, config.window_weights
+    )
+    return solve_flow(sums, config)
+
+
+def kernel_constants(config: LKConfig) -> tuple[int, np.ndarray, np.ndarray]:
+    """(r, window taps, the three 3x3 masks flattened) for the C entry points."""
+    if config.window > MAX_WINDOW:
+        raise ValueError(f"the CUDA LK kernels take window <= {MAX_WINDOW}, got {config.window}")
+    taps = np.ascontiguousarray(window_weight_taps(config.window, config.window_weights))
+    scale = sobel_scale(config.normalize_gradients)
+    masks = np.concatenate(
+        [
+            (MASKS["sobel_x"] * scale).ravel(),
+            (MASKS["sobel_y"] * scale).ravel(),
+            temporal_mask(config.temporal_kernel, config.normalize_gradients).ravel(),
+        ]
+    ).astype(np.float32)
+    return config.window // 2, taps, masks
+
+
+def planes(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """Contiguous float32 (B, H, W[, 2]) views of equally-shaped inputs."""
+    return [t.to(torch.float32).contiguous() for t in tensors]
+
+
+def lk_residual(prev: torch.Tensor, nxt: torch.Tensor, config: LKConfig) -> torch.Tensor:
+    """Residual flow (..., H, W, 2) between prev and (already warped) next."""
+    if prev.device.type == "cpu" and nxt.device.type == "cpu":
+        return lk_residual_plain(prev, nxt, config)
+    dev = _build.require_cuda(prev, nxt)
+    if prev.shape != nxt.shape:
+        raise ValueError(f"frame shapes differ: {tuple(prev.shape)} vs {tuple(nxt.shape)}")
+    lead, (h, w) = prev.shape[:-2], prev.shape[-2:]
+    p, n = planes(prev.reshape(-1, h, w), nxt.reshape(-1, h, w))
+    out = torch.empty(p.shape + (2,), dtype=torch.float32, device=dev)
+    r, taps, masks = kernel_constants(config)
+    _build.launch(
+        dev, "of2_lk_residual", p.data_ptr(), n.data_ptr(), out.data_ptr(), p.shape[0], h, w,
+        r, taps.ctypes.data, masks.ctypes.data, float(config.det_eps),
+    )
+    lk_residual.launches += 1
+    return out.reshape(lead + (h, w, 2))
+
+
+lk_residual.launches = 0

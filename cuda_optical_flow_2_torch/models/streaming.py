@@ -1,0 +1,187 @@
+"""Streaming video flow: carried pyramid state across frames (LK only).
+
+Counterpart of ``cuda_optical_flow_2_tpu.models.streaming`` for
+:class:`LKConfig`; the other flow families are not ported yet and raise
+``NotImplementedError``.
+
+    state = init_state(first_frame, config)
+    for frame in frames:
+        state, flow = step(state, frame, config)
+
+The state lives on the device of the frames.  The serving configuration is a
+shallow pyramid with ``warm_start=True``: each pair is seeded with the
+previous pair's flow.  With a :class:`RecoveryConfig` every warm step first
+checks the seed at the deepest carried pyramid level (one warp through the
+``warp_select`` kernel on the kernel path) and re-acquires over a deeper
+pyramid after a scene cut.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from cuda_optical_flow_2_torch.config import LKConfig
+from cuda_optical_flow_2_torch.kernels import warp_select
+from cuda_optical_flow_2_torch.models.lucas_kanade import _validate, coarse_to_fine, preprocess
+from cuda_optical_flow_2_torch.ops.resize import downsample_flow
+from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
+
+__all__ = ["FlowState", "RecoveryConfig", "init_state", "step", "process_sequence"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RecoveryConfig:
+    """Scene-cut detection + warm-state recovery policy for warm streaming.
+
+    The seed is dropped, and the pair solved cold over ``levels`` pyramid
+    levels, when the mean photometric residual of the deepest carried level
+    warped by the seed is not below ``ratio`` times the zero-flow residual,
+    unless the seed's mean magnitude there is below ``seed_floor`` px.  Cold
+    starts also solve at ``levels``.  The JAX package's docstring gives the
+    measurements behind the defaults.
+    """
+
+    levels: int = 3
+    ratio: float = 0.7
+    seed_floor: float = 0.25
+
+    def __post_init__(self) -> None:
+        if self.levels < 1:
+            raise ValueError(f"levels must be >= 1, got {self.levels}")
+        if not 0.0 < self.ratio:
+            raise ValueError(f"ratio must be > 0, got {self.ratio}")
+        if self.seed_floor < 0:
+            raise ValueError(f"seed_floor must be >= 0, got {self.seed_floor}")
+
+
+class FlowState(NamedTuple):
+    """Carried per-stream state: the previous frame's pyramid (coarse last)
+    and, when warm-starting, the previous pair's flow (else None)."""
+
+    pyramid: tuple[torch.Tensor, ...]
+    flow: torch.Tensor | None = None
+
+
+def _require_lk(config) -> None:
+    if not isinstance(config, LKConfig):
+        raise NotImplementedError(
+            f"streaming is ported for LKConfig only, got {type(config).__name__} "
+            "(ROADMAP.md queue 1 lists the other families)"
+        )
+
+
+def _carry_config(config: LKConfig, recovery: RecoveryConfig | None) -> LKConfig:
+    """The config whose pyramid depth the carried state is built at."""
+    if recovery is None or recovery.levels <= config.levels:
+        return config
+    return dataclasses.replace(config, levels=recovery.levels)
+
+
+def _flow(prev_pyr, next_pyr, config: LKConfig, init_flow=None) -> torch.Tensor:
+    return coarse_to_fine(list(prev_pyr), list(next_pyr), config, init_flow)[0]
+
+
+def init_state(
+    frame: torch.Tensor, config: LKConfig, recovery: RecoveryConfig | None = None
+) -> FlowState:
+    """Build the initial state from the first frame.  Pass the same
+    ``recovery`` given to :func:`step`: the state then carries the deeper
+    acquisition pyramid."""
+    _require_lk(config)
+    return FlowState(tuple(preprocess(frame.to(torch.float32), _carry_config(config, recovery))))
+
+
+def step(
+    state: FlowState,
+    frame: torch.Tensor,
+    config: LKConfig,
+    warm_start: bool = False,
+    recovery: RecoveryConfig | None = None,
+) -> tuple[FlowState, torch.Tensor]:
+    """One frame step: returns (new state, dense flow prev -> frame).
+
+    ``warm_start=True`` seeds the coarsest level with the previous pair's
+    flow.  ``recovery`` (warm start only) checks that seed and, if any
+    stream of the batch fails the check, re-solves the whole batch at the
+    deep config (the JAX package's ``lax.cond`` rule; here a host-side
+    branch on the check's result).
+    """
+    _require_lk(config)
+    if recovery is not None and not warm_start:
+        raise ValueError("recovery requires warm_start=True")
+    carry_cfg = _carry_config(config, recovery)
+    pyr = preprocess(frame.to(torch.float32), carry_cfg)
+    if len(state.pyramid) != len(pyr):
+        raise ValueError(
+            f"state carries {len(state.pyramid)} pyramid levels but this "
+            f"config/recovery needs {len(pyr)}; build the state with "
+            f"init_state(frame, config, recovery)"
+        )
+    track = config.levels
+    init = None
+    if warm_start and state.flow is not None:
+        init = downsample_flow(state.flow, tuple(pyr[track - 1].shape[-2:]))
+
+    if recovery is None or init is None:
+        if recovery is not None:
+            flow = _flow(state.pyramid, pyr, carry_cfg, None)
+        else:
+            flow = _flow(state.pyramid, pyr, config, init)
+        return FlowState(tuple(pyr), flow if warm_start else None), flow
+
+    # Acquisition check at the deepest carried level, per stream.
+    prev_c, next_c = state.pyramid[-1], pyr[-1]
+    seed_c = downsample_flow(state.flow, tuple(next_c.shape[-2:]))
+    if config.use_pallas:
+        # The default 32 px budget, as the JAX check's LKConfig(levels=1).
+        warped = warp_select.warp_bilinear_select(next_c, seed_c)
+    else:
+        warped = warp_bilinear(next_c, seed_c)
+    r_seed = (warped - prev_c).abs().mean(dim=(-2, -1))
+    r_zero = (next_c - prev_c).abs().mean(dim=(-2, -1))
+    small_seed = seed_c.abs().mean(dim=(-3, -2, -1)) < recovery.seed_floor
+    seed_ok = small_seed | (r_seed < recovery.ratio * r_zero)
+    if bool(seed_ok.all()):
+        flow = _flow(state.pyramid[:track], pyr[:track], config, init)
+    else:
+        flow = _flow(state.pyramid, pyr, carry_cfg, None)
+    return FlowState(tuple(pyr), flow), flow
+
+
+def process_sequence(
+    frames,
+    config: LKConfig,
+    warm_start: bool = False,
+    recovery: RecoveryConfig | None = None,
+):
+    """Yield (frame_index, flow) for frames[1:].
+
+    ``frames`` is any iterable of (H, W) arrays or tensors; each is turned
+    into a tensor with ``torch.as_tensor``, so CUDA tensors keep the whole
+    loop on the card (send uint8 frames: the cast to float32 happens there).
+    A ``None`` element (a decode failure) is skipped: no flow is yielded for
+    it, the next good frame pairs with the last good one, and the carried
+    warm flow is dropped.
+    """
+    _require_lk(config)
+    it = iter(frames)
+    first = None
+    offset = 0
+    for offset, frame in enumerate(it):
+        if frame is not None:
+            first = torch.as_tensor(frame)
+            break
+    if first is None:
+        return
+    _validate(first, first, _carry_config(config, recovery))
+    state = init_state(first, config, recovery)
+    for i, frame in enumerate(it, start=offset + 1):
+        if frame is None:
+            if state.flow is not None:
+                state = FlowState(state.pyramid, None)
+            continue
+        state, flow = step(state, torch.as_tensor(frame), config, warm_start, recovery)
+        yield i, flow

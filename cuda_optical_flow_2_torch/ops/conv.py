@@ -1,0 +1,64 @@
+"""2-D stencil correlations over planar images.
+
+Counterpart of ``cuda_optical_flow_2_tpu.ops.conv``: zero-padded
+*correlation* (no mask flip) of ``(..., H, W)`` images with small masks.
+
+Computed as sums of shifted slices of a zero-padded copy, never with
+``F.conv2d``: on a CUDA tensor that routes through cuDNN, which runs float32
+in TF32 by default and keeps about three digits.  Slices keep these plain
+ops exact float32 on every device, so they serve as the reference the
+hand-written kernels are held against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = ["conv2d", "sep_conv2d"]
+
+
+def _float_dtype(x: torch.Tensor) -> torch.dtype:
+    return x.dtype if x.is_floating_point() else torch.float32
+
+
+def conv2d(x: torch.Tensor, mask) -> torch.Tensor:
+    """Zero-padded 2-D correlation of ``x`` (..., H, W) with a (kh, kw) mask."""
+    mask = np.asarray(mask)
+    if mask.ndim != 2:
+        raise ValueError(f"mask must be 2-D, got shape {mask.shape}")
+    x = x.to(_float_dtype(x))
+    kh, kw = mask.shape
+    h, w = x.shape[-2:]
+    xp = F.pad(x, (kw // 2, (kw - 1) // 2, kh // 2, (kh - 1) // 2))
+    out = torch.zeros_like(x)
+    for i in range(kh):
+        for j in range(kw):
+            tap = float(mask[i, j])
+            if tap != 0.0:
+                out = out + tap * xp[..., i : i + h, j : j + w]
+    return out
+
+
+def _correlate1d(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
+    """Zero-padded 1-D correlation along ``axis`` (-2 rows, -1 columns)."""
+    k = taps.size
+    n = x.shape[axis]
+    pad = (k // 2, (k - 1) // 2)
+    xp = F.pad(x, pad if axis == -1 else (0, 0) + pad)
+    out = torch.zeros_like(x)
+    for j in range(k):
+        tap = float(taps[j])
+        if tap != 0.0:
+            out = out + tap * xp.narrow(axis, j, n)
+    return out
+
+
+def sep_conv2d(x: torch.Tensor, col, row) -> torch.Tensor:
+    """Separable zero-padded correlation with the rank-1 mask col (x) row:
+    a column pass, then a row pass."""
+    col = np.asarray(col, np.float32).reshape(-1)
+    row = np.asarray(row, np.float32).reshape(-1)
+    x = x.to(_float_dtype(x))
+    return _correlate1d(_correlate1d(x, col, -2), row, -1)

@@ -1,0 +1,53 @@
+"""Gaussian pyramid: binomial blur + 2x subsample.
+
+Counterpart of ``cuda_optical_flow_2_tpu.ops.pyramid``.  Output pixel
+(x, y) is centred on source (2x, 2y) with zero padding; odd sizes floor
+(level k is (h >> k, w >> k), the trailing odd row/column is never read).
+
+Strided slices of a zero-padded copy, one separable pass per axis: exact
+float32 on every device (no cuDNN, so no TF32).  The TPU package has a
+Pallas kernel for this step that it never dispatches (ROADMAP.md queue 2).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cuda_optical_flow_2_torch.constants import BINOMIAL_1D
+
+__all__ = ["pyr_down", "build_pyramid"]
+
+
+def _down_axis(x: torch.Tensor, k: np.ndarray, axis: int) -> torch.Tensor:
+    """out[i] = sum_j k[j] * x[2i + j - r] along ``axis``, zero outside."""
+    r = k.size // 2
+    n_out = x.shape[axis] // 2
+    xp = F.pad(x, (r, r) if axis == -1 else (0, 0, r, r))
+    out = None
+    for j in range(k.size):
+        t = float(k[j]) * xp.narrow(axis, j, 2 * n_out).unflatten(axis, (n_out, 2)).select(
+            axis, 0
+        )
+        out = t if out is None else out + t
+    return out
+
+
+def pyr_down(x: torch.Tensor) -> torch.Tensor:
+    """Blur + 2x downsample: (..., H, W) -> (..., H//2, W//2)."""
+    h, w = x.shape[-2:]
+    oh, ow = h // 2, w // 2
+    dtype = x.dtype if x.is_floating_point() else torch.float32
+    xb = x[..., : 2 * oh, : 2 * ow].to(dtype)
+    return _down_axis(_down_axis(xb, BINOMIAL_1D, -2), BINOMIAL_1D, -1)
+
+
+def build_pyramid(x: torch.Tensor, levels: int) -> list[torch.Tensor]:
+    """Level-0..levels-1 pyramid; level k shaped (..., h >> k, w >> k)."""
+    h, w = x.shape[-2:]
+    pyr = [x]
+    for k in range(1, levels):
+        th, tw = h >> k, w >> k
+        pyr.append(pyr_down(pyr[-1][..., : 2 * th, : 2 * tw]))
+    return pyr

@@ -1,0 +1,59 @@
+"""Flow upsampling (coarse-to-fine) and downsampling (warm-start seeding).
+
+Counterpart of ``cuda_optical_flow_2_tpu.ops.resize``.  The pyramid's 2x step
+uses the half-pixel bilinear convention (coarse pixel k at fine 2k + 0.5):
+out[2k] = 0.75*in[k] + 0.25*in[k-1], out[2k+1] = 0.75*in[k] + 0.25*in[k+1],
+edges clamped; see the JAX module for why the half-pixel grid is kept.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cuda_optical_flow_2_torch.ops.pyramid import pyr_down
+
+__all__ = ["downsample_flow", "upsample_flow"]
+
+
+def _up2x_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Exact 2x bilinear upsample along ``axis`` (negative), edges clamped."""
+    n = x.shape[axis]
+    lo = torch.cat([x.narrow(axis, 0, 1), x.narrow(axis, 0, n - 1)], dim=axis)
+    hi = torch.cat([x.narrow(axis, 1, n - 1), x.narrow(axis, n - 1, 1)], dim=axis)
+    even = 0.75 * x + 0.25 * lo
+    odd = 0.75 * x + 0.25 * hi
+    ax = x.ndim + axis
+    return torch.stack([even, odd], dim=ax + 1).flatten(ax, ax + 1)
+
+
+def upsample_flow(flow: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """Upsample (..., h, w, 2) flow one pyramid octave to (..., H, W, 2),
+    H in (2h, 2h + 1) and W in (2w, 2w + 1), and double its values; an odd
+    target gets one edge-replicated row/column.  The JAX function's other
+    scales have no caller in the port."""
+    th, tw = shape
+    h, w = flow.shape[-3:-1]
+    if (th, tw) == (h, w):
+        return flow
+    if th not in (2 * h, 2 * h + 1) or tw not in (2 * w, 2 * w + 1):
+        raise ValueError(f"{shape} is not one pyramid octave above {(h, w)}")
+    out = _up2x_axis(_up2x_axis(flow, -3), -2)
+    if th == 2 * h + 1:
+        out = torch.cat([out, out[..., -1:, :, :]], dim=-3)
+    if tw == 2 * w + 1:
+        out = torch.cat([out, out[..., :, -1:, :]], dim=-2)
+    return out * 2.0
+
+
+def downsample_flow(flow: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """Resize (..., H, W, 2) flow down to a coarser pyramid level's (h, w):
+    per octave, the image pyramid's blur + decimation and halved values.
+    ``shape`` must be reachable by floor-halving."""
+    th, tw = shape
+    h, w = flow.shape[-3:-1]
+    while (h, w) != (th, tw):
+        if h // 2 < th or w // 2 < tw:
+            raise ValueError(f"{shape} is not a floor-halving of {tuple(flow.shape[-3:-1])}")
+        h, w = h // 2, w // 2
+        flow = torch.stack([pyr_down(flow[..., 0]), pyr_down(flow[..., 1])], dim=-1) * 0.5
+    return flow

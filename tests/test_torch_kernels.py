@@ -1,0 +1,217 @@
+"""The port's kernel modules against the JAX package's kernels (CPU).
+
+On CPU tensors each wrapper takes its kernel's plain PyTorch version; these
+tests hold that version to the JAX kernel's semantics.  The CUDA kernels
+themselves are held to the plain versions on the card by chip_smoke.py
+(tests/conftest.py imports jax, which the card's machine does not have).
+
+Tolerances: atol/rtol 2e-4 for flow, as tests/test_pallas.py compares the
+Pallas kernels with their XLA twins; 1e-4 for warped intensities (0-255).
+"""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import cuda_optical_flow_2_tpu as jof
+from cuda_optical_flow_2_tpu.kernels import lk_fused as jlk_fused
+from cuda_optical_flow_2_tpu.models.lucas_kanade import _lk_residual_xla
+from cuda_optical_flow_2_tpu.ops.warp import warp_bilinear as jwarp_bilinear
+
+from cuda_optical_flow_2_torch.interop import lk_config_from_jax
+from cuda_optical_flow_2_torch.kernels import _build, lk_fused, lk_step_fused, warp_select
+
+TOL = 2e-4
+
+
+def _pair(rng, h, w):
+    return (rng.integers(0, 256, (h, w)).astype(np.float32) for _ in range(2))
+
+
+def _smooth_flow(h, w, amp):
+    """A smooth field of up to ~amp px that sends border pixels out of bounds."""
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    u = amp * np.sin(2 * np.pi * ys / h) * np.cos(np.pi * xs / w)
+    v = 0.75 * amp * np.cos(2 * np.pi * xs / w) * np.sin(np.pi * ys / h) - 2.0
+    return np.stack([u, v], -1).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+
+def _j(a):
+    return jnp.asarray(np.asarray(a, np.float32))
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(
+        np.asarray(got, np.float32), np.asarray(want, np.float32), rtol=tol, atol=tol
+    )
+
+
+# --- kernel #1: lk_residual ---------------------------------------------
+
+
+@pytest.mark.parametrize("weights", ["box", "tri", "gauss"])
+def test_lk_residual_matches_pallas_interpret(rng, weights):
+    """The plain version against the Pallas kernel itself, interpret mode."""
+    prev, nxt = _pair(rng, 61, 77)
+    jcfg = jof.LKConfig(levels=1, window=19, window_weights=weights, use_pallas=False)
+    want = jlk_fused.lk_residual(_j(prev), _j(nxt), jcfg, interpret=True)
+    got = lk_fused.lk_residual(_t(prev), _t(nxt), lk_config_from_jax(jcfg))
+    _close(got, want)
+
+
+@pytest.mark.parametrize(
+    "shape,window,tk,norm,weights,eps",
+    [
+        ((64, 80), 9, "gauss3", True, "tri", 1e-8),
+        ((61, 77), 19, "dt3", False, "box", 1e-8),
+        ((40, 96), 15, "delta", True, "gauss", 1e-8),
+        ((2, 33, 45), 7, "dt3", True, "tri", 1e-8),
+    ],
+)
+def test_lk_residual_matches_xla_twin(rng, shape, window, tk, norm, weights, eps):
+    prev, nxt = (rng.integers(0, 256, shape).astype(np.float32) for _ in range(2))
+    jcfg = jof.LKConfig(
+        levels=1, window=window, temporal_kernel=tk, normalize_gradients=norm,
+        window_weights=weights, det_eps=eps,
+    )
+    want = _lk_residual_xla(_j(prev), _j(nxt), jcfg)
+    got = lk_fused.lk_residual(_t(prev), _t(nxt), lk_config_from_jax(jcfg))
+    assert tuple(got.shape) == shape + (2,)
+    _close(got, want)
+
+
+def test_lk_residual_det_guard(rng):
+    """A flat pair: eps=0 divides by zero (non-finite), the guard gives 0."""
+    flat = np.full((24, 24), 7.0, np.float32)
+    raw = lk_fused.lk_residual(_t(flat), _t(flat), lk_config_from_jax(jof.LKConfig(det_eps=0.0)))
+    assert not torch.isfinite(raw).all()
+    guarded = lk_fused.lk_residual(_t(flat), _t(flat), lk_config_from_jax(jof.LKConfig()))
+    assert bool((guarded == 0).all())
+
+
+# --- kernel #2: lk_level_step -------------------------------------------
+
+
+def _xla_step(prev, nxt, flow, jcfg):
+    """The JAX composition the fused step kernel stands for."""
+    d = jcfg.max_displacement
+    fc = jnp.clip(_j(flow), -d, d)
+    return fc + _lk_residual_xla(_j(prev), jwarp_bilinear(_j(nxt), fc), jcfg)
+
+
+@pytest.mark.parametrize(
+    "amp,max_disp,weights",
+    [(6.0, 32, "tri"), (14.0, 8, "tri"), (6.0, 32, "gauss"), (20.0, 4, "box")],
+)
+def test_lk_level_step_matches_xla_composition(rng, amp, max_disp, weights):
+    """Out-of-bounds samples at the borders; amp > max_disp puts part of the
+    flow over budget, so the clamp and the accumulation base are exercised."""
+    prev, nxt = _pair(rng, 48, 64)
+    flow = _smooth_flow(48, 64, amp)
+    jcfg = jof.LKConfig(levels=1, window=11, max_displacement=max_disp, window_weights=weights)
+    want = _xla_step(prev, nxt, flow, jcfg)
+    got = lk_step_fused.lk_level_step(_t(prev), _t(nxt), _t(flow), lk_config_from_jax(jcfg))
+    _close(got, want)
+    if amp > max_disp:
+        assert np.abs(flow).max() > max_disp  # the case really is over budget
+
+
+def test_lk_level_step_nan_flow_keeps_unwarped_pixel(rng):
+    prev, nxt = _pair(rng, 20, 24)
+    flow = _smooth_flow(20, 24, 3.0)
+    flow[5, 7] = np.nan
+    jcfg = jof.LKConfig(levels=1, window=5)
+    got = lk_step_fused.lk_level_step(_t(prev), _t(nxt), _t(flow), lk_config_from_jax(jcfg))
+    want = np.asarray(_xla_step(prev, nxt, flow, jcfg), np.float32)
+    g = got.numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(want))
+    _close(g[~np.isnan(want)], want[~np.isnan(want)])
+
+
+# --- kernel #3: warp_bilinear_select ------------------------------------
+
+
+@pytest.mark.parametrize("amp,max_disp", [(5.0, 32), (12.0, 6)])
+def test_warp_select_matches_clipped_gather(rng, amp, max_disp):
+    img = rng.integers(0, 256, (61, 45)).astype(np.float32)
+    flow = _smooth_flow(61, 45, amp)
+    want = jwarp_bilinear(_j(img), jnp.clip(_j(flow), -max_disp, max_disp))
+    got = warp_select.warp_bilinear_select(_t(img), _t(flow), max_disp)
+    _close(got, want, tol=1e-4)
+
+
+# --- dispatch and launch counters ---------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_path_without_launches(rng):
+    prev, nxt = _pair(rng, 32, 40)
+    flow = _smooth_flow(32, 40, 3.0)
+    wrappers = (lk_fused.lk_residual, lk_step_fused.lk_level_step, warp_select.warp_bilinear_select)
+    before = [fn.launches for fn in wrappers]
+    cfg = lk_config_from_jax(jof.LKConfig(levels=1, window=9))
+    torch.testing.assert_close(
+        lk_fused.lk_residual(_t(prev), _t(nxt), cfg),
+        lk_fused.lk_residual_plain(_t(prev), _t(nxt), cfg), rtol=0, atol=0,
+    )
+    torch.testing.assert_close(
+        lk_step_fused.lk_level_step(_t(prev), _t(nxt), _t(flow), cfg),
+        lk_step_fused.lk_level_step_plain(_t(prev), _t(nxt), _t(flow), cfg), rtol=0, atol=0,
+    )
+    torch.testing.assert_close(
+        warp_select.warp_bilinear_select(_t(prev), _t(flow), 8),
+        warp_select.warp_bilinear_select_plain(_t(prev), _t(flow), 8), rtol=0, atol=0,
+    )
+    assert [fn.launches for fn in wrappers] == before
+
+
+def test_non_cpu_non_cuda_tensors_raise():
+    """Only a CPU tensor takes the plain version; anything else launches or raises."""
+    meta = torch.empty(16, 16, device="meta")
+    cfg = lk_config_from_jax(jof.LKConfig(levels=1, window=5))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        lk_fused.lk_residual(meta, meta, cfg)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        warp_select.warp_bilinear_select(meta, torch.empty(16, 16, 2, device="meta"))
+
+
+def test_kernel_constants_bound_the_window():
+    cfg = lk_config_from_jax(jof.LKConfig(window=15, normalize_gradients=True))
+    r, taps, masks = lk_fused.kernel_constants(cfg)
+    assert r == 7 and taps.shape == (15,) and masks.shape == (27,)
+    assert masks.dtype == np.float32 and abs(masks[18:].sum() - 1.0) < 1e-6
+    with pytest.raises(ValueError, match="window"):
+        lk_fused.kernel_constants(dataclasses.replace(cfg, window=lk_fused.MAX_WINDOW + 2))
+
+
+def test_build_module_names_sources_and_signatures():
+    """Importing needs no nvcc; every C entry point has declared argtypes and
+    exists in the sources."""
+    names = {p.name for p in _build.SOURCES_DIR.iterdir()}
+    assert {"lk_fused.cu", "lk_step_fused.cu", "warp_select.cu"} <= names
+    src = "".join(p.read_text() for p in _build.SOURCES_DIR.glob("*.cu"))
+    for fn in _build._SIGNATURES:
+        assert f'extern "C" int {fn}(' in src
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, cuda_optical_flow_2_torch, cuda_optical_flow_2_torch.interop, "
+        "cuda_optical_flow_2_torch.utils.io; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
+        "'cuda_optical_flow_2_tpu'))]; "
+        "sys.exit(1 if bad else 0)"
+    )
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=root)
+    assert proc.returncode == 0, proc.stderr
