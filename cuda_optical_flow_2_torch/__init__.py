@@ -1,4 +1,5 @@
-"""Dense pyramidal Lucas-Kanade optical flow in PyTorch with CUDA kernels.
+"""Dense optical flow (pyramidal Lucas-Kanade, Horn-Schunck) in PyTorch with
+CUDA kernels.
 
 The PyTorch port of ``cuda_optical_flow_2_tpu`` (the JAX reference, which
 stays beside it).  Same module names, same layouts: images are
@@ -11,6 +12,7 @@ plain PyTorch versions.
     import cuda_optical_flow_2_torch as of
 
     flow = of.pyramidal_lk(prev_gray, next_gray, of.LKConfig(levels=4))
+    flow = of.pyramidal_hs(prev_gray, next_gray, of.HSConfig())
 """
 
 from cuda_optical_flow_2_torch.config import (
@@ -19,6 +21,13 @@ from cuda_optical_flow_2_torch.config import (
     REFERENCE_GPU,
     BilateralConfig,
     LKConfig,
+)
+from cuda_optical_flow_2_torch.models.horn_schunck import (
+    HSConfig,
+    horn_schunck,
+    hs_coarse_to_fine,
+    hs_preprocess,
+    pyramidal_hs,
 )
 from cuda_optical_flow_2_torch.models.lucas_kanade import (
     coarse_to_fine,
@@ -41,6 +50,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BilateralConfig",
+    "HSConfig",
     "LKConfig",
     "PAPER_1080P",
     "REFERENCE_CPU",
@@ -49,10 +59,14 @@ __all__ = [
     "RecoveryConfig",
     "coarse_to_fine",
     "compose_flow_pyramid",
+    "horn_schunck",
+    "hs_coarse_to_fine",
+    "hs_preprocess",
     "init_state",
     "lk_level",
     "preprocess",
     "process_sequence",
+    "pyramidal_hs",
     "pyramidal_lk",
     "pyramidal_lk_pyramid",
     "solve_flow",

@@ -59,7 +59,7 @@ class LKConfig:
         kernel path clamps flow to it before sampling.
       normalize_gradients: scale the derivative stencils to unit gain.
       prefilter: optional joint-bilateral pre-smoothing of the input frames
-        (not yet ported: a set prefilter raises NotImplementedError).
+        (``REFERENCE_GPU`` sets the reference's 9x9 filter).
       use_pallas: take the hand-written kernel path (see module docstring).
       d_local, c_max: TPU select-warp bounds; validated, unused by the port.
       fused_half_upsample: TPU in-kernel upsample switch; unused by the port.

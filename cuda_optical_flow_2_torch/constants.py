@@ -1,4 +1,4 @@
-"""Convolution masks used by the LK slice (numpy only).
+"""Convolution masks and the Gaussian-mask generator (numpy only).
 
 Copies of the entries of ``cuda_optical_flow_2_tpu.constants`` that the
 port's pipeline reads; ``tests/test_torch_ops.py`` holds them equal to the
@@ -7,9 +7,11 @@ originals.  Stencils are applied as correlations (no mask flip).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
-__all__ = ["BINOMIAL_1D", "MASKS"]
+__all__ = ["BINOMIAL_1D", "MASKS", "generate_gaussian_kernel"]
 
 _f32 = np.float32
 
@@ -30,3 +32,28 @@ MASKS = {
 
 # Separable factor of MASKS["gauss3"]; the pyramid's blur.
 BINOMIAL_1D = np.array([0.25, 0.5, 0.25], dtype=_f32)
+
+
+def generate_gaussian_kernel(sigma: float, size: int = -1) -> np.ndarray:
+    """Normalized 2-D Gaussian mask, float64 (the bilateral's spatial taps).
+
+    ``size == -1`` derives the side as ``int(2*pi*sigma)``; an even side is
+    bumped to the next odd one; the four quadrants are filled from the same
+    value and the mask is scaled to unit sum.
+    """
+    if size == -1:
+        size = int(2.0 * math.pi * sigma)
+    if size % 2 == 0:
+        size += 1
+    mask = np.zeros((size, size), dtype=np.float64)
+    hk = size >> 1
+    sigma2 = float(sigma) * float(sigma)
+    for i in range(hk + 1):
+        for j in range(hk + 1):
+            value = 1.0 / (2.0 * math.pi * sigma2) * math.exp(-0.5 * (i * i + j * j) / sigma2)
+            mask[hk + i, hk + j] = value
+            mask[hk - i, hk - j] = value
+            mask[hk + i, hk - j] = value
+            mask[hk - i, hk + j] = value
+    mask /= mask.sum()
+    return mask

@@ -1,7 +1,7 @@
 """Carry configuration and stream state across from the JAX package.
 
 Optical flow has no learned weights: what crosses between the two packages
-is the configuration and the carried streaming state.  Neither function
+is the configuration and the carried streaming state.  No function here
 imports jax; they read plain dataclass fields and numpy arrays.
 """
 
@@ -13,26 +13,39 @@ import numpy as np
 import torch
 
 from cuda_optical_flow_2_torch.config import BilateralConfig, LKConfig
-from cuda_optical_flow_2_torch.models.streaming import FlowState
+from cuda_optical_flow_2_torch.models.horn_schunck import HSConfig
+from cuda_optical_flow_2_torch.models.streaming import FlowState, resolve_device
 
-__all__ = ["lk_config_from_jax", "flow_state_from_numpy"]
+__all__ = ["lk_config_from_jax", "hs_config_from_jax", "flow_state_from_numpy"]
+
+
+def _fields(cfg) -> dict:
+    fields = dataclasses.asdict(cfg)
+    if fields.get("prefilter") is not None:
+        fields["prefilter"] = BilateralConfig(**fields["prefilter"])
+    return fields
 
 
 def lk_config_from_jax(cfg) -> LKConfig:
     """The port's :class:`LKConfig` with the fields of ``cfg``, any dataclass
     with ``LKConfig``'s fields (such as the JAX package's)."""
-    fields = dataclasses.asdict(cfg)
-    if fields.get("prefilter") is not None:
-        fields["prefilter"] = BilateralConfig(**fields["prefilter"])
-    return LKConfig(**fields)
+    return LKConfig(**_fields(cfg))
 
 
-def flow_state_from_numpy(pyramid, flow, device: torch.device | str = "cpu") -> FlowState:
+def hs_config_from_jax(cfg) -> HSConfig:
+    """The port's :class:`HSConfig` with the fields of ``cfg``, any dataclass
+    with ``HSConfig``'s fields (such as the JAX package's)."""
+    return HSConfig(**_fields(cfg))
+
+
+def flow_state_from_numpy(pyramid, flow, device: torch.device | str | None = None) -> FlowState:
     """A streaming :class:`FlowState` from numpy-convertible arrays: the
-    pyramid levels (level 0 first) and the carried flow (or None)."""
+    pyramid levels (level 0 first) and the carried flow (or None), on
+    ``device`` (default the CUDA device; pass ``"cpu"`` for the CPU)."""
+    dev = resolve_device(device)
 
     def tensor(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, np.float32)).to(device)
+        return torch.from_numpy(np.array(a, np.float32)).to(dev)
 
     return FlowState(
         tuple(tensor(level) for level in pyramid), None if flow is None else tensor(flow)

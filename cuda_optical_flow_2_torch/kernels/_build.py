@@ -1,11 +1,12 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
 The sources are ``cuda_optical_flow_2_torch/csrc/*.cu`` and ``*.cuh``.  At the
-first CUDA launch they are compiled for Hopper (``sm_90a``) into one shared
-library with a plain C interface, under ``cuda_optical_flow_2_torch/_build/``
-in a directory named by a hash of the sources and flags, so an edit rebuilds
-and an unchanged tree reuses the library.  Importing this module needs
-neither nvcc nor a GPU.
+first CUDA launch they are compiled for Hopper (``sm_90a``), one nvcc process
+per ``.cu`` file, all started together, and linked into one shared library
+with a plain C interface, under ``cuda_optical_flow_2_torch/_build/`` in a
+directory named by a hash of the sources and flags, so an edit rebuilds and
+an unchanged tree reuses the library.  Importing this module needs neither
+nvcc nor a GPU.
 
 Every C entry point takes device pointers and the CUDA stream as
 ``c_void_p``, sizes as ``c_int``, and returns ``cudaGetLastError()`` after its
@@ -24,7 +25,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "launch", "require_cuda", "build_seconds", "SOURCES_DIR"]
+__all__ = [
+    "library", "launch", "require_cuda", "build_seconds", "build_commands", "SOURCES_DIR",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES_DIR = _PKG / "csrc"
@@ -32,15 +35,18 @@ _BUILD_DIR = _PKG / "_build"
 _LIB_NAME = "libof2kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # name -> argtypes; every function returns a cudaError_t as int.
 _SIGNATURES = {
     "of2_lk_residual": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _P],
     "of2_lk_level_step": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P],
     "of2_warp_select": [_P, _P, _P, _I, _I, _I, _F, _P],
+    "of2_pyr_down": [_P, _P, _I, _I, _I, _L, _L, _L, _P],
+    "of2_bilateral": [_P, _P, _P, _I, _I, _I, _I, _P, _F, _F, _P],
+    "of2_hs_relax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _F, _F, _F, _F, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -61,6 +67,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build the kernels")
 
 
+def build_commands(nvcc: str, out_dir: Path, tmp: Path) -> tuple[list[list[str]], list[str]]:
+    """(one compile command per ``.cu`` source, the link command into ``tmp``)."""
+    compiles, objects = [], []
+    for src in sorted(SOURCES_DIR.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{os.getpid()}.o"
+        compiles.append([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)])
+        objects.append(str(obj))
+    return compiles, [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objects]
+
+
 def _build() -> Path:
     """Compile the sources unless a library for this exact tree exists."""
     global _build_seconds
@@ -75,15 +91,28 @@ def _build() -> Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES_DIR.glob("*.cu"))]
+    compiles, link = build_commands(_nvcc(), out_dir, tmp)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in compiles
+    ]
+    results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(compiles, procs)]
+    if all(rc == 0 for *_, rc in results):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.stdout + proc.stderr, proc.returncode))
     _build_seconds = time.perf_counter() - t0
     # ptxas -v: registers, shared memory and spills per kernel
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    (out_dir / "build.log").write_text(
+        "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in results)
+    )
+    for cmd in compiles:
+        Path(cmd[-1]).unlink(missing_ok=True)
+    failed = [(cmd, out, rc) for cmd, out, rc in results if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out[-4000:]}")
     os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
     return lib_path
 

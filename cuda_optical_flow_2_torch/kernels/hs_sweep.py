@@ -1,0 +1,162 @@
+"""Horn-Schunck relaxation kernel: every Jacobi sweep of one level on the card.
+
+Replaces ``cuda_optical_flow_2_tpu/kernels/hs_sweep.py::hs_relax`` (whole
+image, quadratic and Charbonnier, with ``it_offset``; the spatial-TP
+``hs_relax_band`` is not ported yet).  CUDA source: ``csrc/hs_sweep.cu``.
+It computes, from ``Ix, Iy`` = Sobel / 8 of ``prev`` and
+``It = tmask (x) (nxt - prev)`` (+ ``it_offset``), zero padding throughout:
+
+* quadratic: ``iterations`` sweeps of
+  ``u <- u_bar - Ix (Ix u_bar + Iy v_bar + It) / (alpha^2 + Ix^2 + Iy^2)``
+  (and v alike), with ``u_bar`` the HS neighbour average;
+* Charbonnier (``robust = (eps_data, eps_smooth)``): the sweeps in chunks of
+  ``MAX_SWEEPS``; each chunk recomputes the lagged data and smoothness
+  weights from its incoming flow and freezes them for its sweeps, so the
+  chunk length is part of the result, as in the JAX kernel.
+
+What bounds it on an H100: with the whole relaxation counted once, FP32
+operations (about 27 per pixel per quadratic sweep, 56 per Charbonnier
+sweep, against 16-28 bytes of frames and flow per pixel for the whole
+call).  The design is the simple one: one launch computes the
+gradient planes, then one launch per sweep reads the flow and the constant
+planes and writes the next flow into a ping-pong buffer, so each sweep is a
+full pass over device memory and the kernel runs at the bandwidth of that
+pass, not at its operation bound.  The TPU kernel's time tiling (a K-row
+halo per band kept in VMEM for K sweeps) is the way to close that gap in a
+later change.  The C entry point issues every launch of the call, so the
+wrapper makes one ctypes call per level.
+
+:func:`hs_relax` launches the kernels for CUDA tensors and takes
+:func:`hs_relax_plain` for CPU tensors; ``hs_relax.launches`` counts calls
+that launched (one per relaxation, whatever its sweep count).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cuda_optical_flow_2_torch.constants import MASKS
+from cuda_optical_flow_2_torch.kernels import _build
+from cuda_optical_flow_2_torch.kernels.lk_fused import planes
+from cuda_optical_flow_2_torch.ops.gradients import (
+    sobel_scale,
+    spatial_gradients,
+    temporal_gradient,
+    temporal_mask,
+)
+
+__all__ = ["hs_relax", "hs_relax_plain", "MAX_SWEEPS"]
+
+# Sweeps per Charbonnier chunk: the lagged weights are refreshed this often
+# (the JAX kernel's time-tiling depth, which fixes the IRLS cadence).
+MAX_SWEEPS = 16
+
+
+def _identity(prev: torch.Tensor, flow_init: torch.Tensor | None) -> torch.Tensor:
+    """Zero sweeps: the initial flow (zeros without one), float32."""
+    if flow_init is not None:
+        return flow_init.to(torch.float32)
+    return torch.zeros(prev.shape + (2,), dtype=torch.float32, device=prev.device)
+
+
+def hs_relax_plain(
+    prev: torch.Tensor,
+    nxt: torch.Tensor,
+    flow_init: torch.Tensor | None,
+    *,
+    iterations: int,
+    alpha: float,
+    temporal_kernel: str,
+    it_offset: torch.Tensor | None = None,
+    robust: tuple[float, float] | None = None,
+) -> torch.Tensor:
+    """The plain PyTorch version: the ops gradients and the relaxation loops
+    of ``models.horn_schunck`` (the JAX package's XLA twin)."""
+    from cuda_optical_flow_2_torch.models import horn_schunck as hs
+
+    if iterations <= 0:
+        return _identity(prev, flow_init)
+    ix, iy = spatial_gradients(prev, normalize=True)
+    it = temporal_gradient(prev, nxt, temporal_kernel, normalize=True)
+    if it_offset is not None:
+        it = it + it_offset.to(torch.float32)
+    uv = _identity(prev, flow_init)
+    if robust is not None:
+        return hs._robust_relax_xla(uv, ix, iy, it, iterations, alpha, robust)
+    return hs._quadratic_relax(uv, ix, iy, it, iterations, alpha)
+
+
+def _masks(temporal_kernel: str) -> np.ndarray:
+    """The 27 floats of the C entry point: Sobel-x/8, Sobel-y/8, temporal."""
+    scale = sobel_scale(True)
+    return np.concatenate(
+        [
+            (MASKS["sobel_x"] * scale).ravel(),
+            (MASKS["sobel_y"] * scale).ravel(),
+            temporal_mask(temporal_kernel, True).ravel(),
+        ]
+    ).astype(np.float32)
+
+
+def hs_relax(
+    prev: torch.Tensor,
+    nxt: torch.Tensor,
+    flow_init: torch.Tensor | None,
+    *,
+    iterations: int,
+    alpha: float,
+    temporal_kernel: str,
+    it_offset: torch.Tensor | None = None,
+    robust: tuple[float, float] | None = None,
+) -> torch.Tensor:
+    """``iterations`` Jacobi sweeps of Horn-Schunck on (..., H, W) frames,
+    from ``flow_init`` (..., H, W, 2) or zeros; returns (..., H, W, 2) float32.
+
+    ``it_offset`` (..., H, W) is added to the temporal gradient (the
+    linearization term when relaxing a total flow around a warp point);
+    ``robust = (eps_data, eps_smooth)`` selects the Charbonnier penalty.
+    """
+    tensors = [t for t in (prev, nxt, flow_init, it_offset) if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return hs_relax_plain(
+            prev, nxt, flow_init, iterations=iterations, alpha=alpha,
+            temporal_kernel=temporal_kernel, it_offset=it_offset, robust=robust,
+        )
+    dev = _build.require_cuda(*tensors)
+    lead, (h, w) = prev.shape[:-2], prev.shape[-2:]
+    if (
+        nxt.shape != prev.shape
+        or (flow_init is not None and flow_init.shape != prev.shape + (2,))
+        or (it_offset is not None and it_offset.shape != prev.shape)
+    ):
+        raise ValueError(
+            f"shapes prev {tuple(prev.shape)}, next {tuple(nxt.shape)}, flow_init "
+            f"{None if flow_init is None else tuple(flow_init.shape)}, it_offset "
+            f"{None if it_offset is None else tuple(it_offset.shape)}: want (..., H, W), "
+            "(..., H, W, 2)"
+        )
+    if iterations <= 0:
+        return _identity(prev, flow_init)
+    p, n = planes(prev.reshape(-1, h, w), nxt.reshape(-1, h, w))
+    b = p.shape[0]
+    off = None if it_offset is None else planes(it_offset.reshape(-1, h, w))[0]
+    f0 = None if flow_init is None else planes(flow_init.reshape(-1, h, w, 2))[0]
+    out = torch.empty((b, h, w, 2), dtype=torch.float32, device=dev)
+    n_px = b * h * w
+    n2 = n_px + (n_px & 1)  # keeps the float4 scratch planes 16-byte aligned
+    scratch = torch.empty((12 if robust else 6) * n2, dtype=torch.float32, device=dev)
+    ed, es = robust if robust is not None else (1.0, 1.0)
+    masks = _masks(temporal_kernel)
+    _build.launch(
+        dev, "of2_hs_relax", p.data_ptr(), n.data_ptr(),
+        None if off is None else off.data_ptr(), None if f0 is None else f0.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), b, h, w, int(iterations), MAX_SWEEPS,
+        float(alpha * alpha), masks.ctypes.data, int(robust is not None),
+        float(ed), float(ed * ed), float(es), float(es * es),
+    )
+    hs_relax.launches += 1
+    return out.reshape(lead + (h, w, 2))
+
+
+hs_relax.launches = 0

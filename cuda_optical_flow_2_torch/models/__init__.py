@@ -1,1 +1,1 @@
-"""Flow pipelines: pyramidal Lucas-Kanade and its streaming loop."""
+"""Flow pipelines: pyramidal Lucas-Kanade, its streaming loop, Horn-Schunck."""

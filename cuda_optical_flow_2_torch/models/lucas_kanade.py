@@ -5,9 +5,11 @@ flow is carried down the pyramid: upsample x2 -> warp the next frame ->
 solve for the residual -> add.  Everything runs on the device of the input
 tensors.
 
-``config.use_pallas`` (default True) routes the per-level work through the
-hand-written kernels: ``kernels.lk_fused.lk_residual`` at the coarsest level
-and ``kernels.lk_step_fused.lk_level_step`` at each finer level, which clamp
+``config.use_pallas`` (default True) routes the work through the
+hand-written kernels: the bilateral prefilter (``kernels.bilateral_tap``)
+and each pyramid step (``kernels.pyr_down``) in :func:`preprocess`,
+``kernels.lk_fused.lk_residual`` at the coarsest level and
+``kernels.lk_step_fused.lk_level_step`` at each finer level, which clamp
 the flow to ``max_displacement`` before warping and accumulate on the
 clamped flow.  For CPU tensors those wrappers take their plain versions.
 ``use_pallas=False`` is the plain ops composition without the clamp, the
@@ -24,7 +26,8 @@ import dataclasses
 import torch
 
 from cuda_optical_flow_2_torch.config import LKConfig
-from cuda_optical_flow_2_torch.kernels import lk_fused, lk_step_fused
+from cuda_optical_flow_2_torch.kernels import bilateral_tap, lk_fused, lk_step_fused
+from cuda_optical_flow_2_torch.ops.bilateral import bilateral_filter
 from cuda_optical_flow_2_torch.ops.pyramid import build_pyramid
 from cuda_optical_flow_2_torch.ops.resize import upsample_flow
 from cuda_optical_flow_2_torch.ops.solve import solve_flow
@@ -92,13 +95,19 @@ def _validate(prev: torch.Tensor, nxt: torch.Tensor, config: LKConfig) -> None:
 
 
 def preprocess(frame: torch.Tensor, config: LKConfig) -> list[torch.Tensor]:
-    """Planar float frame -> Gaussian pyramid (level 0 first)."""
+    """Planar float frame -> (optionally bilateral-filtered) Gaussian pyramid
+    (level 0 first): the per-frame half of the reference's live loop.  The
+    prefilter and the pyramid take the kernels with ``use_pallas``, their
+    plain versions without."""
     if config.prefilter is not None:
-        raise NotImplementedError(
-            "the bilateral prefilter is not ported yet (ROADMAP.md queue 1, "
-            "'Bilateral prefilter'); use prefilter=None"
-        )
-    return build_pyramid(frame, config.levels)
+        pf = config.prefilter
+        if config.use_pallas:
+            frame = bilateral_tap.bilateral_kernel(
+                frame, pf.window, pf.sigma_spatial, pf.sigma_range
+            )
+        else:
+            frame = bilateral_filter(frame, None, pf.window, pf.sigma_spatial, pf.sigma_range)
+    return build_pyramid(frame, config.levels, config.use_pallas)
 
 
 def coarse_to_fine(

@@ -8,7 +8,8 @@ Counterpart of ``cuda_optical_flow_2_tpu.models.streaming`` for
     for frame in frames:
         state, flow = step(state, frame, config)
 
-The state lives on the device of the frames.  The serving configuration is a
+The state lives on the device of the frames.  With a prefilter in the config
+the carried pyramid is the prefiltered one.  The serving configuration is a
 shallow pyramid with ``warm_start=True``: each pair is seeded with the
 previous pair's flow.  With a :class:`RecoveryConfig` every warm step first
 checks the seed at the deepest carried pyramid level (one warp through the
@@ -29,7 +30,9 @@ from cuda_optical_flow_2_torch.models.lucas_kanade import _validate, coarse_to_f
 from cuda_optical_flow_2_torch.ops.resize import downsample_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
 
-__all__ = ["FlowState", "RecoveryConfig", "init_state", "step", "process_sequence"]
+__all__ = [
+    "FlowState", "RecoveryConfig", "init_state", "step", "process_sequence", "resolve_device",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +126,7 @@ def step(
     track = config.levels
     init = None
     if warm_start and state.flow is not None:
-        init = downsample_flow(state.flow, tuple(pyr[track - 1].shape[-2:]))
+        init = downsample_flow(state.flow, tuple(pyr[track - 1].shape[-2:]), config.use_pallas)
 
     if recovery is None or init is None:
         if recovery is not None:
@@ -134,7 +137,7 @@ def step(
 
     # Acquisition check at the deepest carried level, per stream.
     prev_c, next_c = state.pyramid[-1], pyr[-1]
-    seed_c = downsample_flow(state.flow, tuple(next_c.shape[-2:]))
+    seed_c = downsample_flow(state.flow, tuple(next_c.shape[-2:]), config.use_pallas)
     if config.use_pallas:
         # The default 32 px budget, as the JAX check's LKConfig(levels=1).
         warped = warp_select.warp_bilinear_select(next_c, seed_c)
@@ -151,20 +154,42 @@ def step(
     return FlowState(tuple(pyr), flow), flow
 
 
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device for data that arrives as arrays: ``device`` when given,
+    else the CUDA device; with no CUDA device the caller must ask for the
+    CPU explicitly (``device="cpu"``), so nothing runs there unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU (plain PyTorch versions)"
+        )
+    return torch.device("cuda")
+
+
+def _as_frame(frame, device: torch.device | str | None) -> torch.Tensor:
+    """A tensor keeps its device; anything else goes to ``resolve_device``."""
+    if isinstance(frame, torch.Tensor):
+        return frame
+    return torch.as_tensor(frame, device=resolve_device(device))
+
+
 def process_sequence(
     frames,
     config: LKConfig,
     warm_start: bool = False,
     recovery: RecoveryConfig | None = None,
+    device: torch.device | str | None = None,
 ):
     """Yield (frame_index, flow) for frames[1:].
 
-    ``frames`` is any iterable of (H, W) arrays or tensors; each is turned
-    into a tensor with ``torch.as_tensor``, so CUDA tensors keep the whole
-    loop on the card (send uint8 frames: the cast to float32 happens there).
-    A ``None`` element (a decode failure) is skipped: no flow is yielded for
-    it, the next good frame pairs with the last good one, and the carried
-    warm flow is dropped.
+    ``frames`` is any iterable of (H, W) arrays or tensors.  A tensor stays
+    on its device; an array goes to ``device``, which defaults to the CUDA
+    device and must be given as ``"cpu"`` to run on the CPU (send uint8
+    frames: the cast to float32 happens on the device).  A ``None`` element
+    (a decode failure) is skipped: no flow is yielded for it, the next good
+    frame pairs with the last good one, and the carried warm flow is
+    dropped.
     """
     _require_lk(config)
     it = iter(frames)
@@ -172,7 +197,7 @@ def process_sequence(
     offset = 0
     for offset, frame in enumerate(it):
         if frame is not None:
-            first = torch.as_tensor(frame)
+            first = _as_frame(frame, device)
             break
     if first is None:
         return
@@ -183,5 +208,5 @@ def process_sequence(
             if state.flow is not None:
                 state = FlowState(state.pyramid, None)
             continue
-        state, flow = step(state, torch.as_tensor(frame), config, warm_start, recovery)
+        state, flow = step(state, _as_frame(frame, device), config, warm_start, recovery)
         yield i, flow

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv2d", "sep_conv2d"]
+__all__ = ["conv2d", "sep_conv2d", "stencil2d"]
 
 
 def _float_dtype(x: torch.Tensor) -> torch.dtype:
@@ -39,6 +39,11 @@ def conv2d(x: torch.Tensor, mask) -> torch.Tensor:
             if tap != 0.0:
                 out = out + tap * xp[..., i : i + h, j : j + w]
     return out
+
+
+# The JAX package's shift-form twin of its conv2d; here conv2d already has
+# that form, so the two names are one function.
+stencil2d = conv2d
 
 
 def _correlate1d(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:

@@ -4,9 +4,11 @@ Counterpart of ``cuda_optical_flow_2_tpu.ops.pyramid``.  Output pixel
 (x, y) is centred on source (2x, 2y) with zero padding; odd sizes floor
 (level k is (h >> k, w >> k), the trailing odd row/column is never read).
 
-Strided slices of a zero-padded copy, one separable pass per axis: exact
-float32 on every device (no cuDNN, so no TF32).  The TPU package has a
-Pallas kernel for this step that it never dispatches (ROADMAP.md queue 2).
+``use_pallas=True`` (the default, as in the JAX package) routes through the
+hand-written kernel ``kernels.pyr_down``, which takes this module's plain
+version for CPU tensors.  The plain version is strided slices of a
+zero-padded copy, one separable pass per axis: exact float32 on every
+device (no cuDNN, so no TF32).
 """
 
 from __future__ import annotations
@@ -34,8 +36,12 @@ def _down_axis(x: torch.Tensor, k: np.ndarray, axis: int) -> torch.Tensor:
     return out
 
 
-def pyr_down(x: torch.Tensor) -> torch.Tensor:
+def pyr_down(x: torch.Tensor, use_pallas: bool = True) -> torch.Tensor:
     """Blur + 2x downsample: (..., H, W) -> (..., H//2, W//2)."""
+    if use_pallas:
+        from cuda_optical_flow_2_torch.kernels import pyr_down as kernel
+
+        return kernel.pyr_down(x)
     h, w = x.shape[-2:]
     oh, ow = h // 2, w // 2
     dtype = x.dtype if x.is_floating_point() else torch.float32
@@ -43,11 +49,10 @@ def pyr_down(x: torch.Tensor) -> torch.Tensor:
     return _down_axis(_down_axis(xb, BINOMIAL_1D, -2), BINOMIAL_1D, -1)
 
 
-def build_pyramid(x: torch.Tensor, levels: int) -> list[torch.Tensor]:
+def build_pyramid(x: torch.Tensor, levels: int, use_pallas: bool = True) -> list[torch.Tensor]:
     """Level-0..levels-1 pyramid; level k shaped (..., h >> k, w >> k)."""
-    h, w = x.shape[-2:]
     pyr = [x]
-    for k in range(1, levels):
-        th, tw = h >> k, w >> k
-        pyr.append(pyr_down(pyr[-1][..., : 2 * th, : 2 * tw]))
+    for _ in range(1, levels):
+        # pyr_down crops the trailing odd row/column itself.
+        pyr.append(pyr_down(pyr[-1], use_pallas))
     return pyr

@@ -45,15 +45,20 @@ def upsample_flow(flow: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
     return out * 2.0
 
 
-def downsample_flow(flow: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+def downsample_flow(
+    flow: torch.Tensor, shape: tuple[int, int], use_pallas: bool = True
+) -> torch.Tensor:
     """Resize (..., H, W, 2) flow down to a coarser pyramid level's (h, w):
-    per octave, the image pyramid's blur + decimation and halved values.
-    ``shape`` must be reachable by floor-halving."""
+    per octave, the image pyramid's blur + decimation (``pyr_down``, kernel
+    or plain per ``use_pallas``) and halved values.  ``shape`` must be
+    reachable by floor-halving."""
     th, tw = shape
     h, w = flow.shape[-3:-1]
     while (h, w) != (th, tw):
         if h // 2 < th or w // 2 < tw:
             raise ValueError(f"{shape} is not a floor-halving of {tuple(flow.shape[-3:-1])}")
         h, w = h // 2, w // 2
-        flow = torch.stack([pyr_down(flow[..., 0]), pyr_down(flow[..., 1])], dim=-1) * 0.5
+        flow = torch.stack(
+            [pyr_down(flow[..., 0], use_pallas), pyr_down(flow[..., 1], use_pallas)], dim=-1
+        ) * 0.5
     return flow

@@ -198,16 +198,34 @@ def test_build_module_names_sources_and_signatures():
     """Importing needs no nvcc; every C entry point has declared argtypes and
     exists in the sources."""
     names = {p.name for p in _build.SOURCES_DIR.iterdir()}
-    assert {"lk_fused.cu", "lk_step_fused.cu", "warp_select.cu"} <= names
+    assert {
+        "lk_fused.cu", "lk_step_fused.cu", "warp_select.cu", "pyr_down.cu", "bilateral.cu",
+        "hs_sweep.cu",
+    } <= names
     src = "".join(p.read_text() for p in _build.SOURCES_DIR.glob("*.cu"))
     for fn in _build._SIGNATURES:
         assert f'extern "C" int {fn}(' in src
+    assert {"of2_pyr_down", "of2_bilateral", "of2_hs_relax"} <= set(_build._SIGNATURES)
+
+
+def test_build_compiles_each_source_then_links(tmp_path):
+    """One nvcc compile per .cu file (run in parallel), one link of all objects."""
+    compiles, link = _build.build_commands("nvcc", tmp_path, tmp_path / "lib.so")
+    sources = sorted(_build.SOURCES_DIR.glob("*.cu"))
+    assert [cmd[cmd.index("-c") + 1] for cmd in compiles] == [str(s) for s in sources]
+    objects = [cmd[-1] for cmd in compiles]
+    assert len(set(objects)) == len(sources)
+    assert link[-len(objects):] == objects and "-shared" in link
+    assert all("arch=compute_90a,code=sm_90a" in cmd for cmd in compiles + [link])
 
 
 def test_import_leaves_jax_out():
+    """Every module of the package imports without jax or the JAX package."""
     code = (
-        "import sys, cuda_optical_flow_2_torch, cuda_optical_flow_2_torch.interop, "
-        "cuda_optical_flow_2_torch.utils.io; "
+        "import sys, pkgutil, importlib, cuda_optical_flow_2_torch as pkg; "
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]; "
+        "[importlib.import_module(n) for n in names]; "
+        "assert len(names) >= 25, names; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'cuda_optical_flow_2_tpu'))]; "
         "sys.exit(1 if bad else 0)"

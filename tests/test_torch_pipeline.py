@@ -135,10 +135,15 @@ def test_batched_frames_match_single():
 
 
 def test_pipeline_rejects_bad_inputs():
+    """Too small a frame for the pyramid raises; REFERENCE_GPU, with its
+    bilateral prefilter, is no bad input: it runs and matches the JAX package."""
     with pytest.raises(ValueError, match="pyramid levels"):
         tof.pyramidal_lk(torch.zeros(8, 8), torch.zeros(8, 8), tof.LKConfig(levels=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tof.pyramidal_lk(torch.zeros(32, 32), torch.zeros(32, 32), tof.REFERENCE_GPU)
+    jcfg = dataclasses.replace(jof.REFERENCE_GPU, use_pallas=False)
+    fr = _frames(2, 64, 80, period=48)
+    want = jof.pyramidal_lk_jit(jnp.asarray(fr[0]), jnp.asarray(fr[1]), jcfg)
+    for tcfg in _both(jcfg):
+        _close(tof.pyramidal_lk(torch.from_numpy(fr[0]), torch.from_numpy(fr[1]), tcfg), want)
 
 
 def test_interop_config_round_trip():
@@ -169,7 +174,7 @@ def test_streaming_step_matches_jax(frame_index):
     jstate = jstream.init_state(jnp.asarray(frames[0]), SERVE, RECOVERY)
     for f in frames[1:frame_index]:
         jstate, _ = jstream.step(jstate, jnp.asarray(f), SERVE, True, RECOVERY)
-    tstate = flow_state_from_numpy(jstate.pyramid, jstate.flow)
+    tstate = flow_state_from_numpy(jstate.pyramid, jstate.flow, device="cpu")
     jnew, jflow = jstream.step(jstate, jnp.asarray(frames[frame_index]), SERVE, True, RECOVERY)
     for tcfg in _both(SERVE):
         tnew, tflow = tstream.step(tstate, torch.from_numpy(frames[frame_index]), tcfg, True, trec)
