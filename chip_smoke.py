@@ -26,6 +26,15 @@ then, in order:
 8. path Horn-Schunck: ``pyramidal_hs`` at 1080x1920 with both penalties and
    single-scale ``horn_schunck``, against the plain path, with a (2, 1)
    translation check;
+8b. paths Farnebäck at 1080x1920: ``pyramidal_farneback`` in the image form
+   (``FBConfig()``) and the coeff form, each against the plain path with a
+   (2, 1) translation check and its launch counts checked against the
+   predicted ones, and the warm serving loop (``levels=1``, one iteration,
+   ``RecoveryConfig(levels=3)``) over eight frames with a cut and a dropped
+   frame, against its plain run;
+8c. paths model-generic entry points at 480x640: ``pyramidal_flow`` on an
+   ``LKConfig``, an ``HSConfig`` and an ``FBConfig``, and warm HS streaming
+   with recovery against its plain run;
 9. timing with CUDA events: each path, each kernel, its plain version and,
    where one PyTorch call computes the same function, that call;
 10. profile: ``torch.profiler`` over a few pairs of each path (device busy
@@ -33,7 +42,7 @@ then, in order:
 
 Each phase prints one line per check; any failed check raises and the
 script exits non-zero.  The launch counters are zeroed just before each path
-(phases 4-8) and read just after it: every kernel must launch on the paths
+(phases 4-8c) and read just after it: every kernel must launch on the paths
 that use it.  The line before the last is a JSON object with each kernel's
 numbers (``launches`` is its sum over the path runs, ``bound_ms`` the least
 time the card could take for the timed call's work: the larger of its bytes
@@ -77,6 +86,15 @@ KERNELS = [
     ("hs_relax", "hs_sweep", "hs_relax_plain",
      "cuda_optical_flow_2_torch/csrc/hs_sweep.cu",
      "cuda_optical_flow_2_tpu/kernels/hs_sweep.py:214"),
+    ("poly_expansion_kernel", "poly_exp_fused", "poly_expansion_plain",
+     "cuda_optical_flow_2_torch/csrc/poly_exp.cu",
+     "cuda_optical_flow_2_tpu/kernels/poly_exp_fused.py:69"),
+    ("window_solve", "win_solve", "window_solve_plain",
+     "cuda_optical_flow_2_torch/csrc/win_solve.cu",
+     "cuda_optical_flow_2_tpu/kernels/win_solve.py:83"),
+    ("fb_level_step", "fb_step_fused", "fb_level_step_plain",
+     "cuda_optical_flow_2_torch/csrc/fb_step.cu",
+     "cuda_optical_flow_2_tpu/kernels/fb_step_fused.py:246"),
 ]
 
 WARP_MAX_ERR = 1e-3      # intensities 0-255: float order of four taps
@@ -88,6 +106,16 @@ LK_P999_ERR = 1e-2       # px: ill-conditioned pixels amplify summation order
 # what the card shows with margin (max 2.4e-6 on an H100 80GB HBM3, 700 W)
 HS_MEDIAN_ERR = 1e-5
 HS_P999_ERR = 1e-4
+# intensities 0-255: expansion planes, |d| <= atol + rtol |plain| (float order
+# of ~60 taps and the mixing); atol tightened from 1e-3 to what the card shows
+# with margin (max 5.2e-5 on an H100 80GB HBM3, 700 W)
+POLY_RTOL, POLY_ATOL = 1e-4, 2e-4
+# px, kernel vs plain, per pixel: 1/det amplifies summation order, as for LK.
+# Tightened from 1e-4 / 1e-2 to what the card shows with margin (same card):
+# fb_level_step median 1.4e-6, p99.9 7.2e-4 (a flow of up to 20 px);
+# window_solve bit-equal to its plain version (same sums in the same order)
+FB_STEP_MEDIAN_ERR, FB_STEP_P999_ERR = 1e-5, 5e-3
+WIN_SOLVE_MEDIAN_ERR, WIN_SOLVE_P999_ERR = 1e-6, 1e-5
 PATH_MEDIAN_ERR = 1e-3   # px, whole pipeline, kernel vs plain path
 PATH_P99_ERR = 1e-2
 TRANSLATION_TOL = 0.1    # px, LK inner median flow vs the true (2, 1)
@@ -234,6 +262,22 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
         read = img.element_size() * img.numel() + (0 if guide is None else 4 * guide.numel())
         # per tap: difference, square, scale, two weight products, FMA (2), add; one divide
         return float(read + 4 * img.numel()), 8.0 * taps + img.numel(), float(taps)
+    if name == "poly_expansion_kernel":
+        f, n = args[0], args[1]
+        # 3 vertical and 6 horizontal multiply-adds per tap, 30 of mixing
+        return 24.0 * f.numel(), float((18 * n + 60) * f.numel()), 0.0
+    if name == "window_solve":
+        px, window = args[0].numel(), args[5]
+        # two box passes over five planes, then det, numerators, one divide
+        return 28.0 * px, float((10 * (window - 1) + 12) * px), 0.0
+    if name == "fb_level_step":
+        nxt, _exp1, flow, cfg = args[:4]
+        first = args[4] if len(args) > 4 else kw.get("first", False)
+        px = nxt.numel()
+        # expansion, products (32), box passes over five planes, solve (12),
+        # and unless first the clipped four-tap warp (21)
+        ops = (18 * cfg.poly_n + 60) + 32 + 10 * (cfg.winsize - 1) + 12 + (0 if first else 21)
+        return (32.0 if first else 40.0) * px, float(ops * px), 0.0
     if name == "hs_relax":
         prev, _nxt, flow_init = args
         px = prev.numel()
@@ -318,12 +362,17 @@ def main() -> int:
     import cuda_optical_flow_2_torch as of
     from cuda_optical_flow_2_torch.constants import BINOMIAL_1D
     from cuda_optical_flow_2_torch.kernels import (
-        _build, bilateral_tap, hs_sweep, lk_fused, lk_step_fused, pyr_down, warp_select,
+        _build, bilateral_tap, fb_step_fused, hs_sweep, lk_fused, lk_step_fused, poly_exp_fused,
+        pyr_down, warp_select, win_solve,
     )
+    from cuda_optical_flow_2_torch.models.farneback import fb_normal_eq_products
+    from cuda_optical_flow_2_torch.ops.poly_exp import gaussian_1d, mixing_matrix
     from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
 
     mods = {"lk_fused": lk_fused, "lk_step_fused": lk_step_fused, "warp_select": warp_select,
-            "pyr_down": pyr_down, "bilateral_tap": bilateral_tap, "hs_sweep": hs_sweep}
+            "pyr_down": pyr_down, "bilateral_tap": bilateral_tap, "hs_sweep": hs_sweep,
+            "poly_exp_fused": poly_exp_fused, "win_solve": win_solve,
+            "fb_step_fused": fb_step_fused}
     wrappers = {name: getattr(mods[m], name) for name, m, *_ in KERNELS}
     plains = {name: getattr(mods[m], plain) for name, m, plain, *_ in KERNELS}
 
@@ -354,13 +403,22 @@ def main() -> int:
         e = err_stats(got, want)
         max_err[name] = max(max_err[name], e["max"])
         what = f"{name} {h}x{w} {label}".strip()
+        if name == "poly_expansion_kernel":
+            d = (got - want).abs() - POLY_RTOL * want.abs()
+            torch.cuda.synchronize()
+            excess = float(d.max())
+            require(excess <= POLY_ATOL, f"{what}: |d| - rtol |plain| {excess} > {POLY_ATOL}")
+            return f"{name}{' ' + label if label else ''} max {e['max']:.3g}"
         if name in ("warp_bilinear_select", "pyr_down", "bilateral_kernel"):
             limit = {"warp_bilinear_select": WARP_MAX_ERR, "pyr_down": PYR_MAX_ERR,
                      "bilateral_kernel": BILATERAL_MAX_ERR}[name]
             require(e["max"] <= limit, f"{what}: max |d| {e['max']} > {limit}")
             return f"{name}{' ' + label if label else ''} max {e['max']:.3g}"
-        median, p999 = ((LK_MEDIAN_ERR, LK_P999_ERR) if name.startswith("lk_")
-                        else (HS_MEDIAN_ERR, HS_P999_ERR))
+        median, p999 = {"lk_residual": (LK_MEDIAN_ERR, LK_P999_ERR),
+                        "lk_level_step": (LK_MEDIAN_ERR, LK_P999_ERR),
+                        "hs_relax": (HS_MEDIAN_ERR, HS_P999_ERR),
+                        "fb_level_step": (FB_STEP_MEDIAN_ERR, FB_STEP_P999_ERR),
+                        "window_solve": (WIN_SOLVE_MEDIAN_ERR, WIN_SOLVE_P999_ERR)}[name]
         require(e["median"] <= median and e["p999"] <= p999, f"{what}: {e}")
         return (f"{name}{' ' + label if label else ''} median {e['median']:.3g} "
                 f"p99.9 {e['p999']:.3g} max {e['max']:.3g}")
@@ -409,6 +467,40 @@ def main() -> int:
             parts.append(check("hs_relax", hs_sweep.hs_relax(p, n, init, **kw),
                                hs_sweep.hs_relax_plain(p, n, init, **kw), h, w, label))
         print(f"phase 3 kernels {h}x{w}: " + "; ".join(parts))
+        # Farnebäck: the expansion of the pair, the window solve of the
+        # products of the two expansions, the fused step first and warm
+        parts = []
+        for n_poly, sigma in ((7, 1.5), (5, 1.1)):
+            parts.append(check(
+                "poly_expansion_kernel",
+                torch.stack(poly_exp_fused.poly_expansion_kernel(pair, n_poly, sigma)),
+                torch.stack(poly_exp_fused.poly_expansion_plain(pair, n_poly, sigma)), h, w,
+                f"poly_n={n_poly} pair"))
+        exp1 = poly_exp_fused.poly_expansion_plain(p, 7, 1.5)
+        exp2 = poly_exp_fused.poly_expansion_plain(n, 7, 1.5)
+        prods = fb_normal_eq_products(exp1, exp2, f[..., 0], f[..., 1])
+        for window, det_eps in ((15, 1e-6), (33, 1e-6), (9, 0.0)):
+            if det_eps <= 0:
+                # the unguarded division's inf/NaN pixels agree by position
+                got = win_solve.window_solve(*prods, window=window, det_eps=det_eps)
+                want = win_solve.window_solve_plain(*prods, window=window, det_eps=det_eps)
+                require(bool((torch.isfinite(got) == torch.isfinite(want)).all()),
+                        f"window_solve {h}x{w} det_eps=0: non-finite pixels differ")
+                if not bool(torch.isfinite(want).all()):
+                    continue
+            parts.append(check(
+                "window_solve", win_solve.window_solve(*prods, window=window, det_eps=det_eps),
+                win_solve.window_solve_plain(*prods, window=window, det_eps=det_eps), h, w,
+                f"{window}x{window} det_eps={det_eps}"))
+        for cfg in (of.FBConfig(), of.FBConfig(winsize=33, poly_n=31, poly_sigma=5.0),
+                    of.FBConfig(winsize=9, poly_n=5, poly_sigma=1.1, max_displacement=8)):
+            for first in (True, False):
+                parts.append(check(
+                    "fb_level_step", fb_step_fused.fb_level_step(n, exp1, f, cfg, first),
+                    fb_step_fused.fb_level_step_plain(n, exp1, f, cfg, first), h, w,
+                    f"{cfg.winsize}x{cfg.winsize} poly_n={cfg.poly_n} "
+                    f"{'first' if first else 'warm'}"))
+        print(f"phase 3 kernels {h}x{w} Farnebäck: " + "; ".join(parts))
 
     path_launches: dict[str, dict[str, int]] = {}
 
@@ -540,6 +632,96 @@ def main() -> int:
             f"horn_schunck kernel vs plain: {e}")
     print(f"phase 8 horn_schunck levels=1 1080x1920: vs plain median {e['median']:.3g} p99.9 "
           f"{e['p999']:.3g} max {e['max']:.3g}; launches {counts}")
+
+    # 8b. paths Farnebäck at 1080x1920: the image form (the flagship FB path)
+    # and the coeff form, with the launch counts predicted in PERF.md
+    fr = synthetic_sequence(2, 1080, 1920, velocity=(2.0, 1.0), period=24)
+    fp, fq = cuda(fr[0]).float(), cuda(fr[1]).float()
+    fb_cfgs = {"image": of.FBConfig(), "coeff": of.FBConfig(warp_planes="coeff")}
+    fb_expect = {
+        "image": {"pyr_down": 2, "poly_expansion_kernel": 3, "fb_level_step": 9},
+        "coeff": {"pyr_down": 2, "poly_expansion_kernel": 6, "warp_bilinear_select": 8,
+                  "window_solve": 9},
+    }
+    for label, cfg in fb_cfgs.items():
+        flow, counts = run_path(f"FB {label}", lambda: of.pyramidal_farneback(fp, fq, cfg),
+                                tuple(fb_expect[label]))
+        require(counts == fb_expect[label],
+                f"FB {label} launches {counts}, predicted {fb_expect[label]}")
+        require(tuple(flow.shape) == (1080, 1920, 2), f"FB {label} flow shape {tuple(flow.shape)}")
+        plain = of.pyramidal_farneback(fp, fq, dataclasses.replace(cfg, use_pallas=False))
+        e = err_stats(flow, plain)
+        m = inner_median(flow)
+        require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
+                f"pyramidal_farneback {label} kernel path vs plain path: {e}")
+        require(abs(m[0] - 2.0) <= TRANSLATION_TOL and abs(m[1] - 1.0) <= TRANSLATION_TOL,
+                f"pyramidal_farneback {label} inner median flow {m}, expected (2, 1)")
+        print(f"phase 8b pyramidal_farneback {label} 1080x1920 period 24: inner median flow "
+              f"({m[0]:.4f}, {m[1]:.4f}); vs plain path median {e['median']:.3g} p99 "
+              f"{e['p99']:.3g} max {e['max']:.3g}; launches {counts} (as predicted)")
+    # the FB serving loop: the frames of phase 6, one level, one iteration, warm
+    fb_serve = of.FBConfig(levels=1, iterations=1)
+    fb_serve_plain = dataclasses.replace(fb_serve, use_pallas=False)
+
+    def serve(cfg):
+        return dict(of.process_sequence((None if f is None else cuda(f) for f in frames), cfg,
+                                        warm_start=True, recovery=recovery))
+
+    flows, counts = run_path("FB serving", lambda: serve(fb_serve),
+                             ("pyr_down", "poly_expansion_kernel", "fb_level_step",
+                              "warp_bilinear_select"))
+    flows_plain = serve(fb_serve_plain)
+    require(sorted(flows) == sorted(flows_plain) == [1, 2, 3, 4, 5, 6],
+            f"FB serving yielded frames {sorted(flows)}")
+    worst = max((err_stats(flows[i], flows_plain[i]) for i in flows), key=lambda s: s["p99"])
+    require(worst["median"] <= PATH_MEDIAN_ERR and worst["p99"] <= PATH_P99_ERR,
+            f"FB serving loop kernel vs plain: {worst}")
+    medians = {i: inner_median(flows[i]) for i in (1, 2, 3, 4, 6)}
+    truth = {i: (2.0, 1.0) for i in (1, 2, 3, 4)} | {6: (-1.0, 1.5)}
+    for i, m in medians.items():
+        require(abs(m[0] - truth[i][0]) <= TRANSLATION_TOL
+                and abs(m[1] - truth[i][1]) <= TRANSLATION_TOL,
+                f"FB serving pair {i}: inner median flow {m}, expected {truth[i]}")
+    print(f"phase 8b FB serving loop levels=1 iterations=1 warm + RecoveryConfig(levels=3), 8 "
+          f"frames 1080x1920: yielded {sorted(flows)}; worst pair vs plain median "
+          f"{worst['median']:.3g} p99 {worst['p99']:.3g}; inner median flow at 4 "
+          f"({medians[4][0]:.4f}, {medians[4][1]:.4f}), after the cut at 6 ({medians[6][0]:.4f}, "
+          f"{medians[6][1]:.4f}); launches {counts}")
+
+    # 8c. paths model-generic entry points at 480x640
+    fr = synthetic_sequence(5, 480, 640, velocity=(2.0, 1.0), period=24)
+    gframes = [cuda(f).float() for f in fr]
+    generic = {
+        "LKConfig(levels=4, window=19)": (of.LKConfig(levels=4, window=19), of.pyramidal_lk,
+                                          ("lk_residual", "lk_level_step", "pyr_down")),
+        "HSConfig()": (of.HSConfig(), of.pyramidal_hs,
+                       ("hs_relax", "warp_bilinear_select", "pyr_down")),
+        "FBConfig()": (of.FBConfig(), of.pyramidal_farneback,
+                       ("poly_expansion_kernel", "fb_level_step", "pyr_down")),
+    }
+    for label, (cfg, direct, needs) in generic.items():
+        flow, counts = run_path(f"pyramidal_flow {label}",
+                                lambda: of.pyramidal_flow(gframes[0], gframes[1], cfg), needs)
+        e = err_stats(flow, direct(gframes[0], gframes[1], cfg))
+        require(e["max"] <= 1e-6, f"pyramidal_flow {label} differs from {direct.__name__}: {e}")
+        m = inner_median(flow)
+        print(f"phase 8c pyramidal_flow {label} 480x640: as {direct.__name__} (max |d| "
+              f"{e['max']:.3g}); inner median flow ({m[0]:.4f}, {m[1]:.4f}); launches {counts}")
+    hs_serve = of.HSConfig(levels=1)
+    flows, counts = run_path("HS serving", lambda: dict(of.process_sequence(
+        gframes, hs_serve, warm_start=True, recovery=recovery)),
+        ("hs_relax", "warp_bilinear_select", "pyr_down"))
+    flows_plain = dict(of.process_sequence(gframes, dataclasses.replace(hs_serve, use_pallas=False),
+                                           warm_start=True, recovery=recovery))
+    require(sorted(flows) == sorted(flows_plain) == [1, 2, 3, 4],
+            f"HS serving yielded {sorted(flows)}")
+    worst = max((err_stats(flows[i], flows_plain[i]) for i in flows), key=lambda s: s["p99"])
+    require(worst["median"] <= PATH_MEDIAN_ERR and worst["p99"] <= PATH_P99_ERR,
+            f"HS serving loop kernel vs plain: {worst}")
+    m = inner_median(flows[4])
+    print(f"phase 8c HS serving loop levels=1 warm + RecoveryConfig(levels=3), 5 frames 480x640: "
+          f"worst pair vs plain median {worst['median']:.3g} p99 {worst['p99']:.3g}; inner median "
+          f"flow at 4 ({m[0]:.4f}, {m[1]:.4f}); launches {counts}")
     launches = {name: sum(c[name] for c in path_launches.values()) for name in wrappers}
     for name, n_launch in launches.items():
         require(n_launch > 0, f"{name} was not launched on any path")
@@ -557,7 +739,18 @@ def main() -> int:
             (lambda c=c: of.pyramidal_hs(hp, hn, c)),
             (lambda c=c: of.pyramidal_hs(hp, hn, dataclasses.replace(c, use_pallas=False))), 10)
            for label, c in hs_cfgs.items()},
+        **{f"pyramidal_farneback {label} 1080x1920": (
+            (lambda c=c: of.pyramidal_farneback(fp, fq, c)),
+            (lambda c=c: of.pyramidal_farneback(fp, fq, dataclasses.replace(c, use_pallas=False))),
+            10) for label, c in fb_cfgs.items()},
+        "FB serving step 1080x1920": (
+            lambda: of.step(fb_state, fb_frame, fb_serve, True, recovery),
+            lambda: of.step(fb_state, fb_frame, fb_serve_plain, True, recovery), 10),
     }
+    # a warm FB serving state: the step times one tracked pair with the check
+    fb_state = of.init_state(cuda(frames[0]), fb_serve, recovery)
+    fb_state, _ = of.step(fb_state, cuda(frames[1]), fb_serve, True, recovery)
+    fb_frame = cuda(frames[2])
     path_ms = {}
     for label, (fn, plain_fn, r) in paths.items():
         r_plain = max(3, r // 10)
@@ -568,6 +761,9 @@ def main() -> int:
 
     p0, n0, f0 = (cuda(a) for a in textured_pair(1080, 1920, seed=7))
     pair0 = torch.stack([p0, n0])
+    exp0 = poly_exp_fused.poly_expansion_plain(p0, 7, 1.5)
+    prods0 = fb_normal_eq_products(exp0, poly_exp_fused.poly_expansion_plain(n0, 7, 1.5),
+                                   f0[..., 0], f0[..., 1])
     hs_kw = dict(iterations=100, alpha=10.0, temporal_kernel="gauss3")
     small = torch.stack([p0[:480, :640], n0[:480, :640]]).contiguous()
     # (name, label, args, keyword args); the first entry of each name is the
@@ -581,6 +777,9 @@ def main() -> int:
         ("bilateral_kernel", "9x9", (small, 9), {}),
         ("hs_relax", "quadratic 100 sweeps", (p0, n0, None), hs_kw),
         ("hs_relax", "charbonnier 100 sweeps", (p0, n0, None), dict(hs_kw, robust=(3.0, 0.1))),
+        ("poly_expansion_kernel", "poly_n=7", (p0, 7, 1.5), {}),
+        ("window_solve", "15x15", (*prods0, 15, 1e-6), {}),
+        ("fb_level_step", "15x15 poly_n=7 warm", (n0, exp0, f0, of.FBConfig()), {}),
     ]
     # library yardstick: F.conv2d(stride=2) computes pyr_down's function
     k2 = torch.as_tensor(np.outer(BINOMIAL_1D, BINOMIAL_1D), device=dev)[None, None]
@@ -590,18 +789,41 @@ def main() -> int:
 
     e = err_stats(conv_pyr_down(pair0), pyr_down.pyr_down(pair0))
     require(e["max"] <= PYR_MAX_ERR, f"F.conv2d(stride=2) is not pyr_down's function: {e}")
+    # and one F.conv2d with five 7x7 filters, the separable taps' outer
+    # products folded with the mixing rows, computes poly_expansion_kernel's
+    g = gaussian_1d(7, 1.5)
+    o = np.arange(7) - 3
+    taps = (g, g * o, g * o * o)
+    moments = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))  # (vertical, horizontal) taps
+    mix = mixing_matrix(7, 1.5).copy()
+    mix[4] *= 0.5
+    k5 = np.stack([
+        sum(mix[c, l] * np.outer(taps[vy], taps[vx]) for l, (vy, vx) in enumerate(moments))
+        for c in range(5)
+    ])
+    k5 = torch.as_tensor(k5[:, None].astype(np.float32), device=dev)
+
+    def conv_poly(x):
+        return F.conv2d(x[None, None], k5, padding=3)[0]
+
+    d = (conv_poly(p0) - torch.stack(poly_exp_fused.poly_expansion_kernel(p0, 7, 1.5))).abs()
+    excess = float((d - POLY_RTOL * conv_poly(p0).abs()).max())
+    require(excess <= POLY_ATOL, f"F.conv2d is not poly_expansion_kernel's function: {excess}")
+    library = {"pyr_down": ("F.conv2d(stride=2)", lambda: conv_pyr_down(pair0)),
+               "poly_expansion_kernel": ("F.conv2d 5x1x7x7", lambda: conv_poly(p0))}
     timing = {}
     for name, label, args, kw in timed:
         slow = name == "hs_relax"
         k_ms = cuda_ms(lambda: wrappers[name](*args, **kw), 10 if slow else reps,
                        inner=1 if slow else 10)
         p_ms = cuda_ms(lambda: plains[name](*args, **kw), 3 if slow else 10, warmup=1)
-        lib_ms = cuda_ms(lambda: conv_pyr_down(pair0), reps, inner=10) if name == "pyr_down" else None
+        lib_name, lib_fn = library.get(name, (None, None))
+        lib_ms = None if lib_fn is None else cuda_ms(lib_fn, reps, inner=10)
         b_ms, b_by = bound(name, args, kw)
         timing.setdefault(name, (k_ms, p_ms, b_ms, b_by, lib_ms))
         shape = "x".join(map(str, args[0].shape))
         print(f"phase 9 timing [{card}] {name} {shape} {label}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms" + ("" if lib_ms is None else f", F.conv2d(stride=2) {lib_ms:.4f} ms")
+              f"{p_ms:.4f} ms" + ("" if lib_ms is None else f", {lib_name} {lib_ms:.4f} ms")
               + f", bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / k_ms:.1f} % of the kernel's time)")
 
     # 10. profile: device busy share and device operations per pair

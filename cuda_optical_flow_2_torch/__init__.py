@@ -1,5 +1,5 @@
-"""Dense optical flow (pyramidal Lucas-Kanade, Horn-Schunck) in PyTorch with
-CUDA kernels.
+"""Dense optical flow (pyramidal Lucas-Kanade, Horn-Schunck, Farnebäck) in
+PyTorch with CUDA kernels.
 
 The PyTorch port of ``cuda_optical_flow_2_tpu`` (the JAX reference, which
 stays beside it).  Same module names, same layouts: images are
@@ -13,6 +13,11 @@ plain PyTorch versions.
 
     flow = of.pyramidal_lk(prev_gray, next_gray, of.LKConfig(levels=4))
     flow = of.pyramidal_hs(prev_gray, next_gray, of.HSConfig())
+    flow = of.pyramidal_farneback(prev_gray, next_gray, of.FBConfig())
+    flow = of.pyramidal_flow(prev_gray, next_gray, config)  # any of the three
+
+``process_sequence``, ``init_state`` and ``step`` stream any of the three
+families, warm or cold, with scene-cut recovery.
 """
 
 from cuda_optical_flow_2_torch.config import (
@@ -21,6 +26,13 @@ from cuda_optical_flow_2_torch.config import (
     REFERENCE_GPU,
     BilateralConfig,
     LKConfig,
+)
+from cuda_optical_flow_2_torch.models import pyramidal_flow
+from cuda_optical_flow_2_torch.models.farneback import (
+    FBConfig,
+    fb_coarse_to_fine,
+    fb_preprocess,
+    pyramidal_farneback,
 )
 from cuda_optical_flow_2_torch.models.horn_schunck import (
     HSConfig,
@@ -50,6 +62,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BilateralConfig",
+    "FBConfig",
     "HSConfig",
     "LKConfig",
     "PAPER_1080P",
@@ -59,6 +72,8 @@ __all__ = [
     "RecoveryConfig",
     "coarse_to_fine",
     "compose_flow_pyramid",
+    "fb_coarse_to_fine",
+    "fb_preprocess",
     "horn_schunck",
     "hs_coarse_to_fine",
     "hs_preprocess",
@@ -66,6 +81,8 @@ __all__ = [
     "lk_level",
     "preprocess",
     "process_sequence",
+    "pyramidal_farneback",
+    "pyramidal_flow",
     "pyramidal_hs",
     "pyramidal_lk",
     "pyramidal_lk_pyramid",

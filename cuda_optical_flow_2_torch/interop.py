@@ -13,10 +13,13 @@ import numpy as np
 import torch
 
 from cuda_optical_flow_2_torch.config import BilateralConfig, LKConfig
+from cuda_optical_flow_2_torch.models.farneback import FBConfig
 from cuda_optical_flow_2_torch.models.horn_schunck import HSConfig
 from cuda_optical_flow_2_torch.models.streaming import FlowState, resolve_device
 
-__all__ = ["lk_config_from_jax", "hs_config_from_jax", "flow_state_from_numpy"]
+__all__ = [
+    "lk_config_from_jax", "hs_config_from_jax", "fb_config_from_jax", "flow_state_from_numpy",
+]
 
 
 def _fields(cfg) -> dict:
@@ -36,6 +39,12 @@ def hs_config_from_jax(cfg) -> HSConfig:
     """The port's :class:`HSConfig` with the fields of ``cfg``, any dataclass
     with ``HSConfig``'s fields (such as the JAX package's)."""
     return HSConfig(**_fields(cfg))
+
+
+def fb_config_from_jax(cfg) -> FBConfig:
+    """The port's :class:`FBConfig` with the fields of ``cfg``, any dataclass
+    with ``FBConfig``'s fields (such as the JAX package's)."""
+    return FBConfig(**_fields(cfg))
 
 
 def flow_state_from_numpy(pyramid, flow, device: torch.device | str | None = None) -> FlowState:

@@ -47,6 +47,9 @@ _SIGNATURES = {
     "of2_pyr_down": [_P, _P, _I, _I, _I, _L, _L, _L, _P],
     "of2_bilateral": [_P, _P, _P, _I, _I, _I, _I, _P, _F, _F, _P],
     "of2_hs_relax": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _F, _F, _F, _F, _P],
+    "of2_poly_exp": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "of2_window_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "of2_fb_step": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _F, _F, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,1 +1,24 @@
-"""Flow pipelines: pyramidal Lucas-Kanade, its streaming loop, Horn-Schunck."""
+"""Flow pipelines: pyramidal Lucas-Kanade, Horn-Schunck and Farnebäck, the
+model-generic :func:`pyramidal_flow`, and the streaming loop over all three."""
+
+from cuda_optical_flow_2_torch.config import LKConfig
+from cuda_optical_flow_2_torch.models.farneback import FBConfig, pyramidal_farneback
+from cuda_optical_flow_2_torch.models.horn_schunck import HSConfig, pyramidal_hs
+from cuda_optical_flow_2_torch.models.lucas_kanade import pyramidal_lk
+from cuda_optical_flow_2_torch.models.streaming import not_ported
+
+__all__ = ["pyramidal_flow"]
+
+
+def pyramidal_flow(prev, nxt, config):
+    """Dense flow for one frame pair, dispatched on the config type:
+    ``LKConfig`` -> :func:`pyramidal_lk`, ``HSConfig`` -> :func:`pyramidal_hs`,
+    ``FBConfig`` -> :func:`pyramidal_farneback`.  Anything else raises
+    ``TypeError``, a config of the JAX package included."""
+    if isinstance(config, HSConfig):
+        return pyramidal_hs(prev, nxt, config)
+    if isinstance(config, FBConfig):
+        return pyramidal_farneback(prev, nxt, config)
+    if isinstance(config, LKConfig):
+        return pyramidal_lk(prev, nxt, config)
+    raise not_ported(config)

@@ -1,8 +1,10 @@
-"""Streaming video flow: carried pyramid state across frames (LK only).
+"""Streaming video flow: carried pyramid state across frames.
 
-Counterpart of ``cuda_optical_flow_2_tpu.models.streaming`` for
-:class:`LKConfig`; the other flow families are not ported yet and raise
-``NotImplementedError``.
+Counterpart of ``cuda_optical_flow_2_tpu.models.streaming``, model-generic
+over the ported families: ``config`` is an :class:`LKConfig`, ``HSConfig``
+or ``FBConfig`` and selects the preprocess and the coarse-to-fine solve.
+Any other config (TV-L1 and DIS are not ported yet, a JAX config) raises
+``TypeError``.
 
     state = init_state(first_frame, config)
     for frame in frames:
@@ -26,6 +28,12 @@ import torch
 
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.kernels import warp_select
+from cuda_optical_flow_2_torch.models.farneback import FBConfig, fb_coarse_to_fine, fb_preprocess
+from cuda_optical_flow_2_torch.models.horn_schunck import (
+    HSConfig,
+    hs_coarse_to_fine,
+    hs_preprocess,
+)
 from cuda_optical_flow_2_torch.models.lucas_kanade import _validate, coarse_to_fine, preprocess
 from cuda_optical_flow_2_torch.ops.resize import downsample_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
@@ -68,39 +76,59 @@ class FlowState(NamedTuple):
     flow: torch.Tensor | None = None
 
 
-def _require_lk(config) -> None:
-    if not isinstance(config, LKConfig):
-        raise NotImplementedError(
-            f"streaming is ported for LKConfig only, got {type(config).__name__} "
-            "(ROADMAP.md queue 1 lists the other families)"
-        )
+def not_ported(config) -> TypeError:
+    """The error for a config of no ported family (a JAX config included)."""
+    return TypeError(
+        "config must be the port's LKConfig, HSConfig or FBConfig; got "
+        f"{type(config).__module__}.{type(config).__qualname__} (TV-L1 and DIS are not "
+        "ported yet: ROADMAP.md queue 1 items 9 and 11)"
+    )
 
 
-def _carry_config(config: LKConfig, recovery: RecoveryConfig | None) -> LKConfig:
+def _require_ported(config) -> None:
+    if not isinstance(config, (LKConfig, HSConfig, FBConfig)):
+        raise not_ported(config)
+
+
+def _carry_config(config, recovery: RecoveryConfig | None):
     """The config whose pyramid depth the carried state is built at."""
     if recovery is None or recovery.levels <= config.levels:
         return config
     return dataclasses.replace(config, levels=recovery.levels)
 
 
-def _flow(prev_pyr, next_pyr, config: LKConfig, init_flow=None) -> torch.Tensor:
+def _preprocess(frame: torch.Tensor, config) -> list[torch.Tensor]:
+    """Model-generic preprocess, dispatched on the config type."""
+    if isinstance(config, HSConfig):
+        return hs_preprocess(frame, config)
+    if isinstance(config, FBConfig):
+        return fb_preprocess(frame, config)
+    return preprocess(frame, config)
+
+
+def _flow(prev_pyr, next_pyr, config, init_flow=None) -> torch.Tensor:
+    """Model-generic coarse-to-fine solve over carried pyramids."""
+    if isinstance(config, HSConfig):
+        return hs_coarse_to_fine(list(prev_pyr), list(next_pyr), config, init_flow)
+    if isinstance(config, FBConfig):
+        return fb_coarse_to_fine(list(prev_pyr), list(next_pyr), config, init_flow)
     return coarse_to_fine(list(prev_pyr), list(next_pyr), config, init_flow)[0]
 
 
 def init_state(
-    frame: torch.Tensor, config: LKConfig, recovery: RecoveryConfig | None = None
+    frame: torch.Tensor, config, recovery: RecoveryConfig | None = None
 ) -> FlowState:
-    """Build the initial state from the first frame.  Pass the same
-    ``recovery`` given to :func:`step`: the state then carries the deeper
-    acquisition pyramid."""
-    _require_lk(config)
-    return FlowState(tuple(preprocess(frame.to(torch.float32), _carry_config(config, recovery))))
+    """Build the initial state from the first frame.  ``config`` is an
+    LKConfig, HSConfig or FBConfig.  Pass the same ``recovery`` given to
+    :func:`step`: the state then carries the deeper acquisition pyramid."""
+    _require_ported(config)
+    return FlowState(tuple(_preprocess(frame.to(torch.float32), _carry_config(config, recovery))))
 
 
 def step(
     state: FlowState,
     frame: torch.Tensor,
-    config: LKConfig,
+    config,
     warm_start: bool = False,
     recovery: RecoveryConfig | None = None,
 ) -> tuple[FlowState, torch.Tensor]:
@@ -112,11 +140,11 @@ def step(
     deep config (the JAX package's ``lax.cond`` rule; here a host-side
     branch on the check's result).
     """
-    _require_lk(config)
+    _require_ported(config)
     if recovery is not None and not warm_start:
         raise ValueError("recovery requires warm_start=True")
     carry_cfg = _carry_config(config, recovery)
-    pyr = preprocess(frame.to(torch.float32), carry_cfg)
+    pyr = _preprocess(frame.to(torch.float32), carry_cfg)
     if len(state.pyramid) != len(pyr):
         raise ValueError(
             f"state carries {len(state.pyramid)} pyramid levels but this "
@@ -176,7 +204,7 @@ def _as_frame(frame, device: torch.device | str | None) -> torch.Tensor:
 
 def process_sequence(
     frames,
-    config: LKConfig,
+    config,
     warm_start: bool = False,
     recovery: RecoveryConfig | None = None,
     device: torch.device | str | None = None,
@@ -189,9 +217,9 @@ def process_sequence(
     frames: the cast to float32 happens on the device).  A ``None`` element
     (a decode failure) is skipped: no flow is yielded for it, the next good
     frame pairs with the last good one, and the carried warm flow is
-    dropped.
+    dropped.  ``config`` (LKConfig, HSConfig or FBConfig) selects the family.
     """
-    _require_lk(config)
+    _require_ported(config)
     it = iter(frames)
     first = None
     offset = 0

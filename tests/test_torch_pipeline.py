@@ -213,7 +213,7 @@ def test_streaming_cold_and_errors():
     state = tof.init_state(torch.from_numpy(frames[0]), cfg)
     with pytest.raises(ValueError, match="warm_start"):
         tof.step(state, torch.from_numpy(frames[1]), cfg, recovery=tof.RecoveryConfig())
-    with pytest.raises(NotImplementedError, match="LKConfig"):
+    with pytest.raises(TypeError, match="LKConfig"):
         tof.init_state(torch.from_numpy(frames[0]), jof.LKConfig())
     assert list(tof.process_sequence([None, None], cfg)) == []
 
