@@ -32,19 +32,26 @@ then, in order:
    predicted ones, and the warm serving loop (``levels=1``, one iteration,
    ``RecoveryConfig(levels=3)``) over eight frames with a cut and a dropped
    frame, against its plain run;
-8c. paths model-generic entry points at 480x640: ``pyramidal_flow`` on an
-   ``LKConfig``, an ``HSConfig`` and an ``FBConfig``, and warm HS streaming
-   with recovery against its plain run;
+8c. paths model-generic entry points at 480x640: ``pyramidal_flow`` on all
+   five families, and warm HS, TV-L1 and DIS streaming with recovery, each
+   against its plain run;
+8d. paths TV-L1 at 1080x1920: ``TVL1_REALTIME`` and ``TVL1Config()``, each
+   against the plain path with a (2, 1) translation check and its launch
+   counts checked against the predicted ones;
+8e. paths DIS at 1080x1920: ``DISConfig()``, ``DIS_REALTIME`` and the
+   Charbonnier refinement, likewise;
 9. timing with CUDA events: each path, each kernel, its plain version and,
-   where one PyTorch call computes the same function, that call;
+   where one PyTorch call computes the same function, that call; the
+   median filter (plain PyTorch, no kernel);
 10. profile: ``torch.profiler`` over a few pairs of each path (device busy
     share, kernels per pair, the kernels that lead).
 
 Each phase prints one line per check; any failed check raises and the
 script exits non-zero.  The launch counters are zeroed just before each path
-(phases 4-8c) and read just after it: every kernel must launch on the paths
+(phases 4-8e) and read just after it: every kernel must launch on the paths
 that use it.  The line before the last is a JSON object with each kernel's
-numbers (``launches`` is its sum over the path runs, ``bound_ms`` the least
+numbers, the centered (DIS) modes of ``lk_residual`` and ``lk_level_step``
+as entries of their own (``launches`` is its sum over the path runs, ``bound_ms`` the least
 time the card could take for the timed call's work: the larger of its bytes
 over the memory rate and its operations over the peak rate of their kind);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -95,7 +102,13 @@ KERNELS = [
     ("fb_level_step", "fb_step_fused", "fb_level_step_plain",
      "cuda_optical_flow_2_torch/csrc/fb_step.cu",
      "cuda_optical_flow_2_tpu/kernels/fb_step_fused.py:246"),
+    ("tvl1_relax", "tvl1_sweep", "tvl1_relax_plain",
+     "cuda_optical_flow_2_torch/csrc/tvl1_sweep.cu",
+     "cuda_optical_flow_2_tpu/kernels/tvl1_sweep.py:202"),
 ]
+# The DIS (centered=True) mode of two of them, an entry of its own in the
+# kernels line: launches from the wrappers' ``launches_centered``.
+CENTERED = ["lk_residual", "lk_level_step"]
 
 WARP_MAX_ERR = 1e-3      # intensities 0-255: float order of four taps
 PYR_MAX_ERR = 1e-4       # intensities 0-255: 9-tap sum against separable slices
@@ -116,10 +129,24 @@ POLY_RTOL, POLY_ATOL = 1e-4, 2e-4
 # window_solve bit-equal to its plain version (same sums in the same order)
 FB_STEP_MEDIAN_ERR, FB_STEP_P999_ERR = 1e-5, 5e-3
 WIN_SOLVE_MEDIAN_ERR, WIN_SOLVE_P999_ERR = 1e-6, 1e-5
+# px, 14-30 iterations, kernel vs plain, per pixel: the threshold step's
+# near-ties (rho against +-th) flip on float-order differences and move a
+# pixel far, so the median and p99.9 are held, not the max.  The kernel
+# rounds every step in the plain version's order, and the card showed it
+# bit-equal (an H100 80GB HBM3, 700 W); the limits leave room for isolated
+# flips only.
+TVL1_MEDIAN_ERR, TVL1_P999_ERR = 1e-6, 1e-5
+# px, centered (DIS) window sums, kernel vs plain, per pixel: S_ab - S_a S_b / n
+# cancels and 1/det amplifies it; the card showed median 0, p99.9 1.9e-6 and
+# max 2.9e-6 px (same card), so 1e-5 / 1e-4
+CENTERED_MEDIAN_ERR, CENTERED_P999_ERR = 1e-5, 1e-4
 PATH_MEDIAN_ERR = 1e-3   # px, whole pipeline, kernel vs plain path
 PATH_P99_ERR = 1e-2
 TRANSLATION_TOL = 0.1    # px, LK inner median flow vs the true (2, 1)
 HS_TRANSLATION_TOL = 0.15  # px, HS inner median flow (tests/test_horn_schunck.py)
+TVL1_EPE_TOL = 0.1         # px, TVL1Config() inner EPE (tests/test_tvl1.py)
+DIS_EPE_TOL = 0.15         # px, DISConfig() inner EPE (tests/test_dis.py)
+PRESET_TRANSLATION_TOL = 0.3  # px, TVL1_REALTIME / DIS_REALTIME inner median
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s and
 # FP32 operations/s outside the tensor cores.  Special-function results
@@ -239,12 +266,26 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
     if name in ("lk_residual", "lk_level_step"):
         prev, cfg = args[0], args[-1]
         px = prev.numel()
-        window = 5 * 2 * (2 * cfg.window - 1)  # five products, row and column passes
+        centered = kw.get("centered", False)
+        planes = 9 if centered else 5  # centered: + Ix, Iy, It and the count
+        window = planes * 2 * (2 * cfg.window - 1)  # row and column passes
         ops = _gradient_ops(cfg.temporal_kernel) + 5 + window + 12  # products, sums, solve
+        if centered:
+            ops += 16  # max(n, 1) and S_ab - S_a S_b / n five times; one division
+        sfu = float(px) if centered else 0.0
         if name == "lk_residual":
-            return 16.0 * px, float(ops * px), 0.0
+            return 16.0 * px, float(ops * px), sfu
         # + clamp (4), sample coordinates (2), bilinear weights and taps (15), accumulate (2)
-        return 24.0 * px, float((ops + 23) * px), 0.0
+        return 24.0 * px, float((ops + 23) * px), sfu
+    if name == "tvl1_relax":
+        px = args[0].numel()
+        it = kw["iterations"]
+        # constants: Sobel pair (22), |g|^2 (3), threshold and floor (2), it (1);
+        # per iteration 46: rho (6), compares (2), threshold step (8),
+        # divergences (6), primal (4), forward differences (4), norms (8),
+        # dual updates (8); special functions per iteration: the step's two
+        # divisions, four by the norms, two square roots
+        return 32.0 * px, float((28 + 46 * it) * px), float(8 * it * px)
     if name == "warp_bilinear_select":
         img = args[0]
         return 16.0 * img.numel(), 21.0 * img.numel(), 0.0
@@ -350,6 +391,7 @@ def main() -> int:
     if not (ROOT / "cuda_optical_flow_2_torch" / "csrc").is_dir():
         print("chip_smoke: cuda_optical_flow_2_torch/ not found beside this script", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     import torch
     import torch.nn.functional as F
@@ -363,16 +405,18 @@ def main() -> int:
     from cuda_optical_flow_2_torch.constants import BINOMIAL_1D
     from cuda_optical_flow_2_torch.kernels import (
         _build, bilateral_tap, fb_step_fused, hs_sweep, lk_fused, lk_step_fused, poly_exp_fused,
-        pyr_down, warp_select, win_solve,
+        pyr_down, tvl1_sweep, warp_select, win_solve,
     )
+    from cuda_optical_flow_2_torch.models.dis import _lk_like as dis_lk_like
     from cuda_optical_flow_2_torch.models.farneback import fb_normal_eq_products
+    from cuda_optical_flow_2_torch.ops.median import median_filter
     from cuda_optical_flow_2_torch.ops.poly_exp import gaussian_1d, mixing_matrix
     from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
 
     mods = {"lk_fused": lk_fused, "lk_step_fused": lk_step_fused, "warp_select": warp_select,
             "pyr_down": pyr_down, "bilateral_tap": bilateral_tap, "hs_sweep": hs_sweep,
             "poly_exp_fused": poly_exp_fused, "win_solve": win_solve,
-            "fb_step_fused": fb_step_fused}
+            "fb_step_fused": fb_step_fused, "tvl1_sweep": tvl1_sweep}
     wrappers = {name: getattr(mods[m], name) for name, m, *_ in KERNELS}
     plains = {name: getattr(mods[m], plain) for name, m, plain, *_ in KERNELS}
 
@@ -396,7 +440,7 @@ def main() -> int:
         return torch.as_tensor(a, device=dev)
 
     # 3. kernels against their plain versions on the card
-    max_err = {name: 0.0 for name, *_ in KERNELS}
+    max_err = {name: 0.0 for name, *_ in KERNELS} | {f"{n} centered": 0.0 for n in CENTERED}
 
     def check(name, got, want, h, w, label=""):
         torch.cuda.synchronize()
@@ -416,6 +460,9 @@ def main() -> int:
             return f"{name}{' ' + label if label else ''} max {e['max']:.3g}"
         median, p999 = {"lk_residual": (LK_MEDIAN_ERR, LK_P999_ERR),
                         "lk_level_step": (LK_MEDIAN_ERR, LK_P999_ERR),
+                        "lk_residual centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
+                        "lk_level_step centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
+                        "tvl1_relax": (TVL1_MEDIAN_ERR, TVL1_P999_ERR),
                         "hs_relax": (HS_MEDIAN_ERR, HS_P999_ERR),
                         "fb_level_step": (FB_STEP_MEDIAN_ERR, FB_STEP_P999_ERR),
                         "window_solve": (WIN_SOLVE_MEDIAN_ERR, WIN_SOLVE_P999_ERR)}[name]
@@ -441,6 +488,29 @@ def main() -> int:
                                cfg.window_weights))
         print(f"phase 3 kernels {h}x{w} window {cfg.window} {cfg.window_weights}: "
               + "; ".join(parts))
+    # TV-L1's relaxation, warm (next warped by the textured pair's flow,
+    # linearized there), and the centered (DIS) LK modes at the DIS default
+    # (9x9 box, dt3), at the TV-L1 and DIS paths' level-0 shape
+    p, n, f = (cuda(a) for a in textured_pair(1080, 1920, seed=5))
+    warped = warp_select.warp_bilinear_select_plain(n, f)
+    tv = of.TVL1Config()
+    tvl1_kw = dict(iterations=tvl1_sweep.MAX_ITERS, lambda_=tv.lambda_, theta=tv.theta,
+                   tau=tv.tau, eps=tv.epsilon)
+    dis_lk = dis_lk_like(of.DISConfig())
+    parts = [
+        check("tvl1_relax", tvl1_sweep.tvl1_relax(p, warped, f, f, **tvl1_kw),
+              tvl1_sweep.tvl1_relax_plain(p, warped, f, f, **tvl1_kw), 1080, 1920,
+              "warm 14 iterations"),
+        check("tvl1_relax", tvl1_sweep.tvl1_relax(p, warped, f, f * 0.9, **dict(tvl1_kw, iterations=30)),
+              tvl1_sweep.tvl1_relax_plain(p, warped, f, f * 0.9, **dict(tvl1_kw, iterations=30)),
+              1080, 1920, "30 iterations from another flow"),
+        check("lk_residual centered", lk_fused.lk_residual(p, n, dis_lk, centered=True),
+              lk_fused.lk_residual_plain(p, n, dis_lk, centered=True), 1080, 1920, "9x9 box"),
+        check("lk_level_step centered", lk_step_fused.lk_level_step(p, n, f, dis_lk, centered=True),
+              lk_step_fused.lk_level_step_plain(p, n, f, dis_lk, centered=True), 1080, 1920,
+              "9x9 box"),
+    ]
+    print("phase 3 kernels 1080x1920 TV-L1 and DIS: " + "; ".join(parts))
     rng = np.random.default_rng(3)
     for h, w in ((1080, 1920), (480, 640)):
         p, n, f = (cuda(a) for a in textured_pair(h, w, seed=h + 1))
@@ -509,9 +579,12 @@ def main() -> int:
         ``needs`` must have launched."""
         for wrapper in wrappers.values():
             wrapper.launches = 0
+        for name in CENTERED:
+            wrappers[name].launches_centered = 0
         out = fn()
         torch.cuda.synchronize()
         counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
+        counts |= {f"{name} centered": wrappers[name].launches_centered for name in CENTERED}
         for name in needs:
             require(counts[name] > 0, f"path {label} did not launch {name}: {counts}")
         path_launches[label] = counts
@@ -698,6 +771,12 @@ def main() -> int:
                        ("hs_relax", "warp_bilinear_select", "pyr_down")),
         "FBConfig()": (of.FBConfig(), of.pyramidal_farneback,
                        ("poly_expansion_kernel", "fb_level_step", "pyr_down")),
+        # four levels: five alias this period-24 texture (3.13 px in JAX too)
+        "TVL1_REALTIME": (of.TVL1_REALTIME, of.pyramidal_tvl1,
+                          ("tvl1_relax", "warp_bilinear_select", "pyr_down")),
+        "DISConfig()": (of.DISConfig(), of.pyramidal_dis,
+                        ("lk_residual centered", "lk_level_step centered", "hs_relax",
+                         "warp_bilinear_select", "pyr_down")),
     }
     for label, (cfg, direct, needs) in generic.items():
         flow, counts = run_path(f"pyramidal_flow {label}",
@@ -722,7 +801,87 @@ def main() -> int:
     print(f"phase 8c HS serving loop levels=1 warm + RecoveryConfig(levels=3), 5 frames 480x640: "
           f"worst pair vs plain median {worst['median']:.3g} p99 {worst['p99']:.3g}; inner median "
           f"flow at 4 ({m[0]:.4f}, {m[1]:.4f}); launches {counts}")
-    launches = {name: sum(c[name] for c in path_launches.values()) for name in wrappers}
+    # warm TV-L1 and DIS streaming over the same frames, one tracking level
+    streams = {
+        "TV-L1 TVL1_REALTIME levels=1": (dataclasses.replace(of.TVL1_REALTIME, levels=1),
+                                         ("tvl1_relax", "warp_bilinear_select", "pyr_down")),
+        "DIS DISConfig(levels=1)": (of.DISConfig(levels=1),
+                                    ("lk_level_step centered", "hs_relax", "warp_bilinear_select",
+                                     "pyr_down")),
+    }
+    for label, (cfg, needs) in streams.items():
+        flows, counts = run_path(f"{label} serving", lambda: dict(of.process_sequence(
+            gframes, cfg, warm_start=True, recovery=recovery)), needs)
+        flows_plain = dict(of.process_sequence(gframes, dataclasses.replace(cfg, use_pallas=False),
+                                               warm_start=True, recovery=recovery))
+        require(sorted(flows) == sorted(flows_plain) == [1, 2, 3, 4],
+                f"{label} serving yielded {sorted(flows)}")
+        worst = max((err_stats(flows[i], flows_plain[i]) for i in flows), key=lambda s: s["p99"])
+        require(worst["median"] <= PATH_MEDIAN_ERR and worst["p99"] <= PATH_P99_ERR,
+                f"{label} serving loop kernel vs plain: {worst}")
+        m = inner_median(flows[4])
+        print(f"phase 8c {label} serving loop warm + RecoveryConfig(levels=3), 5 frames 480x640: "
+              f"worst pair vs plain median {worst['median']:.3g} p99 {worst['p99']:.3g}; inner "
+              f"median flow at 4 ({m[0]:.4f}, {m[1]:.4f}); launches {counts}")
+
+    # 8d. paths TV-L1 at 1080x1920, with the launch counts predicted in PERF.md
+    fr = synthetic_sequence(2, 1080, 1920, velocity=(2.0, 1.0), period=48)
+    tp, tn = cuda(fr[0]).float(), cuda(fr[1]).float()
+    tvl1_cfgs = {"TVL1_REALTIME": of.TVL1_REALTIME, "TVL1Config()": of.TVL1Config()}
+    tvl1_expect = {
+        "TVL1_REALTIME": {"warp_bilinear_select": 16, "pyr_down": 3, "tvl1_relax": 16},
+        "TVL1Config()": {"warp_bilinear_select": 25, "pyr_down": 4, "tvl1_relax": 25},
+    }
+    for label, cfg in tvl1_cfgs.items():
+        flow, counts = run_path(f"TV-L1 {label}", lambda: of.pyramidal_tvl1(tp, tn, cfg),
+                                tuple(tvl1_expect[label]))
+        require(counts == tvl1_expect[label],
+                f"TV-L1 {label} launches {counts}, predicted {tvl1_expect[label]}")
+        require(tuple(flow.shape) == (1080, 1920, 2), f"TV-L1 {label} flow shape {tuple(flow.shape)}")
+        e = err_stats(flow, of.pyramidal_tvl1(tp, tn, dataclasses.replace(cfg, use_pallas=False)))
+        require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
+                f"pyramidal_tvl1 {label} kernel path vs plain path: {e}")
+        m = inner_median(flow)
+        epe = float((flow[64:-64, 64:-64] - flow.new_tensor([2.0, 1.0])).norm(dim=-1).mean())
+        if label == "TVL1Config()":
+            require(epe < TVL1_EPE_TOL, f"pyramidal_tvl1 {label} inner EPE {epe}")
+        require(abs(m[0] - 2.0) <= PRESET_TRANSLATION_TOL and abs(m[1] - 1.0) <= PRESET_TRANSLATION_TOL,
+                f"pyramidal_tvl1 {label} inner median flow {m}, expected (2, 1)")
+        print(f"phase 8d pyramidal_tvl1 {label} 1080x1920 period 48: inner EPE {epe:.4f}, median "
+              f"flow ({m[0]:.4f}, {m[1]:.4f}); vs plain path median {e['median']:.3g} p99 "
+              f"{e['p99']:.3g} max {e['max']:.3g}; launches {counts} (as predicted)")
+
+    # 8e. paths DIS at 1080x1920, with the launch counts predicted in PERF.md
+    dis_cfgs = {"DISConfig()": of.DISConfig(), "DIS_REALTIME": of.DIS_REALTIME,
+                "charbonnier": of.DISConfig(refine_penalty="charbonnier", refine_alpha=40.0)}
+    full = {"pyr_down": 4, "lk_residual": 1, "lk_level_step": 9, "warp_bilinear_select": 5,
+            "hs_relax": 5, "lk_residual centered": 1, "lk_level_step centered": 9}
+    dis_expect = {"DISConfig()": full, "charbonnier": full,
+                  "DIS_REALTIME": {"pyr_down": 4, "lk_residual": 1, "lk_level_step": 7,
+                                   "warp_bilinear_select": 4, "hs_relax": 4,
+                                   "lk_residual centered": 1, "lk_level_step centered": 7}}
+    for label, cfg in dis_cfgs.items():
+        flow, counts = run_path(f"DIS {label}", lambda: of.pyramidal_dis(tp, tn, cfg),
+                                tuple(dis_expect[label]))
+        require(counts == dis_expect[label],
+                f"DIS {label} launches {counts}, predicted {dis_expect[label]}")
+        require(tuple(flow.shape) == (1080, 1920, 2), f"DIS {label} flow shape {tuple(flow.shape)}")
+        e = err_stats(flow, of.pyramidal_dis(tp, tn, dataclasses.replace(cfg, use_pallas=False)))
+        require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
+                f"pyramidal_dis {label} kernel path vs plain path: {e}")
+        m = inner_median(flow)
+        epe = float((flow[64:-64, 64:-64] - flow.new_tensor([2.0, 1.0])).norm(dim=-1).mean())
+        if label == "DIS_REALTIME":
+            require(abs(m[0] - 2.0) <= PRESET_TRANSLATION_TOL
+                    and abs(m[1] - 1.0) <= PRESET_TRANSLATION_TOL,
+                    f"pyramidal_dis {label} inner median flow {m}, expected (2, 1)")
+        else:
+            require(epe < DIS_EPE_TOL, f"pyramidal_dis {label} inner EPE {epe}")
+        print(f"phase 8e pyramidal_dis {label} 1080x1920 period 48: inner EPE {epe:.4f}, median "
+              f"flow ({m[0]:.4f}, {m[1]:.4f}); vs plain path median {e['median']:.3g} p99 "
+              f"{e['p99']:.3g} max {e['max']:.3g}; launches {counts} (as predicted)")
+    launches = {name: sum(c[name] for c in path_launches.values())
+                for name in next(iter(path_launches.values()))}
     for name, n_launch in launches.items():
         require(n_launch > 0, f"{name} was not launched on any path")
 
@@ -746,6 +905,14 @@ def main() -> int:
         "FB serving step 1080x1920": (
             lambda: of.step(fb_state, fb_frame, fb_serve, True, recovery),
             lambda: of.step(fb_state, fb_frame, fb_serve_plain, True, recovery), 10),
+        **{f"pyramidal_tvl1 {label} 1080x1920": (
+            (lambda c=c: of.pyramidal_tvl1(tp, tn, c)),
+            (lambda c=c: of.pyramidal_tvl1(tp, tn, dataclasses.replace(c, use_pallas=False))), 5)
+           for label, c in tvl1_cfgs.items()},
+        **{f"pyramidal_dis {label} 1080x1920": (
+            (lambda c=c: of.pyramidal_dis(tp, tn, c)),
+            (lambda c=c: of.pyramidal_dis(tp, tn, dataclasses.replace(c, use_pallas=False))), 10)
+           for label, c in dis_cfgs.items()},
     }
     # a warm FB serving state: the step times one tracked pair with the check
     fb_state = of.init_state(cuda(frames[0]), fb_serve, recovery)
@@ -766,6 +933,7 @@ def main() -> int:
                                    f0[..., 0], f0[..., 1])
     hs_kw = dict(iterations=100, alpha=10.0, temporal_kernel="gauss3")
     small = torch.stack([p0[:480, :640], n0[:480, :640]]).contiguous()
+    w0 = warp_select.warp_bilinear_select_plain(n0, f0)
     # (name, label, args, keyword args); the first entry of each name is the
     # one in the kernels line
     timed = [
@@ -780,6 +948,9 @@ def main() -> int:
         ("poly_expansion_kernel", "poly_n=7", (p0, 7, 1.5), {}),
         ("window_solve", "15x15", (*prods0, 15, 1e-6), {}),
         ("fb_level_step", "15x15 poly_n=7 warm", (n0, exp0, f0, of.FBConfig()), {}),
+        ("tvl1_relax", "14 iterations warm", (p0, w0, f0, f0), tvl1_kw),
+        ("lk_residual", "9x9 box centered", (p0, n0, dis_lk), {"centered": True}),
+        ("lk_level_step", "9x9 box centered", (p0, n0, f0, dis_lk), {"centered": True}),
     ]
     # library yardstick: F.conv2d(stride=2) computes pyr_down's function
     k2 = torch.as_tensor(np.outer(BINOMIAL_1D, BINOMIAL_1D), device=dev)[None, None]
@@ -813,18 +984,24 @@ def main() -> int:
                "poly_expansion_kernel": ("F.conv2d 5x1x7x7", lambda: conv_poly(p0))}
     timing = {}
     for name, label, args, kw in timed:
-        slow = name == "hs_relax"
+        slow = name in ("hs_relax", "tvl1_relax")
         k_ms = cuda_ms(lambda: wrappers[name](*args, **kw), 10 if slow else reps,
                        inner=1 if slow else 10)
         p_ms = cuda_ms(lambda: plains[name](*args, **kw), 3 if slow else 10, warmup=1)
         lib_name, lib_fn = library.get(name, (None, None))
         lib_ms = None if lib_fn is None else cuda_ms(lib_fn, reps, inner=10)
         b_ms, b_by = bound(name, args, kw)
-        timing.setdefault(name, (k_ms, p_ms, b_ms, b_by, lib_ms))
+        timing.setdefault(f"{name} centered" if kw.get("centered") else name,
+                          (k_ms, p_ms, b_ms, b_by, lib_ms))
         shape = "x".join(map(str, args[0].shape))
         print(f"phase 9 timing [{card}] {name} {shape} {label}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms" + ("" if lib_ms is None else f", {lib_name} {lib_ms:.4f} ms")
               + f", bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / k_ms:.1f} % of the kernel's time)")
+
+    # the median filter of TV-L1's warps: plain PyTorch, no kernel
+    med_ms = cuda_ms(lambda: median_filter(f0.movedim(-1, 0), 5), 10, warmup=2)
+    print(f"phase 9 timing [{card}] median_filter 5x5 of a 2x1080x1920 flow (plain PyTorch "
+          f"torch.median over 25 stacked slices, no kernel): {med_ms:.4f} ms")
 
     # 10. profile: device busy share and device operations per pair
     for label, (fn, _plain, _r) in paths.items():
@@ -839,14 +1016,18 @@ def main() -> int:
               f"ms/pair; busy share {100 * prof['device_ms'] / path_ms[label]:.1f} % of the "
               f"unprofiled {path_ms[label]:.3f} ms/pair; top: {top}")
 
+    entries = [(name, src, rep) for name, _m, _p, src, rep in KERNELS]
+    entries += [(f"{name} centered", src, rep)
+                for name, _m, _p, src, rep in KERNELS if name in CENTERED]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": max_err[name],
          "ms": timing[name][0], "plain_ms": timing[name][1],
          "bound_ms": timing[name][2], "bound_by": timing[name][3],
          "library_ms": timing[name][4]}
-        for name, _m, _p, src, rep in KERNELS
+        for name, src, rep in entries
     ]}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

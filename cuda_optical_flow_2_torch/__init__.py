@@ -1,5 +1,5 @@
-"""Dense optical flow (pyramidal Lucas-Kanade, Horn-Schunck, Farnebäck) in
-PyTorch with CUDA kernels.
+"""Dense optical flow (pyramidal Lucas-Kanade, Horn-Schunck, Farnebäck, TV-L1,
+DIS) in PyTorch with CUDA kernels.
 
 The PyTorch port of ``cuda_optical_flow_2_tpu`` (the JAX reference, which
 stays beside it).  Same module names, same layouts: images are
@@ -14,9 +14,11 @@ plain PyTorch versions.
     flow = of.pyramidal_lk(prev_gray, next_gray, of.LKConfig(levels=4))
     flow = of.pyramidal_hs(prev_gray, next_gray, of.HSConfig())
     flow = of.pyramidal_farneback(prev_gray, next_gray, of.FBConfig())
-    flow = of.pyramidal_flow(prev_gray, next_gray, config)  # any of the three
+    flow = of.pyramidal_tvl1(prev_gray, next_gray, of.TVL1_REALTIME)
+    flow = of.pyramidal_dis(prev_gray, next_gray, of.DISConfig())
+    flow = of.pyramidal_flow(prev_gray, next_gray, config)  # any of the five
 
-``process_sequence``, ``init_state`` and ``step`` stream any of the three
+``process_sequence``, ``init_state`` and ``step`` stream any of the five
 families, warm or cold, with scene-cut recovery.
 """
 
@@ -28,6 +30,7 @@ from cuda_optical_flow_2_torch.config import (
     LKConfig,
 )
 from cuda_optical_flow_2_torch.models import pyramidal_flow
+from cuda_optical_flow_2_torch.models.dis import DIS_REALTIME, DISConfig, pyramidal_dis
 from cuda_optical_flow_2_torch.models.farneback import (
     FBConfig,
     fb_coarse_to_fine,
@@ -57,17 +60,22 @@ from cuda_optical_flow_2_torch.models.streaming import (
     process_sequence,
     step,
 )
+from cuda_optical_flow_2_torch.models.tvl1 import TVL1_REALTIME, TVL1Config, pyramidal_tvl1
 
 __version__ = "0.1.0"
 
 __all__ = [
     "BilateralConfig",
+    "DISConfig",
+    "DIS_REALTIME",
     "FBConfig",
     "HSConfig",
     "LKConfig",
     "PAPER_1080P",
     "REFERENCE_CPU",
     "REFERENCE_GPU",
+    "TVL1Config",
+    "TVL1_REALTIME",
     "FlowState",
     "RecoveryConfig",
     "coarse_to_fine",
@@ -81,11 +89,13 @@ __all__ = [
     "lk_level",
     "preprocess",
     "process_sequence",
+    "pyramidal_dis",
     "pyramidal_farneback",
     "pyramidal_flow",
     "pyramidal_hs",
     "pyramidal_lk",
     "pyramidal_lk_pyramid",
+    "pyramidal_tvl1",
     "solve_flow",
     "step",
     "__version__",

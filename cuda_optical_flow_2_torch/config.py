@@ -51,8 +51,8 @@ class LKConfig:
       warp_mode: "bilinear" | "nearest" | "none" — coarse-to-fine backward warp.
       det_eps: |det| threshold below which the 2x2 solve returns (0, 0);
         0.0 divides by the raw determinant (inf/nan pass through).
-      window_method: "sep_conv" | "cumsum" | "reduce_window".  Only
-        "sep_conv" is implemented by the port's plain ops.
+      window_method: "sep_conv" | "cumsum" | "reduce_window": the plain ops'
+        box-sum backend (float summation order only).
       window_weights: "box" (flat sum), "tri" (trapezoid: two iterated box
         sums) or "gauss" (truncated Gaussian, sigma = window/6).
       max_displacement: per-level warp displacement budget in pixels; the

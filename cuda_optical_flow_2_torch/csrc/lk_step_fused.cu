@@ -5,10 +5,11 @@
 
 // prev, nxt: (B, H, W) float32; flow_in, flow_out: (B, H, W, 2) float32,
 // distinct buffers.  taps: 2r+1 host floats; masks: 27 host floats.
+// centered != 0: the mean-normalized (DIS) sums.
 extern "C" int of2_lk_level_step(const float* prev, const float* nxt, const float* flow_in,
                                  float* flow_out, int B, int H, int W, int r, const float* taps,
-                                 const float* masks, float det_eps, float max_disp,
+                                 const float* masks, float det_eps, float max_disp, int centered,
                                  void* stream) {
   return of2_lk_launch<true>(prev, nxt, flow_in, flow_out, B, H, W, r, taps, masks, det_eps,
-                             max_disp, stream);
+                             max_disp, centered, stream);
 }

@@ -2,14 +2,18 @@
 // -> guarded 2x2 solve, with every intermediate in shared memory.
 //
 // Shared by lk_fused.cu (residual only, STEP = false) and lk_step_fused.cu
-// (warp + residual + accumulate, STEP = true).
+// (warp + residual + accumulate, STEP = true).  CENTERED (the DIS data term)
+// carries four more sums, Ix, Iy, It and the in-image count n, and turns
+// each product sum into S_ab - S_a S_b / max(n, 1) before the solve
+// (ops/window.centered_structure_tensor_sums).
 //
 // A block owns a TILE_H x TILE_W output tile.  With window radius r:
 //   S: (TILE_H + 2r + 2) x (TILE_W + 2r + 2) source pixels, prev and
 //      (warped) next - prev, zero outside the image;
 //   G: (TILE_H + 2r) x (TILE_W + 2r) gradients Ix, Iy, It, zero outside the
 //      image, so window sums see zero padding at the border;
-//   R: five row-pass sums, (TILE_H + 2r) x TILE_W each (overwrites S).
+//   R: five (CENTERED: nine) row-pass sums, (TILE_H + 2r) x TILE_W each
+//      (overwrites S).
 // The column pass then reads R and the solve writes (u, v) per pixel.
 #pragma once
 
@@ -31,10 +35,12 @@ struct Of2LKParams {
   int W;
 };
 
-static inline size_t of2_lk_smem_floats(int r) {
+// r = 32 centered: 9*80*32 + 3*80*96 floats = 184,320 bytes, under the
+// 227 KB a block may opt in to.
+static inline size_t of2_lk_smem_floats(int r, bool centered) {
   const size_t sh = OF2_TILE_H + 2 * r + 2, sw = OF2_TILE_W + 2 * r + 2;
   const size_t gh = OF2_TILE_H + 2 * r, gw = OF2_TILE_W + 2 * r;
-  const size_t s = 2 * sh * sw, rows = 5 * gh * OF2_TILE_W;
+  const size_t s = 2 * sh * sw, rows = (centered ? 9 : 5) * gh * OF2_TILE_W;
   return 3 * gh * gw + (s > rows ? s : rows);
 }
 
@@ -48,7 +54,7 @@ __device__ __forceinline__ float of2_stencil3(const float* __restrict__ s, int l
   return acc;
 }
 
-template <bool STEP>
+template <bool STEP, bool CENTERED>
 __global__ void __launch_bounds__(OF2_THREADS)
 of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt,
                    const float* __restrict__ flow_in, float* __restrict__ flow_out,
@@ -105,12 +111,16 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
   }
   __syncthreads();
 
-  // R: row pass of the five products over the window's columns.
+  // R: row pass of the five products (CENTERED: and of Ix, Iy, It and the
+  // in-image indicator) over the window's columns.
   const int rplane = gh * OF2_TILE_W;
   for (int i = threadIdx.x; i < rplane; i += blockDim.x) {
     const int gy = i / OF2_TILE_W, c = i % OF2_TILE_W;
     const int g0 = gy * gw + c;
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f;
+    float a5 = 0.f, a6 = 0.f, a7 = 0.f, a8 = 0.f;
+    const int y = oy - r + gy;
+    const bool row_in = y >= 0 && y < H;
     for (int d = 0; d <= 2 * r; ++d) {
       const float w = p.taps[d];
       const float ix = g_ix[g0 + d], iy = g_iy[g0 + d], it = g_it[g0 + d];
@@ -119,12 +129,25 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
       a2 += w * (ix * iy);
       a3 += w * (ix * it);
       a4 += w * (iy * it);
+      if (CENTERED) {
+        const int x = ox - r + c + d;
+        a5 += w * ix;
+        a6 += w * iy;
+        a7 += w * it;
+        a8 += (row_in && x >= 0 && x < W) ? w : 0.f;
+      }
     }
     rows[i] = a0;
     rows[rplane + i] = a1;
     rows[2 * rplane + i] = a2;
     rows[3 * rplane + i] = a3;
     rows[4 * rplane + i] = a4;
+    if (CENTERED) {
+      rows[5 * rplane + i] = a5;
+      rows[6 * rplane + i] = a6;
+      rows[7 * rplane + i] = a7;
+      rows[8 * rplane + i] = a8;
+    }
   }
   __syncthreads();
 
@@ -134,6 +157,7 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
     const int y = oy + ty, x = ox + c;
     if (y >= H || x >= W) continue;
     float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f;
+    float s5 = 0.f, s6 = 0.f, s7 = 0.f, s8 = 0.f;
     for (int d = 0; d <= 2 * r; ++d) {
       const float w = p.taps[d];
       const int k = (ty + d) * OF2_TILE_W + c;
@@ -142,6 +166,21 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
       s2 += w * rows[2 * rplane + k];
       s3 += w * rows[3 * rplane + k];
       s4 += w * rows[4 * rplane + k];
+      if (CENTERED) {
+        s5 += w * rows[5 * rplane + k];
+        s6 += w * rows[6 * rplane + k];
+        s7 += w * rows[7 * rplane + k];
+        s8 += w * rows[8 * rplane + k];
+      }
+    }
+    if (CENTERED) {
+      // s5..s8 = sum Ix, Iy, It, n: the per-window covariances
+      const float inv_n = 1.f / fmaxf(s8, 1.f);
+      s0 = s0 - s5 * s5 * inv_n;
+      s1 = s1 - s6 * s6 * inv_n;
+      s2 = s2 - s5 * s6 * inv_n;
+      s3 = s3 - s5 * s7 * inv_n;
+      s4 = s4 - s6 * s7 * inv_n;
     }
     // s0..s4 = sum Ix^2, Iy^2, IxIy, IxIt, IyIt; d = -A^-1 b.
     const float det = s0 * s1 - s2 * s2;
@@ -167,12 +206,26 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
   }
 }
 
+template <bool STEP, bool CENTERED>
+static int of2_lk_run(const float* prev, const float* nxt, const float* flow_in, float* flow_out,
+                      int B, int H, int W, const Of2LKParams& p, void* stream) {
+  const size_t smem = of2_lk_smem_floats(p.r, CENTERED) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(of2_lk_tile_kernel<STEP, CENTERED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + OF2_TILE_W - 1) / OF2_TILE_W, (H + OF2_TILE_H - 1) / OF2_TILE_H, B);
+  of2_lk_tile_kernel<STEP, CENTERED><<<grid, OF2_THREADS, smem, (cudaStream_t)stream>>>(
+      prev, nxt, flow_in, flow_out, p);
+  return (int)cudaGetLastError();
+}
+
 // Host side: fill the parameters, allow the dynamic shared memory, launch,
 // and return the launch status (cudaSuccess == 0).
 template <bool STEP>
 static int of2_lk_launch(const float* prev, const float* nxt, const float* flow_in,
                          float* flow_out, int B, int H, int W, int r, const float* taps,
-                         const float* masks, float det_eps, float max_disp, void* stream) {
+                         const float* masks, float det_eps, float max_disp, int centered,
+                         void* stream) {
   if (r < 0 || r > OF2_MAX_R || B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   Of2LKParams p;
   for (int d = 0; d < OF2_MAX_TAPS; ++d) p.taps[d] = d <= 2 * r ? taps[d] : 0.f;
@@ -186,12 +239,6 @@ static int of2_lk_launch(const float* prev, const float* nxt, const float* flow_
   p.r = r;
   p.H = H;
   p.W = W;
-  const size_t smem = of2_lk_smem_floats(r) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(of2_lk_tile_kernel<STEP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + OF2_TILE_W - 1) / OF2_TILE_W, (H + OF2_TILE_H - 1) / OF2_TILE_H, B);
-  of2_lk_tile_kernel<STEP><<<grid, OF2_THREADS, smem, (cudaStream_t)stream>>>(
-      prev, nxt, flow_in, flow_out, p);
-  return (int)cudaGetLastError();
+  return centered ? of2_lk_run<STEP, true>(prev, nxt, flow_in, flow_out, B, H, W, p, stream)
+                  : of2_lk_run<STEP, false>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
 }

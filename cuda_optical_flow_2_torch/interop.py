@@ -13,12 +13,15 @@ import numpy as np
 import torch
 
 from cuda_optical_flow_2_torch.config import BilateralConfig, LKConfig
+from cuda_optical_flow_2_torch.models.dis import DISConfig
 from cuda_optical_flow_2_torch.models.farneback import FBConfig
 from cuda_optical_flow_2_torch.models.horn_schunck import HSConfig
 from cuda_optical_flow_2_torch.models.streaming import FlowState, resolve_device
+from cuda_optical_flow_2_torch.models.tvl1 import TVL1Config
 
 __all__ = [
-    "lk_config_from_jax", "hs_config_from_jax", "fb_config_from_jax", "flow_state_from_numpy",
+    "lk_config_from_jax", "hs_config_from_jax", "fb_config_from_jax", "tvl1_config_from_jax",
+    "dis_config_from_jax", "flow_state_from_numpy",
 ]
 
 
@@ -45,6 +48,18 @@ def fb_config_from_jax(cfg) -> FBConfig:
     """The port's :class:`FBConfig` with the fields of ``cfg``, any dataclass
     with ``FBConfig``'s fields (such as the JAX package's)."""
     return FBConfig(**_fields(cfg))
+
+
+def tvl1_config_from_jax(cfg) -> TVL1Config:
+    """The port's :class:`TVL1Config` with the fields of ``cfg``, any dataclass
+    with ``TVL1Config``'s fields (such as the JAX package's)."""
+    return TVL1Config(**_fields(cfg))
+
+
+def dis_config_from_jax(cfg) -> DISConfig:
+    """The port's :class:`DISConfig` with the fields of ``cfg``, any dataclass
+    with ``DISConfig``'s fields (such as the JAX package's)."""
+    return DISConfig(**_fields(cfg))
 
 
 def flow_state_from_numpy(pyramid, flow, device: torch.device | str | None = None) -> FlowState:

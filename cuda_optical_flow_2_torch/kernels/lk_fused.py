@@ -1,23 +1,27 @@
 """Fused LK residual kernel: gradients + window sums + 2x2 solve in one pass.
 
-Replaces ``cuda_optical_flow_2_tpu/kernels/lk_fused.py::lk_residual`` (the
-``centered=False`` form; the DIS ``centered`` mode is not ported yet).  The
-CUDA source is ``csrc/lk_fused.cu`` with the tile body in
-``csrc/of2_lk_tile.cuh``.
+Replaces ``cuda_optical_flow_2_tpu/kernels/lk_fused.py::lk_residual``, both
+forms: the LK sums and, with ``centered=True``, the mean-normalized sums of
+the DIS data term (four more window sums, Ix, Iy, It and the in-image
+count, and ``S_ab - S_a S_b / n`` before the solve).  The CUDA source is
+``csrc/lk_fused.cu`` with the tile body in ``csrc/of2_lk_tile.cuh``.
 
 What bounds it on an H100: bytes.  Per pixel it reads two f32 planes and
 writes one (u, v) pair, against a few hundred flops of stencil and window
 arithmetic, far below the card's flop/byte ratio.  The design keeps every
-intermediate (Ix, Iy, It, the five product sums) in shared memory: one block
-per 16 x 32 output tile loads its tile plus an (r + 1)-pixel halo once, zero
-outside the image, and runs the window as a row pass then a column pass with
-the taps of ``ops.window.window_weight_taps`` (box, tri and gauss alike).
+intermediate (Ix, Iy, It, the five or nine row-pass sums) in shared memory:
+one block per 16 x 32 output tile loads its tile plus an (r + 1)-pixel halo
+once, zero outside the image, and runs the window as a row pass then a
+column pass with the taps of ``ops.window.window_weight_taps`` (box, tri and
+gauss alike).  The centered mode needs 184,320 bytes of shared memory at
+r = 32, under the 227 KB opt-in limit.
 What the TPU kernel did about its own limits (rolls on 128-lane padded rows,
 the O(log r) run-doubling box sum) has no counterpart here.
 
 :func:`lk_residual` launches the kernel for CUDA tensors and takes
 :func:`lk_residual_plain` for CPU tensors; ``lk_residual.launches`` counts
-kernel launches.
+kernel launches and ``lk_residual.launches_centered`` those with
+``centered=True``.
 """
 
 from __future__ import annotations
@@ -35,20 +39,28 @@ from cuda_optical_flow_2_torch.ops.gradients import (
     temporal_mask,
 )
 from cuda_optical_flow_2_torch.ops.solve import solve_flow
-from cuda_optical_flow_2_torch.ops.window import structure_tensor_sums, window_weight_taps
+from cuda_optical_flow_2_torch.ops.window import (
+    centered_structure_tensor_sums,
+    structure_tensor_sums,
+    window_weight_taps,
+)
 
 __all__ = ["lk_residual", "lk_residual_plain", "MAX_WINDOW"]
 
 MAX_WINDOW = 65  # csrc/of2_common.cuh OF2_MAX_R = 32
 
 
-def lk_residual_plain(prev: torch.Tensor, nxt: torch.Tensor, config: LKConfig) -> torch.Tensor:
+def lk_residual_plain(
+    prev: torch.Tensor, nxt: torch.Tensor, config: LKConfig, centered: bool = False
+) -> torch.Tensor:
     """The plain PyTorch version: the ops composition of the JAX package's
-    ``models/lucas_kanade._lk_residual_xla``."""
+    ``models/lucas_kanade._lk_residual_xla`` (``centered``:
+    ``models/dis._dis_residual_xla``)."""
     ix, iy = spatial_gradients(prev, config.normalize_gradients)
     it = temporal_gradient(prev, nxt, config.temporal_kernel, config.normalize_gradients)
-    sums = structure_tensor_sums(
-        ix, iy, it, config.window, config.window_method, config.window_weights
+    sums_fn = centered_structure_tensor_sums if centered else structure_tensor_sums
+    sums = sums_fn(
+        ix, iy, it, config.window, config.window_method, weights=config.window_weights
     )
     return solve_flow(sums, config)
 
@@ -74,10 +86,13 @@ def planes(*tensors: torch.Tensor) -> list[torch.Tensor]:
     return [t.to(torch.float32).contiguous() for t in tensors]
 
 
-def lk_residual(prev: torch.Tensor, nxt: torch.Tensor, config: LKConfig) -> torch.Tensor:
-    """Residual flow (..., H, W, 2) between prev and (already warped) next."""
+def lk_residual(
+    prev: torch.Tensor, nxt: torch.Tensor, config: LKConfig, centered: bool = False
+) -> torch.Tensor:
+    """Residual flow (..., H, W, 2) between prev and (already warped) next;
+    ``centered=True`` mean-normalizes the window sums (the DIS data term)."""
     if prev.device.type == "cpu" and nxt.device.type == "cpu":
-        return lk_residual_plain(prev, nxt, config)
+        return lk_residual_plain(prev, nxt, config, centered)
     dev = _build.require_cuda(prev, nxt)
     if prev.shape != nxt.shape:
         raise ValueError(f"frame shapes differ: {tuple(prev.shape)} vs {tuple(nxt.shape)}")
@@ -87,10 +102,12 @@ def lk_residual(prev: torch.Tensor, nxt: torch.Tensor, config: LKConfig) -> torc
     r, taps, masks = kernel_constants(config)
     _build.launch(
         dev, "of2_lk_residual", p.data_ptr(), n.data_ptr(), out.data_ptr(), p.shape[0], h, w,
-        r, taps.ctypes.data, masks.ctypes.data, float(config.det_eps),
+        r, taps.ctypes.data, masks.ctypes.data, float(config.det_eps), int(centered),
     )
     lk_residual.launches += 1
+    lk_residual.launches_centered += int(centered)
     return out.reshape(lead + (h, w, 2))
 
 
 lk_residual.launches = 0
+lk_residual.launches_centered = 0

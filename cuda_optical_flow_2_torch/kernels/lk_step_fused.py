@@ -1,13 +1,14 @@
 """Fused LK level step: clamp + warp + gradients + window sums + solve + update.
 
 Replaces ``cuda_optical_flow_2_tpu/kernels/lk_step_fused.py::lk_level_step``
-(whole image; the spatial-TP ``lk_band_step``, the in-kernel 2x upsample
-``flow_half`` and the DIS ``centered`` mode are not ported yet).  CUDA source:
-``csrc/lk_step_fused.cu`` with the tile body in ``csrc/of2_lk_tile.cuh`` and
-the clamp + warp in ``csrc/of2_common.cuh``.  It computes::
+(whole image, with the DIS ``centered`` mode; the spatial-TP
+``lk_band_step`` and the in-kernel 2x upsample ``flow_half`` are not ported
+yet).  CUDA source: ``csrc/lk_step_fused.cu`` with the tile body in
+``csrc/of2_lk_tile.cuh`` and the clamp + warp in ``csrc/of2_common.cuh``.
+It computes::
 
     fc  = clip(flow, +-max_displacement)
-    out = fc + residual(prev, warp_bilinear(next, fc))
+    out = fc + residual(prev, warp_bilinear(next, fc))   # centered: DIS sums
 
 What bounds it on an H100: bytes.  Per pixel it reads prev, next and the
 (u, v) flow, gathers four next pixels near the displaced point, and writes
@@ -22,7 +23,8 @@ exact for any flow.
 
 :func:`lk_level_step` launches the kernel for CUDA tensors and takes
 :func:`lk_level_step_plain` for CPU tensors; ``lk_level_step.launches``
-counts kernel launches.
+counts kernel launches and ``lk_level_step.launches_centered`` those with
+``centered=True``.
 """
 
 from __future__ import annotations
@@ -38,24 +40,33 @@ __all__ = ["lk_level_step", "lk_level_step_plain"]
 
 
 def lk_level_step_plain(
-    prev: torch.Tensor, nxt: torch.Tensor, flow: torch.Tensor, config: LKConfig
+    prev: torch.Tensor,
+    nxt: torch.Tensor,
+    flow: torch.Tensor,
+    config: LKConfig,
+    centered: bool = False,
 ) -> torch.Tensor:
     """The plain PyTorch version: clip + warp_bilinear + residual + add."""
     d = float(config.max_displacement)
     fc = flow.clamp(-d, d)
-    return fc + lk_residual_plain(prev, warp_bilinear(nxt, fc), config)
+    return fc + lk_residual_plain(prev, warp_bilinear(nxt, fc), config, centered)
 
 
 def lk_level_step(
-    prev: torch.Tensor, nxt: torch.Tensor, flow: torch.Tensor, config: LKConfig
+    prev: torch.Tensor,
+    nxt: torch.Tensor,
+    flow: torch.Tensor,
+    config: LKConfig,
+    centered: bool = False,
 ) -> torch.Tensor:
-    """One warp + solve + update iteration of an LK level.
+    """One warp + solve + update iteration of an LK level (``centered``:
+    of a DIS level, with the mean-normalized sums).
 
     Args: prev/nxt (..., H, W), flow (..., H, W, 2).  Returns the updated
     flow (..., H, W, 2) float32.
     """
     if all(t.device.type == "cpu" for t in (prev, nxt, flow)):
-        return lk_level_step_plain(prev, nxt, flow, config)
+        return lk_level_step_plain(prev, nxt, flow, config, centered)
     dev = _build.require_cuda(prev, nxt, flow)
     lead, (h, w) = prev.shape[:-2], prev.shape[-2:]
     if nxt.shape != prev.shape or flow.shape != prev.shape + (2,):
@@ -69,10 +80,12 @@ def lk_level_step(
     _build.launch(
         dev, "of2_lk_level_step", p.data_ptr(), n.data_ptr(), f.data_ptr(), out.data_ptr(),
         p.shape[0], h, w, r, taps.ctypes.data, masks.ctypes.data, float(config.det_eps),
-        float(config.max_displacement),
+        float(config.max_displacement), int(centered),
     )
     lk_level_step.launches += 1
+    lk_level_step.launches_centered += int(centered)
     return out.reshape(lead + (h, w, 2))
 
 
 lk_level_step.launches = 0
+lk_level_step.launches_centered = 0

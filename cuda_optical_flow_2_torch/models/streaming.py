@@ -1,10 +1,10 @@
 """Streaming video flow: carried pyramid state across frames.
 
 Counterpart of ``cuda_optical_flow_2_tpu.models.streaming``, model-generic
-over the ported families: ``config`` is an :class:`LKConfig`, ``HSConfig``
-or ``FBConfig`` and selects the preprocess and the coarse-to-fine solve.
-Any other config (TV-L1 and DIS are not ported yet, a JAX config) raises
-``TypeError``.
+over the five families: ``config`` is the port's :class:`LKConfig`,
+``HSConfig``, ``FBConfig``, ``TVL1Config`` or ``DISConfig`` and selects the
+preprocess and the coarse-to-fine solve.  Any other config (a JAX config
+included) raises ``TypeError``.
 
     state = init_state(first_frame, config)
     for frame in frames:
@@ -28,6 +28,7 @@ import torch
 
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.kernels import warp_select
+from cuda_optical_flow_2_torch.models.dis import DISConfig, dis_coarse_to_fine, dis_preprocess
 from cuda_optical_flow_2_torch.models.farneback import FBConfig, fb_coarse_to_fine, fb_preprocess
 from cuda_optical_flow_2_torch.models.horn_schunck import (
     HSConfig,
@@ -35,6 +36,11 @@ from cuda_optical_flow_2_torch.models.horn_schunck import (
     hs_preprocess,
 )
 from cuda_optical_flow_2_torch.models.lucas_kanade import _validate, coarse_to_fine, preprocess
+from cuda_optical_flow_2_torch.models.tvl1 import (
+    TVL1Config,
+    tvl1_coarse_to_fine,
+    tvl1_preprocess,
+)
 from cuda_optical_flow_2_torch.ops.resize import downsample_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
 
@@ -76,17 +82,21 @@ class FlowState(NamedTuple):
     flow: torch.Tensor | None = None
 
 
+_FAMILIES = (LKConfig, HSConfig, FBConfig, TVL1Config, DISConfig)
+
+
 def not_ported(config) -> TypeError:
-    """The error for a config of no ported family (a JAX config included)."""
+    """The error for a config of no family of the port (a JAX config included:
+    ``interop`` converts one)."""
     return TypeError(
-        "config must be the port's LKConfig, HSConfig or FBConfig; got "
-        f"{type(config).__module__}.{type(config).__qualname__} (TV-L1 and DIS are not "
-        "ported yet: ROADMAP.md queue 1 items 9 and 11)"
+        "config must be the port's LKConfig, HSConfig, FBConfig, TVL1Config or DISConfig; "
+        f"got {type(config).__module__}.{type(config).__qualname__} (convert a JAX config "
+        "with cuda_optical_flow_2_torch.interop)"
     )
 
 
 def _require_ported(config) -> None:
-    if not isinstance(config, (LKConfig, HSConfig, FBConfig)):
+    if not isinstance(config, _FAMILIES):
         raise not_ported(config)
 
 
@@ -103,6 +113,10 @@ def _preprocess(frame: torch.Tensor, config) -> list[torch.Tensor]:
         return hs_preprocess(frame, config)
     if isinstance(config, FBConfig):
         return fb_preprocess(frame, config)
+    if isinstance(config, TVL1Config):
+        return tvl1_preprocess(frame, config)
+    if isinstance(config, DISConfig):
+        return dis_preprocess(frame, config)
     return preprocess(frame, config)
 
 
@@ -112,14 +126,18 @@ def _flow(prev_pyr, next_pyr, config, init_flow=None) -> torch.Tensor:
         return hs_coarse_to_fine(list(prev_pyr), list(next_pyr), config, init_flow)
     if isinstance(config, FBConfig):
         return fb_coarse_to_fine(list(prev_pyr), list(next_pyr), config, init_flow)
+    if isinstance(config, TVL1Config):
+        return tvl1_coarse_to_fine(list(prev_pyr), list(next_pyr), config, init_flow)
+    if isinstance(config, DISConfig):
+        return dis_coarse_to_fine(list(prev_pyr), list(next_pyr), config, init_flow)
     return coarse_to_fine(list(prev_pyr), list(next_pyr), config, init_flow)[0]
 
 
 def init_state(
     frame: torch.Tensor, config, recovery: RecoveryConfig | None = None
 ) -> FlowState:
-    """Build the initial state from the first frame.  ``config`` is an
-    LKConfig, HSConfig or FBConfig.  Pass the same ``recovery`` given to
+    """Build the initial state from the first frame.  ``config`` is the
+    port's LKConfig, HSConfig, FBConfig, TVL1Config or DISConfig.  Pass the same ``recovery`` given to
     :func:`step`: the state then carries the deeper acquisition pyramid."""
     _require_ported(config)
     return FlowState(tuple(_preprocess(frame.to(torch.float32), _carry_config(config, recovery))))
@@ -217,7 +235,8 @@ def process_sequence(
     frames: the cast to float32 happens on the device).  A ``None`` element
     (a decode failure) is skipped: no flow is yielded for it, the next good
     frame pairs with the last good one, and the carried warm flow is
-    dropped.  ``config`` (LKConfig, HSConfig or FBConfig) selects the family.
+    dropped.  ``config`` (LKConfig, HSConfig, FBConfig, TVL1Config or
+    DISConfig) selects the family.
     """
     _require_ported(config)
     it = iter(frames)

@@ -9,6 +9,7 @@ edges clamped; see the JAX module for why the half-pixel grid is kept.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from cuda_optical_flow_2_torch.ops.pyramid import pyr_down
 
@@ -27,16 +28,22 @@ def _up2x_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def upsample_flow(flow: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
-    """Upsample (..., h, w, 2) flow one pyramid octave to (..., H, W, 2),
-    H in (2h, 2h + 1) and W in (2w, 2w + 1), and double its values; an odd
-    target gets one edge-replicated row/column.  The JAX function's other
-    scales have no caller in the port."""
+    """Resize (..., h, w, 2) flow to (..., H, W, 2) and scale u by W/w, v by
+    H/h.  One pyramid octave (H in (2h, 2h + 1), W in (2w, 2w + 1)) takes the
+    exact 2x stencil and doubles the values, an odd target getting one
+    edge-replicated row/column; any other size is a half-pixel bilinear
+    resize with clamped edges (``jax.image.resize`` without antialiasing;
+    DIS's ``finest_level`` > 1 reaches it)."""
     th, tw = shape
     h, w = flow.shape[-3:-1]
     if (th, tw) == (h, w):
         return flow
     if th not in (2 * h, 2 * h + 1) or tw not in (2 * w, 2 * w + 1):
-        raise ValueError(f"{shape} is not one pyramid octave above {(h, w)}")
+        lead = flow.shape[:-3]
+        x = flow.reshape((-1, h, w, 2)).permute(0, 3, 1, 2)
+        out = F.interpolate(x, size=(th, tw), mode="bilinear", align_corners=False)
+        scale = torch.tensor([tw / w, th / h], dtype=flow.dtype, device=flow.device)
+        return out.permute(0, 2, 3, 1).reshape(lead + (th, tw, 2)) * scale
     out = _up2x_axis(_up2x_axis(flow, -3), -2)
     if th == 2 * h + 1:
         out = torch.cat([out, out[..., -1:, :, :]], dim=-3)

@@ -18,6 +18,7 @@ from cuda_optical_flow_2_tpu import config as jcfg
 from cuda_optical_flow_2_tpu import constants as jconst
 from cuda_optical_flow_2_tpu.ops import conv as jconv
 from cuda_optical_flow_2_tpu.ops import gradients as jgrad
+from cuda_optical_flow_2_tpu.ops import median as jmed
 from cuda_optical_flow_2_tpu.ops import pyramid as jpyr
 from cuda_optical_flow_2_tpu.ops import resize as jresize
 from cuda_optical_flow_2_tpu.ops import solve as jsolve
@@ -28,6 +29,7 @@ from cuda_optical_flow_2_torch import config as tcfg
 from cuda_optical_flow_2_torch import constants as tconst
 from cuda_optical_flow_2_torch.ops import conv as tconv
 from cuda_optical_flow_2_torch.ops import gradients as tgrad
+from cuda_optical_flow_2_torch.ops import median as tmed
 from cuda_optical_flow_2_torch.ops import pyramid as tpyr
 from cuda_optical_flow_2_torch.ops import resize as tresize
 from cuda_optical_flow_2_torch.ops import solve as tsolve
@@ -148,8 +150,59 @@ def test_structure_tensor_sums_match_jax(rng):
 
 @pytest.mark.parametrize("method", ["cumsum", "reduce_window"])
 def test_unported_window_methods_raise(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        twin.window_sum(torch.zeros(8, 8), 3, method=method)
+    """Both backends are ported now (they match the JAX package below); only
+    an unknown method raises, as in the JAX package."""
+    twin.window_sum(torch.zeros(8, 8), 3, method=method)
+    with pytest.raises(ValueError, match="method"):
+        twin.window_sum(torch.zeros(8, 8), 3, method=method + "_typo")
+
+
+@pytest.mark.parametrize("method", ["cumsum", "reduce_window"])
+@pytest.mark.parametrize("window,shape", [(3, (2, 30, 41)), (9, (26, 33)), (15, (12, 19))],
+                         ids=["3x3_batch2", "9x9", "15x15_wider_than_tall"])
+def test_window_sum_backends_match_jax(rng, method, window, shape):
+    """Box sums of ~window^2 values of magnitude ~50: the integral image's
+    float32 prefix sums (up to ~1e4 here) cost a few ulps of that size."""
+    x = rng.normal(0, 50, shape).astype(np.float32)
+    got = twin.window_sum(_t(x), window, method)
+    _close(got, jwin.window_sum(_j(x), window, method), atol=2e-3)
+    _close(got, twin.window_sum(_t(x), window), atol=2e-3)  # the sep_conv backend
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("weights", ["box", "tri"])
+def test_centered_structure_tensor_sums_match_jax(rng, with_valid, weights):
+    """Products ~400 and 81-tap sums, centered: S_ab - S_a S_b / n cancels,
+    so the tolerance is the raw sums' (atol 1e-2) plus that cancellation."""
+    ix, iy, it = (rng.normal(0, 20, (26, 33)).astype(np.float32) for _ in range(3))
+    valid = (rng.random((26, 33)) > 0.2) if with_valid else None
+    got = twin.centered_structure_tensor_sums(
+        _t(ix), _t(iy), _t(it), 9, valid=None if valid is None else torch.from_numpy(valid),
+        weights=weights,
+    )
+    want = jwin.centered_structure_tensor_sums(
+        _j(ix), _j(iy), _j(it), 9, valid=None if valid is None else jnp.asarray(valid),
+        weights=weights,
+    )
+    for g, w in zip(got, want):
+        _close(g, w, rtol=1e-4, atol=2e-2)
+
+
+@pytest.mark.parametrize("size", [1, 3, 5])
+@pytest.mark.parametrize("shape", [(19, 26), (2, 23, 31)])
+def test_median_filter_bit_equal_to_jax(rng, size, shape):
+    """An odd count's median is one of its inputs: sort-based selection and
+    the JAX min/max network agree exactly (ties and repeated values too)."""
+    x = rng.normal(0, 3, shape).astype(np.float32)
+    x[..., :4, :4] = 1.5  # a flat patch: ties
+    got = tmed.median_filter(_t(x), size).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jmed.median_filter(_j(x), size), np.float32))
+
+
+def test_median_filter_rejects_even_size():
+    for size in (0, 4):
+        with pytest.raises(ValueError, match="odd"):
+            tmed.median_filter(torch.zeros(8, 8), size)
 
 
 def test_solve_matches_jax(rng):
@@ -206,10 +259,11 @@ def test_build_pyramid_matches_jax(rng, shape):
 
 @pytest.mark.parametrize("target", [(24, 34), (25, 35), (24, 35)])
 def test_upsample_flow_matches_jax(rng, target):
+    """The pyramid octaves take the exact 2x stencil; any other size (DIS's
+    finest_level > 1) the bilinear resize, jax.image.resize's function."""
     f = rng.normal(0, 3, (12, 17, 2)).astype(np.float32)
     _close(tresize.upsample_flow(_t(f), target), jresize.upsample_flow(_j(f), target))
-    with pytest.raises(ValueError, match="octave"):
-        tresize.upsample_flow(_t(f), (40, 60))
+    _close(tresize.upsample_flow(_t(f), (40, 60)), jresize.upsample_flow(_j(f), (40, 60)))
 
 
 def test_downsample_flow_matches_jax(rng):

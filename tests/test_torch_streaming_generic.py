@@ -1,13 +1,14 @@
 """The port's model-generic entry points against the JAX package (CPU).
 
 ``models.pyramidal_flow`` and the streaming loop (``init_state``, ``step``,
-``process_sequence``) dispatch on the config type over the ported families
-(LK, HS, FB).  The same numpy frames go through the JAX package's streaming
+``process_sequence``) dispatch on the config type over the five families
+(LK, HS, FB, TV-L1, DIS).  The same numpy frames go through the JAX package's streaming
 (its XLA twin, ``use_pallas=False``) and through both port paths.  A config
 of no ported family, the JAX package's included, raises ``TypeError``.
 
 Tolerances: flows atol/rtol 2e-4 px, as tests/test_torch_horn_schunck.py
-compares whole HS pipelines; the FB pipelines meet it with margin.
+compares whole HS pipelines; the FB, TV-L1 and DIS pipelines meet it with
+margin.
 """
 
 import dataclasses
@@ -19,22 +20,29 @@ import torch
 import jax.numpy as jnp
 
 import cuda_optical_flow_2_tpu as jof
+from cuda_optical_flow_2_tpu.models import dis as jdis
 from cuda_optical_flow_2_tpu.models import farneback as jfb
 from cuda_optical_flow_2_tpu.models import horn_schunck as jhs
 from cuda_optical_flow_2_tpu.models import streaming as jstream
+from cuda_optical_flow_2_tpu.models import tvl1 as jtvl1
 
 import cuda_optical_flow_2_torch as tof
 from cuda_optical_flow_2_torch.interop import (
+    dis_config_from_jax,
     fb_config_from_jax,
     flow_state_from_numpy,
     hs_config_from_jax,
     lk_config_from_jax,
+    tvl1_config_from_jax,
 )
 from cuda_optical_flow_2_torch.kernels import (
     fb_step_fused,
     hs_sweep,
+    lk_fused,
+    lk_step_fused,
     poly_exp_fused,
     pyr_down,
+    tvl1_sweep,
     warp_select,
     win_solve,
 )
@@ -49,13 +57,20 @@ FAMILIES = {
     "lk": (jof.LKConfig(levels=2, window=9, use_pallas=False), lk_config_from_jax),
     "hs": (jhs.HSConfig(levels=2, iterations=20, use_pallas=False), hs_config_from_jax),
     "fb": (jfb.FBConfig(levels=2, iterations=2, use_pallas=False), fb_config_from_jax),
+    "tvl1": (jtvl1.TVL1Config(levels=2, warps=2, iterations=10, use_pallas=False),
+             tvl1_config_from_jax),
+    "dis": (jdis.DISConfig(levels=2, use_pallas=False), dis_config_from_jax),
 }
 # The serving configurations: one tracking level, a deeper recovery pyramid.
 SERVING = {
     "hs": jhs.HSConfig(levels=1, iterations=30, use_pallas=False),
     "fb": jfb.FBConfig(levels=1, iterations=1, use_pallas=False),
+    "tvl1": jtvl1.TVL1Config(levels=1, warps=2, iterations=10, use_pallas=False),
+    "dis": jdis.DISConfig(levels=1, use_pallas=False),
 }
-CONVERT = {"hs": hs_config_from_jax, "fb": fb_config_from_jax}
+CONVERT = {"hs": hs_config_from_jax, "fb": fb_config_from_jax, "tvl1": tvl1_config_from_jax,
+           "dis": dis_config_from_jax}
+STREAMED = list(SERVING)
 RECOVERY = jstream.RecoveryConfig(levels=2)
 
 WRAPPERS = (
@@ -65,6 +80,9 @@ WRAPPERS = (
     warp_select.warp_bilinear_select,
     pyr_down.pyr_down,
     hs_sweep.hs_relax,
+    tvl1_sweep.tvl1_relax,
+    lk_fused.lk_residual,
+    lk_step_fused.lk_level_step,
 )
 
 
@@ -97,7 +115,8 @@ def test_pyramidal_flow_dispatches_like_jax(family):
     jcfg, convert = FAMILIES[family]
     fr = synthetic_sequence(2, 48, 64, velocity=(1.0, 0.5), period=24).astype(np.float32)
     want = jof.models.pyramidal_flow(jnp.asarray(fr[0]), jnp.asarray(fr[1]), jcfg)
-    direct = {"lk": tof.pyramidal_lk, "hs": tof.pyramidal_hs, "fb": tof.pyramidal_farneback}
+    direct = {"lk": tof.pyramidal_lk, "hs": tof.pyramidal_hs, "fb": tof.pyramidal_farneback,
+              "tvl1": tof.pyramidal_tvl1, "dis": tof.pyramidal_dis}
     for tcfg in _both(convert(jcfg)):
         got = pyramidal_flow(_t(fr[0]), _t(fr[1]), tcfg)
         torch.testing.assert_close(got, direct[family](_t(fr[0]), _t(fr[1]), tcfg),
@@ -108,17 +127,19 @@ def test_pyramidal_flow_dispatches_like_jax(family):
 
 @pytest.mark.parametrize(
     "config",
-    [jof.LKConfig(), jfb.FBConfig(), jof.TVL1Config(), object()],
-    ids=["jax_lk", "jax_fb", "jax_tvl1", "object"],
+    [jof.LKConfig(), jfb.FBConfig(), jof.TVL1Config(), jdis.DISConfig(), object()],
+    ids=["jax_lk", "jax_fb", "jax_tvl1", "jax_dis", "object"],
 )
 def test_foreign_configs_raise_type_error(config):
+    """A JAX config (any family) or anything else is not the port's: the
+    error names the five families and the interop converters."""
     frame = torch.zeros(32, 32)
-    with pytest.raises(TypeError, match="TV-L1 and DIS are not ported yet"):
+    with pytest.raises(TypeError, match="convert a JAX config"):
         pyramidal_flow(frame, frame, config)
-    with pytest.raises(TypeError, match="LKConfig, HSConfig or FBConfig"):
+    with pytest.raises(TypeError, match="LKConfig, HSConfig, FBConfig, TVL1Config or DISConfig"):
         tof.init_state(frame, config)
     state = tof.init_state(frame, tof.LKConfig(levels=2))
-    with pytest.raises(TypeError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="interop"):
         tof.step(state, frame, config)
     with pytest.raises(TypeError):
         list(tof.process_sequence([frame, frame], config))
@@ -127,7 +148,7 @@ def test_foreign_configs_raise_type_error(config):
 # --- streaming ------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("family", ["hs", "fb"])
+@pytest.mark.parametrize("family", STREAMED)
 def test_process_sequence_cold_matches_jax(family):
     jcfg, convert = FAMILIES[family]
     frames = _cut_frames(48, 64)[:3]
@@ -139,7 +160,7 @@ def test_process_sequence_cold_matches_jax(family):
             _close(got[i], want[i])
 
 
-@pytest.mark.parametrize("family", ["hs", "fb"])
+@pytest.mark.parametrize("family", STREAMED)
 def test_warm_process_sequence_with_recovery_matches_jax(family):
     """Warm serving with recovery over a cut and a dropped (None) frame."""
     jcfg = SERVING[family]
@@ -156,7 +177,7 @@ def test_warm_process_sequence_with_recovery_matches_jax(family):
             _close(got[i], want[i])
 
 
-@pytest.mark.parametrize("family", ["hs", "fb"])
+@pytest.mark.parametrize("family", STREAMED)
 @pytest.mark.parametrize("frame_index", [2, 4], ids=["warm_track", "scene_cut"])
 def test_step_matches_jax(family, frame_index):
     """One warm step with recovery from the same carried state: a tracked
@@ -178,7 +199,7 @@ def test_step_matches_jax(family, frame_index):
             _close(g, w, 1e-4)
 
 
-@pytest.mark.parametrize("family", ["hs", "fb"])
+@pytest.mark.parametrize("family", STREAMED)
 def test_init_state_carries_the_family_pyramid(family):
     jcfg = SERVING[family]
     frame = _cut_frames(48, 64)[0]
@@ -190,7 +211,7 @@ def test_init_state_carries_the_family_pyramid(family):
         _close(g, w, 1e-4)
 
 
-@pytest.mark.parametrize("family", ["hs", "fb"])
+@pytest.mark.parametrize("family", STREAMED)
 def test_streaming_cpu_launches_nothing(family):
     before = [fn.launches for fn in WRAPPERS]
     tcfg = CONVERT[family](SERVING[family])
