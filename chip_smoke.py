@@ -40,15 +40,25 @@ then, in order:
    counts checked against the predicted ones;
 8e. paths DIS at 1080x1920: ``DISConfig()``, ``DIS_REALTIME`` and the
    Charbonnier refinement, likewise;
-9. timing with CUDA events: each path, each kernel, its plain version and,
-   where one PyTorch call computes the same function, that call; the
-   median filter (plain PyTorch, no kernel);
+8f. spatial TP at 2160x3840 (4K UHD, period 48, a (2, 1) translation): each
+   band kernel against its plain version at its level-0 band shape (720
+   rows plus its halos) on the top, an interior and the bottom band;
+   ``spatial_pyramidal_lk`` at ``PAPER_1080P`` and ``REFERENCE_GPU`` and
+   ``spatial_pyramidal_hs`` at ``HSConfig()`` on a 3-shard mesh over the
+   one card, against the plain TP path, the unsharded kernel path and the
+   translation, and on a 1-shard mesh against the unsharded kernel path;
+   ``grid_pyramidal_lk`` on a batch of 2 over a (2 batch x 3 space) mesh;
+   launch counts checked against the predicted ones;
+9. timing with CUDA events: each path (the TP paths beside their unsharded
+   runs at 4K), each kernel, its plain version and, where one PyTorch call
+   computes the same function, that call; the median filter (plain
+   PyTorch, no kernel);
 10. profile: ``torch.profiler`` over a few pairs of each path (device busy
     share, kernels per pair, the kernels that lead).
 
 Each phase prints one line per check; any failed check raises and the
 script exits non-zero.  The launch counters are zeroed just before each path
-(phases 4-8e) and read just after it: every kernel must launch on the paths
+(phases 4-8f) and read just after it: every kernel must launch on the paths
 that use it.  The line before the last is a JSON object with each kernel's
 numbers, the centered (DIS) modes of ``lk_residual`` and ``lk_level_step``
 as entries of their own (``launches`` is its sum over the path runs, ``bound_ms`` the least
@@ -105,6 +115,19 @@ KERNELS = [
     ("tvl1_relax", "tvl1_sweep", "tvl1_relax_plain",
      "cuda_optical_flow_2_torch/csrc/tvl1_sweep.cu",
      "cuda_optical_flow_2_tpu/kernels/tvl1_sweep.py:202"),
+    # the spatial-TP band entries: the same sources with the band's global rows
+    ("lk_band_step", "lk_step_fused", "lk_band_step_plain",
+     "cuda_optical_flow_2_torch/csrc/lk_step_fused.cu",
+     "cuda_optical_flow_2_tpu/kernels/lk_step_fused.py:309"),
+    ("warp_bilinear_select_band", "warp_select", "warp_bilinear_select_band_plain",
+     "cuda_optical_flow_2_torch/csrc/warp_select.cu",
+     "cuda_optical_flow_2_tpu/kernels/warp_select.py:132"),
+    ("bilateral_kernel_band", "bilateral_tap", "bilateral_kernel_band_plain",
+     "cuda_optical_flow_2_torch/csrc/bilateral.cu",
+     "cuda_optical_flow_2_tpu/kernels/bilateral_tap.py:220"),
+    ("hs_relax_band", "hs_sweep", "hs_relax_band_plain",
+     "cuda_optical_flow_2_torch/csrc/hs_sweep.cu",
+     "cuda_optical_flow_2_tpu/kernels/hs_sweep.py:252"),
 ]
 # The DIS (centered=True) mode of two of them, an entry of its own in the
 # kernels line: launches from the wrappers' ``launches_centered``.
@@ -245,9 +268,13 @@ def _nonzero(mask) -> int:
     return int(np.count_nonzero(mask))
 
 
-def _taps_in_image(n: int, r: int) -> int:
-    """Sum over the n positions of one axis of the window taps inside it."""
-    return sum(min(i + r, n - 1) - max(i - r, 0) + 1 for i in range(n))
+def _taps_in_image(n: int, r: int, row0: int = 0, h_global: int | None = None) -> int:
+    """Sum over the n positions of one axis of the window taps inside the
+    image: the axis itself, or for a band the global rows [0, h_global),
+    positions outside the image taking none."""
+    hg = n if h_global is None else h_global
+    return sum(min(y + r, hg - 1) - max(y - r, 0) + 1
+               for y in range(row0, row0 + n) if 0 <= y < hg)
 
 
 def _gradient_ops(temporal_kernel: str) -> int:
@@ -263,8 +290,8 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
     """(bytes, FP32 operations, special-function operations) that the call
     ``name(*args, **kw)`` must do: each input read once, each output written
     once, the arithmetic of the function on these inputs."""
-    if name in ("lk_residual", "lk_level_step"):
-        prev, cfg = args[0], args[-1]
+    if name in ("lk_residual", "lk_level_step", "lk_band_step"):
+        prev, cfg = args[0], args[4 if name == "lk_band_step" else -1]
         px = prev.numel()
         centered = kw.get("centered", False)
         planes = 9 if centered else 5  # centered: + Ix, Iy, It and the count
@@ -286,20 +313,23 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
         # dual updates (8); special functions per iteration: the step's two
         # divisions, four by the norms, two square roots
         return 32.0 * px, float((28 + 46 * it) * px), float(8 * it * px)
-    if name == "warp_bilinear_select":
+    if name in ("warp_bilinear_select", "warp_bilinear_select_band"):
         img = args[0]
         return 16.0 * img.numel(), 21.0 * img.numel(), 0.0
     if name == "pyr_down":
         x = args[0]
         out_px = x.numel() // x.shape[-1] // x.shape[-2] * (x.shape[-2] // 2) * (x.shape[-1] // 2)
         return 4.0 * x.numel() + 4.0 * out_px, 17.0 * out_px, 0.0
-    if name == "bilateral_kernel":
-        img, window = args[0], args[1]
-        guide = args[4] if len(args) > 4 else None
+    if name in ("bilateral_kernel", "bilateral_kernel_band"):
+        img = args[0]
+        if name == "bilateral_kernel":
+            window, guide, row0, hg = args[1], (args[4] if len(args) > 4 else None), 0, None
+        else:
+            window, guide, (row0, hg) = args[3], None, args[1:3]
         h, w = img.shape[-2:]
         r = window // 2
         planes = img.numel() // (h * w)
-        taps = planes * _taps_in_image(h, r) * _taps_in_image(w, r)
+        taps = planes * _taps_in_image(h, r, row0, hg) * _taps_in_image(w, r)
         read = img.element_size() * img.numel() + (0 if guide is None else 4 * guide.numel())
         # per tap: difference, square, scale, two weight products, FMA (2), add; one divide
         return float(read + 4 * img.numel()), 8.0 * taps + img.numel(), float(taps)
@@ -319,11 +349,11 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
         # and unless first the clipped four-tap warp (21)
         ops = (18 * cfg.poly_n + 60) + 32 + 10 * (cfg.winsize - 1) + 12 + (0 if first else 21)
         return (32.0 if first else 40.0) * px, float(ops * px), 0.0
-    if name == "hs_relax":
-        prev, _nxt, flow_init = args
+    if name in ("hs_relax", "hs_relax_band"):
+        prev, _nxt, flow_init = args[:3]
         px = prev.numel()
         ops = _gradient_ops(kw["temporal_kernel"])
-        it = kw["iterations"]
+        it = kw["iterations"] if name == "hs_relax" else kw["sweeps"]
         sfu = 0
         if kw.get("robust") is None:
             ops += 4 + 27 * it  # denominator; per sweep two averages (18), rate (5), update (4)
@@ -441,6 +471,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions on the card
     max_err = {name: 0.0 for name, *_ in KERNELS} | {f"{n} centered": 0.0 for n in CENTERED}
+    max_err["lk_band_step centered"] = 0.0  # checked in 8f; first used by DIS TP
 
     def check(name, got, want, h, w, label=""):
         torch.cuda.synchronize()
@@ -453,15 +484,21 @@ def main() -> int:
             excess = float(d.max())
             require(excess <= POLY_ATOL, f"{what}: |d| - rtol |plain| {excess} > {POLY_ATOL}")
             return f"{name}{' ' + label if label else ''} max {e['max']:.3g}"
-        if name in ("warp_bilinear_select", "pyr_down", "bilateral_kernel"):
-            limit = {"warp_bilinear_select": WARP_MAX_ERR, "pyr_down": PYR_MAX_ERR,
-                     "bilateral_kernel": BILATERAL_MAX_ERR}[name]
+        image_limits = {"warp_bilinear_select": WARP_MAX_ERR, "pyr_down": PYR_MAX_ERR,
+                        "bilateral_kernel": BILATERAL_MAX_ERR,
+                        "warp_bilinear_select_band": WARP_MAX_ERR,
+                        "bilateral_kernel_band": BILATERAL_MAX_ERR}
+        if name in image_limits:
+            limit = image_limits[name]
             require(e["max"] <= limit, f"{what}: max |d| {e['max']} > {limit}")
             return f"{name}{' ' + label if label else ''} max {e['max']:.3g}"
         median, p999 = {"lk_residual": (LK_MEDIAN_ERR, LK_P999_ERR),
                         "lk_level_step": (LK_MEDIAN_ERR, LK_P999_ERR),
                         "lk_residual centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
                         "lk_level_step centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
+                        "lk_band_step": (LK_MEDIAN_ERR, LK_P999_ERR),
+                        "lk_band_step centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
+                        "hs_relax_band": (HS_MEDIAN_ERR, HS_P999_ERR),
                         "tvl1_relax": (TVL1_MEDIAN_ERR, TVL1_P999_ERR),
                         "hs_relax": (HS_MEDIAN_ERR, HS_P999_ERR),
                         "fb_level_step": (FB_STEP_MEDIAN_ERR, FB_STEP_P999_ERR),
@@ -880,6 +917,124 @@ def main() -> int:
         print(f"phase 8e pyramidal_dis {label} 1080x1920 period 48: inner EPE {epe:.4f}, median "
               f"flow ({m[0]:.4f}, {m[1]:.4f}); vs plain path median {e['median']:.3g} p99 "
               f"{e['p99']:.3g} max {e['max']:.3g}; launches {counts} (as predicted)")
+
+    # 8f. spatial TP at 2160x3840 (4K UHD): one pair's rows over meshes that
+    # list the one card several times (real shards, real halos)
+    from cuda_optical_flow_2_torch import parallel
+
+    uh, uw = 2160, 3840
+    band_rows = uh // 3
+    mesh3 = parallel.make_mesh(axis_name="space", devices=[dev] * 3)
+    mesh1 = parallel.make_mesh(axis_name="space", devices=[dev])
+
+    def band(x, lo, halo):
+        """Rows [lo - halo, lo + band_rows + halo) of x, zero beyond the
+        image: a shard's band as the TP path cuts it."""
+        out = x.new_zeros((band_rows + 2 * halo,) + tuple(x.shape[1:]))
+        a, b = max(lo - halo, 0), min(lo + band_rows + halo, uh)
+        out[a - (lo - halo) : b - (lo - halo)] = x[a:b]
+        return out
+
+    # each band kernel at its level-0 band shape on the top, an interior and
+    # the bottom band; the halos are the TP path's (PAPER_1080P's r_img = 43,
+    # HS's warp band 2 + 32 + 2 and sweep band 8 + 2, the bilateral's 4)
+    p8, n8, f8 = (cuda(a) for a in textured_pair(uh, uw, seed=8))
+    off8 = cuda(rng.normal(0, 5, (uh, uw)).astype(np.float32))
+    hs_band_kw = dict(sweeps=8, alpha=10.0, temporal_kernel="gauss3")
+    band_args = {}
+    for lo in (0, band_rows, 2 * band_rows):
+        parts = []
+        h43, h36, h4, h10 = (lambda x, h=h: band(x, lo, h) for h in (43, 36, 4, 10))
+        cases = [
+            ("lk_band_step", "15x15 tri",
+             (h43(p8), h43(n8), h43(f8), lo - 43, of.PAPER_1080P, uh), {}),
+            ("lk_band_step centered", "9x9 box",
+             (h43(p8), h43(n8), h43(f8), lo - 43, dis_lk, uh, True), {}),
+            ("warp_bilinear_select_band", "", (h36(n8), h36(f8), lo - 36, uh, 32), {}),
+            ("bilateral_kernel_band", "9x9 stacked pair",
+             (torch.stack([h4(p8), h4(n8)]), lo - 4, uh, 9), {}),
+            ("hs_relax_band", "quadratic 8 sweeps",
+             (h10(p8), h10(n8), h10(f8) * 0.1, lo - 10, uh), hs_band_kw),
+            ("hs_relax_band", "charbonnier it_offset 8 sweeps",
+             (h10(p8), h10(n8), h10(f8) * 0.1, lo - 10, uh),
+             dict(hs_band_kw, robust=(3.0, 0.1), it_offset=h10(off8))),
+        ]
+        for name, label, args, kw in cases:
+            kernel = name.split()[0]
+            parts.append(check(name, wrappers[kernel](*args, **kw), plains[kernel](*args, **kw),
+                               args[0].shape[-2], uw, label))
+            band_args.setdefault((name, label, lo), (args, kw))
+        print(f"phase 8f band kernels, band rows {lo}-{lo + band_rows} of {uh}x{uw}: "
+              + "; ".join(parts))
+
+    fr = synthetic_sequence(2, uh, uw, velocity=(2.0, 1.0), period=48)
+    up, un = cuda(fr[0]).float(), cuda(fr[1]).float()
+    # predicted launches (PERF.md): every level's step on every shard; the
+    # pair goes through the prefilter and the pyramid stacked, per shard
+    tp_paths = {
+        "PAPER_1080P": (of.PAPER_1080P, parallel.spatial_pyramidal_lk, of.pyramidal_lk,
+                        TRANSLATION_TOL, (LK_MEDIAN_ERR, LK_P999_ERR),
+                        {"lk_band_step": 15, "pyr_down": 12}),
+        # REFERENCE_GPU misses a (2, 1) translation unsharded as well (the JAX
+        # package gives (1.31, 0.65) at 1080x1920, period 48): no translation check
+        "REFERENCE_GPU": (of.REFERENCE_GPU, parallel.spatial_pyramidal_lk, of.pyramidal_lk,
+                          None, (LK_MEDIAN_ERR, LK_P999_ERR),
+                          {"lk_band_step": 12, "bilateral_kernel_band": 3, "pyr_down": 9}),
+        "HSConfig()": (of.HSConfig(), parallel.spatial_pyramidal_hs, of.pyramidal_hs,
+                       HS_TRANSLATION_TOL, (HS_MEDIAN_ERR, HS_P999_ERR),
+                       {"hs_relax_band": 117, "warp_bilinear_select_band": 6, "pyr_down": 6}),
+    }
+    unsharded_4k = {}
+    for label, (cfg, tp_fn, whole, tol, (med_lim, p999_lim), expect) in tp_paths.items():
+        flow, counts = run_path(f"TP {label} 3 shards", lambda: tp_fn(up, un, cfg, mesh3),
+                                tuple(expect))
+        require(counts == expect, f"TP {label} 3 shards launches {counts}, predicted {expect}")
+        require(tuple(flow.shape) == (uh, uw, 2) and flow.device == dev,
+                f"TP {label} flow {tuple(flow.shape)} on {flow.device}")
+        e_plain = err_stats(flow, tp_fn(up, un, dataclasses.replace(cfg, use_pallas=False), mesh3))
+        unsharded_4k[label] = whole(up, un, cfg)
+        e_whole = err_stats(flow, unsharded_4k[label])
+        for what, e in (("plain TP path", e_plain), ("unsharded kernel path", e_whole)):
+            require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
+                    f"TP {label} 3 shards vs {what}: {e}")
+        m = inner_median(flow)
+        m_whole = inner_median(unsharded_4k[label])
+        if tol is not None:
+            require(abs(m[0] - 2.0) <= tol and abs(m[1] - 1.0) <= tol,
+                    f"TP {label} inner median flow {m}, expected (2, 1)")
+        print(f"phase 8f TP {label} {uh}x{uw} 3 shards on one card: inner median flow "
+              f"({m[0]:.4f}, {m[1]:.4f}) (unsharded ({m_whole[0]:.4f}, {m_whole[1]:.4f})); vs "
+              f"plain TP median {e_plain['median']:.3g} p99 {e_plain['p99']:.3g} max "
+              f"{e_plain['max']:.3g}; vs unsharded median {e_whole['median']:.3g} p99 "
+              f"{e_whole['p99']:.3g} max {e_whole['max']:.3g}; launches {counts} (as predicted)")
+        expect1 = {k: v // 3 for k, v in expect.items()}
+        flow1, counts1 = run_path(f"TP {label} 1 shard", lambda: tp_fn(up, un, cfg, mesh1),
+                                  tuple(expect1))
+        require(counts1 == expect1, f"TP {label} 1 shard launches {counts1}, predicted {expect1}")
+        e1 = err_stats(flow1, unsharded_4k[label])
+        require(e1["median"] <= med_lim and e1["p999"] <= p999_lim,
+                f"TP {label} 1 shard vs unsharded kernel path: {e1}")
+        print(f"phase 8f TP {label} {uh}x{uw} 1 shard: vs unsharded median {e1['median']:.3g} "
+              f"p99.9 {e1['p999']:.3g} max {e1['max']:.3g}; launches {counts1} (as predicted)")
+    mesh_grid = parallel.Mesh([[dev] * 3] * 2, ("batch", "space"))
+    pb, nb = torch.stack([up, un]), torch.stack([un, up])
+    expect = {"lk_band_step": 30, "pyr_down": 24}
+    flows, counts = run_path("grid PAPER_1080P 2x3",
+                             lambda: parallel.grid_pyramidal_lk(pb, nb, of.PAPER_1080P, mesh_grid),
+                             tuple(expect))
+    require(counts == expect, f"grid launches {counts}, predicted {expect}")
+    require(tuple(flows.shape) == (2, uh, uw, 2), f"grid flow shape {tuple(flows.shape)}")
+    e_grid = [err_stats(flows[0], unsharded_4k["PAPER_1080P"]),
+              err_stats(flows[1], of.pyramidal_lk(un, up, of.PAPER_1080P))]
+    for e in e_grid:
+        require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
+                f"grid_pyramidal_lk vs unsharded kernel path: {e}")
+    m0, m1 = inner_median(flows[0]), inner_median(flows[1])
+    print(f"phase 8f grid_pyramidal_lk PAPER_1080P batch 2 over (2 batch x 3 space) on one card: "
+          f"vs unsharded p99 {e_grid[0]['p99']:.3g}, {e_grid[1]['p99']:.3g}; inner median flows "
+          f"({m0[0]:.4f}, {m0[1]:.4f}), ({m1[0]:.4f}, {m1[1]:.4f}); launches {counts} "
+          "(as predicted)")
+
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
     for name, n_launch in launches.items():
@@ -914,6 +1069,14 @@ def main() -> int:
             (lambda c=c: of.pyramidal_dis(tp, tn, dataclasses.replace(c, use_pallas=False))), 10)
            for label, c in dis_cfgs.items()},
     }
+    # the TP paths at 4K, each beside its unsharded run
+    for label, (c, tp_fn, whole, *_rest) in tp_paths.items():
+        paths[f"{whole.__name__} {label} {uh}x{uw}"] = (
+            (lambda c=c, g=whole: g(up, un, c)),
+            (lambda c=c, g=whole: g(up, un, dataclasses.replace(c, use_pallas=False))), 10)
+        paths[f"{tp_fn.__name__} {label} {uh}x{uw} 3 shards"] = (
+            (lambda c=c, g=tp_fn: g(up, un, c, mesh3)),
+            (lambda c=c, g=tp_fn: g(up, un, dataclasses.replace(c, use_pallas=False), mesh3)), 10)
     # a warm FB serving state: the step times one tracked pair with the check
     fb_state = of.init_state(cuda(frames[0]), fb_serve, recovery)
     fb_state, _ = of.step(fb_state, cuda(frames[1]), fb_serve, True, recovery)
@@ -952,6 +1115,11 @@ def main() -> int:
         ("lk_residual", "9x9 box centered", (p0, n0, dis_lk), {"centered": True}),
         ("lk_level_step", "9x9 box centered", (p0, n0, f0, dis_lk), {"centered": True}),
     ]
+    # the band kernels at their interior 4K band (rows 720-1440 and halos)
+    for name, label in (("lk_band_step", "15x15 tri"), ("warp_bilinear_select_band", ""),
+                        ("bilateral_kernel_band", "9x9 stacked pair"),
+                        ("hs_relax_band", "quadratic 8 sweeps")):
+        timed.append((name, label, *band_args[(name, label, band_rows)]))
     # library yardstick: F.conv2d(stride=2) computes pyr_down's function
     k2 = torch.as_tensor(np.outer(BINOMIAL_1D, BINOMIAL_1D), device=dev)[None, None]
 

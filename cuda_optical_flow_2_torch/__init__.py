@@ -19,7 +19,8 @@ plain PyTorch versions.
     flow = of.pyramidal_flow(prev_gray, next_gray, config)  # any of the five
 
 ``process_sequence``, ``init_state`` and ``step`` stream any of the five
-families, warm or cold, with scene-cut recovery.
+families, warm or cold, with scene-cut recovery.  ``parallel`` shards batches
+of pairs, or one pair's rows (LK and HS), over a mesh of devices.
 """
 
 from cuda_optical_flow_2_torch.config import (
@@ -61,6 +62,7 @@ from cuda_optical_flow_2_torch.models.streaming import (
     step,
 )
 from cuda_optical_flow_2_torch.models.tvl1 import TVL1_REALTIME, TVL1Config, pyramidal_tvl1
+from cuda_optical_flow_2_torch import parallel
 
 __version__ = "0.1.0"
 
@@ -87,6 +89,7 @@ __all__ = [
     "hs_preprocess",
     "init_state",
     "lk_level",
+    "parallel",
     "preprocess",
     "process_sequence",
     "pyramidal_dis",

@@ -3,8 +3,15 @@
 //
 // Layouts: images (B, H, W) float32; flow (B, H, W, 2) float32 read as one
 // float2 (u, v) per pixel.  Everything outside the image reads as zero
-// (the zero-padded boundary of models/horn_schunck's plain version), and a
-// sweep writes in-image pixels only.
+// (the zero-padded boundary of models/horn_schunck's plain version).
+//
+// Bands (spatial TP): the H rows are global rows [row0, row0 + H) of an
+// Hg-row image.  The frames read as zero outside the band; the gradients,
+// the flow and the smoothness weights read as zero outside the band and
+// outside the global image ("live" pixels are inside both), and a sweep
+// writes zero outside the global image, as kernels/hs_sweep
+// .hs_relax_band_plain computes.  The whole image is the band row0 = 0,
+// Hg = H.
 //
 // Per call: one gradient launch (Ix, Iy, It and, quadratic, the
 // denominator), then the sweeps in chunks of at most max_sweeps.  In
@@ -25,6 +32,7 @@ struct Of2HSParams {
   float eps_smooth, eps_smooth2;
   int H;
   int W;
+  int ylo, yhi;  // the band rows inside the global image: [ylo, yhi)
 };
 
 #define OF2_HS_BX 32
@@ -34,23 +42,41 @@ __device__ __forceinline__ bool of2_in(int H, int W, int y, int x) {
   return y >= 0 && y < H && x >= 0 && x < W;
 }
 
-__device__ __forceinline__ float2 of2_uv(const float2* __restrict__ uv, int H, int W, int y,
-                                         int x) {
-  return of2_in(H, W, y, x) ? uv[(size_t)y * W + x] : make_float2(0.f, 0.f);
+// The live pixels, inside the band and inside the global image: band rows
+// [ylo, yhi), columns [0, W).  Passed by value, so each neighbour read costs
+// the four comparisons of a plain bounds test.
+struct Of2Live {
+  int ylo, yhi, W;
+};
+
+__device__ __forceinline__ bool of2_live(const Of2Live l, int y, int x) {
+  return y >= l.ylo && y < l.yhi && x >= 0 && x < l.W;
 }
 
+__device__ __forceinline__ float2 of2_uv(const float2* __restrict__ uv, const Of2Live l, int y,
+                                         int x) {
+  return of2_live(l, y, x) ? uv[(size_t)y * l.W + x] : make_float2(0.f, 0.f);
+}
+
+// A frame pixel: zero outside the band.
 __device__ __forceinline__ float of2_px(const float* __restrict__ a, int H, int W, int y, int x) {
   return of2_in(H, W, y, x) ? a[(size_t)y * W + x] : 0.f;
 }
 
+// A smoothness weight: zero outside the live pixels.
+__device__ __forceinline__ float of2_ws(const float* __restrict__ ws, const Of2Live l, int y,
+                                        int x) {
+  return of2_live(l, y, x) ? ws[(size_t)y * l.W + x] : 0.f;
+}
+
 // The HS neighbour average, cross 1/6 and diagonals 1/12, centre 0, in
 // models/horn_schunck._avg3x3's order.
-__device__ __forceinline__ float2 of2_avg_uv(const float2* __restrict__ uv, int H, int W, int y,
-                                             int x) {
-  const float2 n = of2_uv(uv, H, W, y - 1, x), s = of2_uv(uv, H, W, y + 1, x);
-  const float2 w = of2_uv(uv, H, W, y, x - 1), e = of2_uv(uv, H, W, y, x + 1);
-  const float2 nw = of2_uv(uv, H, W, y - 1, x - 1), ne = of2_uv(uv, H, W, y - 1, x + 1);
-  const float2 sw = of2_uv(uv, H, W, y + 1, x - 1), se = of2_uv(uv, H, W, y + 1, x + 1);
+__device__ __forceinline__ float2 of2_avg_uv(const float2* __restrict__ uv, const Of2Live l,
+                                             int y, int x) {
+  const float2 n = of2_uv(uv, l, y - 1, x), s = of2_uv(uv, l, y + 1, x);
+  const float2 w = of2_uv(uv, l, y, x - 1), e = of2_uv(uv, l, y, x + 1);
+  const float2 nw = of2_uv(uv, l, y - 1, x - 1), ne = of2_uv(uv, l, y - 1, x + 1);
+  const float2 sw = of2_uv(uv, l, y + 1, x - 1), se = of2_uv(uv, l, y + 1, x + 1);
   const float cu = n.x + s.x + w.x + e.x, cv = n.y + s.y + w.y + e.y;
   const float du = nw.x + ne.x + sw.x + se.x, dv = nw.y + ne.y + sw.y + se.y;
   return make_float2(cu * (1.f / 6.f) + du * (1.f / 12.f), cv * (1.f / 6.f) + dv * (1.f / 12.f));
@@ -58,7 +84,7 @@ __device__ __forceinline__ float2 of2_avg_uv(const float2* __restrict__ uv, int 
 
 // avg(ws * u) and avg(ws * v): the neighbours' products, same order.
 __device__ __forceinline__ float2 of2_avg_wuv(const float2* __restrict__ uv,
-                                              const float* __restrict__ ws, int H, int W, int y,
+                                              const float* __restrict__ ws, const Of2Live l, int y,
                                               int x) {
   float2 t[8];
   float m[8];
@@ -66,8 +92,8 @@ __device__ __forceinline__ float2 of2_avg_wuv(const float2* __restrict__ uv,
   const int dx[8] = {0, 0, -1, 1, -1, 1, -1, 1};
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    t[i] = of2_uv(uv, H, W, y + dy[i], x + dx[i]);
-    m[i] = of2_px(ws, H, W, y + dy[i], x + dx[i]);
+    t[i] = of2_uv(uv, l, y + dy[i], x + dx[i]);
+    m[i] = of2_ws(ws, l, y + dy[i], x + dx[i]);
   }
   const float cu = m[0] * t[0].x + m[1] * t[1].x + m[2] * t[2].x + m[3] * t[3].x;
   const float cv = m[0] * t[0].y + m[1] * t[1].y + m[2] * t[2].y + m[3] * t[3].y;
@@ -83,9 +109,11 @@ __device__ __forceinline__ float2 of2_avg_wuv(const float2* __restrict__ uv,
   if (x >= W || y >= H) return;                              \
   const size_t plane = (size_t)H * W;                        \
   const size_t base = blockIdx.z * plane;                    \
-  const size_t k = base + (size_t)y * W + x;
+  const size_t k = base + (size_t)y * W + x;                 \
+  const Of2Live live = {p.ylo, p.yhi, W};
 
-// grad[k] = (Ix, Iy, It [+ offset], alpha^2 + Ix^2 + Iy^2 or 0).
+// grad[k] = (Ix, Iy, It [+ offset], alpha^2 + Ix^2 + Iy^2 or 0), with Ix, Iy,
+// It zero outside the global image.
 __global__ void of2_hs_grad_kernel(const float* __restrict__ prev, const float* __restrict__ nxt,
                                    const float* __restrict__ offset, float4* __restrict__ grad,
                                    const Of2HSParams p, int quadratic) {
@@ -105,6 +133,7 @@ __global__ void of2_hs_grad_kernel(const float* __restrict__ prev, const float* 
       if (p.st[t] != 0.f) it += p.st[t] * dv;
     }
   if (offset != nullptr) it += offset[k];
+  if (!of2_live(live, y, x)) ix = iy = it = 0.f;
   grad[k] = make_float4(ix, iy, it, quadratic ? p.alpha2 + ix * ix + iy * iy : 0.f);
 }
 
@@ -112,10 +141,11 @@ __global__ void of2_hs_sweep_quadratic(const float4* __restrict__ grad,
                                        const float2* __restrict__ uv_in,
                                        float2* __restrict__ uv_out, const Of2HSParams p) {
   OF2_HS_PIXEL
-  const float2 bar = of2_avg_uv(uv_in + base, H, W, y, x);
+  const float2 bar = of2_avg_uv(uv_in + base, live, y, x);
   const float4 g = grad[k];
   const float rate = (g.x * bar.x + g.y * bar.y + g.z) / g.w;
-  uv_out[k] = make_float2(bar.x - g.x * rate, bar.y - g.y * rate);
+  uv_out[k] = of2_live(live, y, x) ? make_float2(bar.x - g.x * rate, bar.y - g.y * rate)
+                                   : make_float2(0.f, 0.f);
 }
 
 // Charbonnier weights from the chunk's incoming flow: data weight wd of the
@@ -127,11 +157,11 @@ __global__ void of2_hs_weights(const float4* __restrict__ grad, const float2* __
   OF2_HS_PIXEL
   const float2* UV = uv + base;
   const float4 g = grad[k];
-  const float2 c = UV[(size_t)y * W + x];
+  const float2 c = of2_uv(UV, live, y, x);
   const float r = g.x * c.x + g.y * c.y + g.z;
   wd[k] = p.eps_data * rsqrtf(r * r + p.eps_data2);
-  const float2 l = of2_uv(UV, H, W, y, x - 1), rr = of2_uv(UV, H, W, y, x + 1);
-  const float2 u_ = of2_uv(UV, H, W, y - 1, x), d_ = of2_uv(UV, H, W, y + 1, x);
+  const float2 l = of2_uv(UV, live, y, x - 1), rr = of2_uv(UV, live, y, x + 1);
+  const float2 u_ = of2_uv(UV, live, y - 1, x), d_ = of2_uv(UV, live, y + 1, x);
   const float dux = 0.5f * l.x + -0.5f * rr.x, dvx = 0.5f * l.y + -0.5f * rr.y;
   const float duy = 0.5f * u_.x + -0.5f * d_.x, dvy = 0.5f * u_.y + -0.5f * d_.y;
   const float g2 = dux * dux + dvx * dvx + duy * duy + dvy * dvy;
@@ -144,10 +174,10 @@ __global__ void of2_hs_coef(const float4* __restrict__ grad, const float* __rest
                             const Of2HSParams p) {
   OF2_HS_PIXEL
   const float* WS = ws + base;
-  const float cross = of2_px(WS, H, W, y - 1, x) + of2_px(WS, H, W, y + 1, x) +
-                      of2_px(WS, H, W, y, x - 1) + of2_px(WS, H, W, y, x + 1);
-  const float diag = of2_px(WS, H, W, y - 1, x - 1) + of2_px(WS, H, W, y - 1, x + 1) +
-                     of2_px(WS, H, W, y + 1, x - 1) + of2_px(WS, H, W, y + 1, x + 1);
+  const float cross = of2_ws(WS, live, y - 1, x) + of2_ws(WS, live, y + 1, x) +
+                      of2_ws(WS, live, y, x - 1) + of2_ws(WS, live, y, x + 1);
+  const float diag = of2_ws(WS, live, y - 1, x - 1) + of2_ws(WS, live, y - 1, x + 1) +
+                     of2_ws(WS, live, y + 1, x - 1) + of2_ws(WS, live, y + 1, x + 1);
   const float w_s = ws[k];
   const float s = fmaxf((w_s + (cross * (1.f / 6.f) + diag * (1.f / 12.f))) * 0.5f, 1e-12f);
   const float4 g = grad[k];
@@ -161,18 +191,21 @@ __global__ void of2_hs_sweep_charbonnier(const float4* __restrict__ grad,
                                          const float2* __restrict__ uv_in,
                                          float2* __restrict__ uv_out, const Of2HSParams p) {
   OF2_HS_PIXEL
-  const float2 a = of2_avg_uv(uv_in + base, H, W, y, x);
-  const float2 b = of2_avg_wuv(uv_in + base, ws + base, H, W, y, x);
+  const float2 a = of2_avg_uv(uv_in + base, live, y, x);
+  const float2 b = of2_avg_wuv(uv_in + base, ws + base, live, y, x);
   const float4 c = coef[k];  // (wd, ws, 1/S, inv_denom)
   const float4 g = grad[k];
   const float ub = (c.y * a.x + b.x) * 0.5f * c.z;
   const float vb = (c.y * a.y + b.y) * 0.5f * c.z;
   const float rate = c.x * (g.x * ub + g.y * vb + g.z) * c.w;
-  uv_out[k] = make_float2(ub - g.x * rate, vb - g.y * rate);
+  uv_out[k] = of2_live(live, y, x) ? make_float2(ub - g.x * rate, vb - g.y * rate)
+                                   : make_float2(0.f, 0.f);
 }
 
 // prev, nxt: (B, H, W); it_offset: (B, H, W) or null; flow_init: (B, H, W, 2)
-// or null (zeros); flow_out: (B, H, W, 2), distinct from flow_init.
+// or null (zeros); flow_out: (B, H, W, 2), distinct from flow_init.  The H
+// rows are global rows [row0, row0 + H) of an Hg-row image (whole image:
+// 0, H).
 // scratch: 6*n2 floats (quadratic) or 12*n2 (Charbonnier), n2 = B*H*W
 // rounded up to even so that every float4 plane stays 16-byte aligned;
 // 16-byte aligned itself, laid out as grad float4 | flow float2 | coef
@@ -180,10 +213,10 @@ __global__ void of2_hs_sweep_charbonnier(const float4* __restrict__ grad,
 // masks: 27 host floats (Sobel-x/8, Sobel-y/8, temporal).  iterations >= 1.
 extern "C" int of2_hs_relax(const float* prev, const float* nxt, const float* it_offset,
                             const float* flow_init, float* flow_out, float* scratch, int B, int H,
-                            int W, int iterations, int max_sweeps, float alpha2,
+                            int W, int row0, int Hg, int iterations, int max_sweeps, float alpha2,
                             const float* masks, int robust, float eps_data, float eps_data2,
                             float eps_smooth, float eps_smooth2, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || iterations < 1 || max_sweeps < 1)
+  if (B < 1 || H < 1 || W < 1 || Hg < 1 || iterations < 1 || max_sweeps < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Of2HSParams p;
@@ -199,6 +232,8 @@ extern "C" int of2_hs_relax(const float* prev, const float* nxt, const float* it
   p.eps_smooth2 = eps_smooth2;
   p.H = H;
   p.W = W;
+  p.ylo = row0 < 0 ? -row0 : 0;
+  p.yhi = Hg - row0 < H ? Hg - row0 : H;
 
   const size_t n = (size_t)B * H * W, n2 = n + (n & 1);
   float4* grad = (float4*)scratch;

@@ -9,6 +9,6 @@
 extern "C" int of2_lk_residual(const float* prev, const float* nxt, float* flow, int B, int H,
                                int W, int r, const float* taps, const float* masks,
                                float det_eps, int centered, void* stream) {
-  return of2_lk_launch<false>(prev, nxt, nullptr, flow, B, H, W, r, taps, masks, det_eps, 0.f,
-                              centered, stream);
+  return of2_lk_launch<false>(prev, nxt, nullptr, flow, B, H, W, 0, H, r, taps, masks, det_eps,
+                              0.f, centered, stream);
 }

@@ -15,6 +15,13 @@
 //   R: five (CENTERED: nine) row-pass sums, (TILE_H + 2r) x TILE_W each
 //      (overwrites S).
 // The column pass then reads R and the solve writes (u, v) per pixel.
+//
+// Bands (spatial TP, STEP only): the H rows are global rows [row0, row0 + H)
+// of an Hg-row image.  The warp samples in global rows, the warped frame is
+// zero and the gradients and the centered count are zero outside the global
+// image, and everything outside the band reads as zero, as the plain version
+// (kernels/lk_step_fused.lk_band_step_plain) computes.  The whole image is
+// the band row0 = 0, Hg = H.
 #pragma once
 
 #include "of2_common.cuh"
@@ -33,6 +40,8 @@ struct Of2LKParams {
   int r;
   int H;
   int W;
+  int row0;  // global row of band row 0
+  int Hg;    // global image height
 };
 
 // r = 32 centered: 9*80*32 + 3*80*96 floats = 184,320 bytes, under the
@@ -85,8 +94,11 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
     if (y >= 0 && y < H && x >= 0 && x < W) {
       const size_t k = (size_t)y * W + x;
       pv = P[k];
-      const float nv =
-          STEP ? of2_warp_pixel(N, H, W, x, y, Fin[2 * k], Fin[2 * k + 1], p.max_disp) : N[k];
+      const bool in_image = p.row0 + y >= 0 && p.row0 + y < p.Hg;
+      const float nv = !in_image ? 0.f
+                       : STEP    ? of2_warp_pixel_band(N, H, W, x, y, Fin[2 * k], Fin[2 * k + 1],
+                                                       p.max_disp, p.row0, p.Hg)
+                                 : N[k];
       dv = nv - pv;
     }
     s_prev[i] = pv;
@@ -94,12 +106,12 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
   }
   __syncthreads();
 
-  // G: 3x3 stencils, zeroed outside the image.
+  // G: 3x3 stencils, zeroed outside the band and outside the image.
   for (int i = threadIdx.x; i < gh * gw; i += blockDim.x) {
     const int gy = i / gw, gx = i % gw;
     const int y = oy - r + gy, x = ox - r + gx;
     float ix = 0.f, iy = 0.f, it = 0.f;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
+    if (y >= 0 && y < H && x >= 0 && x < W && p.row0 + y >= 0 && p.row0 + y < p.Hg) {
       const int s0 = gy * sw + gx;  // top-left of the 3x3 neighbourhood
       ix = of2_stencil3(s_prev + s0, sw, p.sx);
       iy = of2_stencil3(s_prev + s0, sw, p.sy);
@@ -120,7 +132,7 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f;
     float a5 = 0.f, a6 = 0.f, a7 = 0.f, a8 = 0.f;
     const int y = oy - r + gy;
-    const bool row_in = y >= 0 && y < H;
+    const bool row_in = y >= 0 && y < H && p.row0 + y >= 0 && p.row0 + y < p.Hg;
     for (int d = 0; d <= 2 * r; ++d) {
       const float w = p.taps[d];
       const float ix = g_ix[g0 + d], iy = g_iy[g0 + d], it = g_it[g0 + d];
@@ -223,10 +235,11 @@ static int of2_lk_run(const float* prev, const float* nxt, const float* flow_in,
 // and return the launch status (cudaSuccess == 0).
 template <bool STEP>
 static int of2_lk_launch(const float* prev, const float* nxt, const float* flow_in,
-                         float* flow_out, int B, int H, int W, int r, const float* taps,
-                         const float* masks, float det_eps, float max_disp, int centered,
-                         void* stream) {
-  if (r < 0 || r > OF2_MAX_R || B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+                         float* flow_out, int B, int H, int W, int row0, int Hg, int r,
+                         const float* taps, const float* masks, float det_eps, float max_disp,
+                         int centered, void* stream) {
+  if (r < 0 || r > OF2_MAX_R || B < 1 || H < 1 || W < 1 || Hg < 1)
+    return (int)cudaErrorInvalidValue;
   Of2LKParams p;
   for (int d = 0; d < OF2_MAX_TAPS; ++d) p.taps[d] = d <= 2 * r ? taps[d] : 0.f;
   for (int k = 0; k < 9; ++k) {
@@ -239,6 +252,8 @@ static int of2_lk_launch(const float* prev, const float* nxt, const float* flow_
   p.r = r;
   p.H = H;
   p.W = W;
+  p.row0 = row0;
+  p.Hg = Hg;
   return centered ? of2_lk_run<STEP, true>(prev, nxt, flow_in, flow_out, B, H, W, p, stream)
                   : of2_lk_run<STEP, false>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
 }

@@ -1,11 +1,11 @@
 """Joint-bilateral prefilter kernel: the whole tap loop in one pass.
 
-Replaces ``cuda_optical_flow_2_tpu/kernels/bilateral_tap.py::bilateral_kernel``
-(whole image; the spatial-TP ``bilateral_kernel_band`` is not ported yet).
-CUDA source: ``csrc/bilateral.cu``.  It computes ``ops.bilateral
-.bilateral_filter``: for each pixel and each tap inside the image,
-``wgt = range_norm * exp(-(k*k) * inv_2s2) * spatial[m, n]`` with ``k`` the
-guide difference, and ``num / den`` of the weighted sums.
+Replaces ``cuda_optical_flow_2_tpu/kernels/bilateral_tap.py``: the
+whole-image ``bilateral_kernel`` and the spatial-TP band entry
+``bilateral_kernel_band``.  CUDA source: ``csrc/bilateral.cu``.  It computes
+``ops.bilateral.bilateral_filter``: for each pixel and each tap inside the
+image, ``wgt = range_norm * exp(-(k*k) * inv_2s2) * spatial[m, n]`` with
+``k`` the guide difference, and ``num / den`` of the weighted sums.
 
 What bounds it on an H100: operations, not bytes.  Each pixel reads one
 image and one guide value and writes one, but takes ``window**2`` range
@@ -16,12 +16,15 @@ of image and guide in shared memory once, so the taps read shared memory
 only, and takes the spatial taps precomputed on the host in the kernel
 parameters.  A tap is masked by testing its position against the image
 bounds; the TPU kernel's trick of a ``+inf`` guide outside the image (NaN at
-out-of-image centres, cropped there) has no counterpart: this kernel writes
-in-image pixels only.
+out-of-image centres, cropped there) has no counterpart.  The band entry
+passes the band's global row ``row0`` and the image height ``h_global``:
+taps are masked on global rows, and pixels outside the global image are
+written as zero (the plain version is ``ops.bilateral.bilateral_filter_band``);
+the whole-image entry is the band ``(0, H)``.
 
-:func:`bilateral_kernel` launches the kernel for CUDA tensors and takes
-:func:`bilateral_kernel_plain` for CPU tensors; ``bilateral_kernel.launches``
-counts kernel launches.
+:func:`bilateral_kernel` and :func:`bilateral_kernel_band` launch the
+kernel for CUDA tensors and take their plain versions for CPU tensors;
+``.launches`` on each counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -31,9 +34,19 @@ import torch
 
 from cuda_optical_flow_2_torch.kernels import _build
 from cuda_optical_flow_2_torch.kernels.lk_fused import planes
-from cuda_optical_flow_2_torch.ops.bilateral import bilateral_constants, bilateral_filter
+from cuda_optical_flow_2_torch.ops.bilateral import (
+    bilateral_constants,
+    bilateral_filter,
+    bilateral_filter_band,
+)
 
-__all__ = ["bilateral_kernel", "bilateral_kernel_plain", "MAX_WINDOW"]
+__all__ = [
+    "bilateral_kernel",
+    "bilateral_kernel_band",
+    "bilateral_kernel_band_plain",
+    "bilateral_kernel_plain",
+    "MAX_WINDOW",
+]
 
 MAX_WINDOW = 31  # csrc/bilateral.cu OF2_BL_MAX_R = 15
 
@@ -49,6 +62,41 @@ def bilateral_kernel_plain(
     return bilateral_filter(img, guide, window, sigma_spatial, sigma_range)
 
 
+def bilateral_kernel_band_plain(
+    img_band: torch.Tensor,
+    row0: int,
+    h_global: int,
+    window: int = 9,
+    sigma_spatial: float = 2.0,
+    sigma_range: float = 10.0,
+) -> torch.Tensor:
+    """The plain PyTorch version of the band entry:
+    ``ops.bilateral.bilateral_filter_band``."""
+    return bilateral_filter_band(img_band, row0, h_global, window, sigma_spatial, sigma_range)
+
+
+def _launch(img, guide, window, sigma_spatial, sigma_range, row0, h_global) -> torch.Tensor:
+    spatial, range_norm, inv_2s2 = bilateral_constants(window, sigma_spatial, sigma_range)
+    if spatial.shape[0] > MAX_WINDOW:
+        raise ValueError(
+            f"the CUDA bilateral kernel takes window <= {MAX_WINDOW}, got {spatial.shape[0]}"
+        )
+    dev = _build.require_cuda(*((img,) if guide is None else (img, guide)))
+    if guide is not None and guide.shape != img.shape:
+        raise ValueError(f"guide {tuple(guide.shape)} does not match image {tuple(img.shape)}")
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
+    (x,) = planes(img.reshape(-1, h, w))
+    g = x if guide is None else planes(guide.reshape(-1, h, w))[0]
+    out = torch.empty_like(x)
+    taps = np.ascontiguousarray(spatial.ravel())
+    _build.launch(
+        dev, "of2_bilateral", x.data_ptr(), g.data_ptr(), out.data_ptr(), x.shape[0], h, w,
+        int(row0), int(h_global), spatial.shape[0] // 2, taps.ctypes.data, float(range_norm),
+        float(inv_2s2),
+    )
+    return out.reshape(lead + (h, w))
+
+
 def bilateral_kernel(
     img: torch.Tensor,
     window: int = 9,
@@ -61,25 +109,31 @@ def bilateral_kernel(
     tensors = (img,) if guide is None else (img, guide)
     if all(t.device.type == "cpu" for t in tensors):
         return bilateral_kernel_plain(img, window, sigma_spatial, sigma_range, guide)
-    spatial, range_norm, inv_2s2 = bilateral_constants(window, sigma_spatial, sigma_range)
-    if spatial.shape[0] > MAX_WINDOW:
-        raise ValueError(
-            f"the CUDA bilateral kernel takes window <= {MAX_WINDOW}, got {spatial.shape[0]}"
-        )
-    dev = _build.require_cuda(*tensors)
-    if guide is not None and guide.shape != img.shape:
-        raise ValueError(f"guide {tuple(guide.shape)} does not match image {tuple(img.shape)}")
-    lead, (h, w) = img.shape[:-2], img.shape[-2:]
-    (x,) = planes(img.reshape(-1, h, w))
-    g = x if guide is None else planes(guide.reshape(-1, h, w))[0]
-    out = torch.empty_like(x)
-    taps = np.ascontiguousarray(spatial.ravel())
-    _build.launch(
-        dev, "of2_bilateral", x.data_ptr(), g.data_ptr(), out.data_ptr(), x.shape[0], h, w,
-        spatial.shape[0] // 2, taps.ctypes.data, float(range_norm), float(inv_2s2),
-    )
+    out = _launch(img, guide, window, sigma_spatial, sigma_range, 0, img.shape[-2])
     bilateral_kernel.launches += 1
-    return out.reshape(lead + (h, w))
+    return out
+
+
+def bilateral_kernel_band(
+    img_band: torch.Tensor,
+    row0: int,
+    h_global: int,
+    window: int = 9,
+    sigma_spatial: float = 2.0,
+    sigma_range: float = 10.0,
+) -> torch.Tensor:
+    """Self-guided bilateral on a row band holding global rows
+    [row0, row0 + HB) of an ``h_global``-row image (the spatial-TP entry).
+    Rows at least ``window // 2`` from the band edges match
+    :func:`bilateral_kernel` on the whole image; band-edge rows are for the
+    caller to crop."""
+    if img_band.device.type == "cpu":
+        return bilateral_kernel_band_plain(img_band, row0, h_global, window, sigma_spatial,
+                                           sigma_range)
+    out = _launch(img_band, None, window, sigma_spatial, sigma_range, row0, h_global)
+    bilateral_kernel_band.launches += 1
+    return out
 
 
 bilateral_kernel.launches = 0
+bilateral_kernel_band.launches = 0

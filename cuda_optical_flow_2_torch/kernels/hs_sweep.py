@@ -1,8 +1,8 @@
 """Horn-Schunck relaxation kernel: every Jacobi sweep of one level on the card.
 
-Replaces ``cuda_optical_flow_2_tpu/kernels/hs_sweep.py::hs_relax`` (whole
-image, quadratic and Charbonnier, with ``it_offset``; the spatial-TP
-``hs_relax_band`` is not ported yet).  CUDA source: ``csrc/hs_sweep.cu``.
+Replaces ``cuda_optical_flow_2_tpu/kernels/hs_sweep.py``: the whole-image
+``hs_relax`` (quadratic and Charbonnier, with ``it_offset``) and the
+spatial-TP band entry ``hs_relax_band``.  CUDA source: ``csrc/hs_sweep.cu``.
 It computes, from ``Ix, Iy`` = Sobel / 8 of ``prev`` and
 ``It = tmask (x) (nxt - prev)`` (+ ``it_offset``), zero padding throughout:
 
@@ -26,9 +26,16 @@ halo per band kept in VMEM for K sweeps) is the way to close that gap in a
 later change.  The C entry point issues every launch of the call, so the
 wrapper makes one ctypes call per level.
 
-:func:`hs_relax` launches the kernels for CUDA tensors and takes
-:func:`hs_relax_plain` for CPU tensors; ``hs_relax.launches`` counts calls
-that launched (one per relaxation, whatever its sweep count).
+The band entry runs one chunk of at most ``MAX_SWEEPS`` sweeps on a band
+holding global rows [row0, row0 + HB) of an ``h_global``-row image: the
+gradients and the flow are zero outside the global image on every sweep
+(the whole image's zero padding), so with a caller halo of sweeps + 2 rows
+the kept rows match the whole-image relaxation.  The whole-image entry is
+the band ``(0, H)``.
+
+:func:`hs_relax` and :func:`hs_relax_band` launch the kernels for CUDA
+tensors and take their plain versions for CPU tensors; ``.launches`` on each
+counts calls that launched (one per call, whatever its sweep count).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 from cuda_optical_flow_2_torch.constants import MASKS
 from cuda_optical_flow_2_torch.kernels import _build
 from cuda_optical_flow_2_torch.kernels.lk_fused import planes
+from cuda_optical_flow_2_torch.ops.band import rows_in_image
 from cuda_optical_flow_2_torch.ops.gradients import (
     sobel_scale,
     spatial_gradients,
@@ -46,7 +54,7 @@ from cuda_optical_flow_2_torch.ops.gradients import (
     temporal_mask,
 )
 
-__all__ = ["hs_relax", "hs_relax_plain", "MAX_SWEEPS"]
+__all__ = ["hs_relax", "hs_relax_band", "hs_relax_band_plain", "hs_relax_plain", "MAX_SWEEPS"]
 
 # Sweeps per Charbonnier chunk: the lagged weights are refreshed this often
 # (the JAX kernel's time-tiling depth, which fixes the IRLS cadence).
@@ -77,14 +85,56 @@ def hs_relax_plain(
 
     if iterations <= 0:
         return _identity(prev, flow_init)
-    ix, iy = spatial_gradients(prev, normalize=True)
-    it = temporal_gradient(prev, nxt, temporal_kernel, normalize=True)
-    if it_offset is not None:
-        it = it + it_offset.to(torch.float32)
+    ix, iy, it = _gradients(prev, nxt, temporal_kernel, it_offset)
     uv = _identity(prev, flow_init)
     if robust is not None:
         return hs._robust_relax_xla(uv, ix, iy, it, iterations, alpha, robust)
     return hs._quadratic_relax(uv, ix, iy, it, iterations, alpha)
+
+
+def hs_relax_band_plain(
+    prev: torch.Tensor,
+    nxt: torch.Tensor,
+    flow_init: torch.Tensor | None,
+    row0: int,
+    h_global: int,
+    *,
+    sweeps: int,
+    alpha: float,
+    temporal_kernel: str,
+    it_offset: torch.Tensor | None = None,
+    robust: tuple[float, float] | None = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of the band entry: one chunk of the plain
+    relaxation with the gradients, the initial flow and every sweep's flow
+    (and the Charbonnier smoothness weight) zero outside the global image."""
+    from cuda_optical_flow_2_torch.models import horn_schunck as hs
+
+    _check_chunk(sweeps)
+    if sweeps <= 0:
+        return _identity(prev, flow_init)
+    keep = rows_in_image(prev.shape[-2], row0, h_global, prev.device)
+    ix, iy, it = (
+        torch.where(keep, g, 0.0) for g in _gradients(prev, nxt, temporal_kernel, it_offset)
+    )
+    uv = torch.where(keep[..., None], _identity(prev, flow_init), 0.0)
+    if robust is not None:
+        return hs._robust_chunk(uv, ix, iy, it, sweeps, alpha, robust, keep)
+    return hs._quadratic_relax(uv, ix, iy, it, sweeps, alpha, keep)
+
+
+def _gradients(prev, nxt, temporal_kernel, it_offset):
+    """Ix, Iy (Sobel / 8) and It (+ ``it_offset``), zero-padded."""
+    ix, iy = spatial_gradients(prev, normalize=True)
+    it = temporal_gradient(prev, nxt, temporal_kernel, normalize=True)
+    if it_offset is not None:
+        it = it + it_offset.to(torch.float32)
+    return ix, iy, it
+
+
+def _check_chunk(sweeps: int) -> None:
+    if sweeps > MAX_SWEEPS:
+        raise ValueError(f"hs_relax_band runs one chunk: sweeps={sweeps} > {MAX_SWEEPS}")
 
 
 def _masks(temporal_kernel: str) -> np.ndarray:
@@ -123,6 +173,51 @@ def hs_relax(
             prev, nxt, flow_init, iterations=iterations, alpha=alpha,
             temporal_kernel=temporal_kernel, it_offset=it_offset, robust=robust,
         )
+    out = _launch(prev, nxt, flow_init, it_offset, iterations, alpha, temporal_kernel, robust,
+                  0, prev.shape[-2])
+    hs_relax.launches += int(iterations > 0)  # zero sweeps launch nothing
+    return out
+
+
+def hs_relax_band(
+    prev: torch.Tensor,
+    nxt: torch.Tensor,
+    flow_init: torch.Tensor | None,
+    row0: int,
+    h_global: int,
+    *,
+    sweeps: int,
+    alpha: float,
+    temporal_kernel: str,
+    it_offset: torch.Tensor | None = None,
+    robust: tuple[float, float] | None = None,
+) -> torch.Tensor:
+    """ONE chunk of ``sweeps`` (<= ``MAX_SWEEPS``) Jacobi sweeps on a row
+    band holding global rows [row0, row0 + HB) of an ``h_global``-row image
+    (the spatial-TP entry, ``parallel/spatial_models.py``).
+
+    With a caller halo of ``sweeps + 2`` real rows (the gradient ring and
+    one row of band-edge staleness per sweep) the kept rows match
+    :func:`hs_relax` on the whole image; band-edge rows are for the caller
+    to crop.  Chunking across exchanges is the caller's: each chunk needs
+    fresh neighbour rows.  Under ``robust`` the chunk is the IRLS cadence.
+    """
+    _check_chunk(sweeps)
+    tensors = [t for t in (prev, nxt, flow_init, it_offset) if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return hs_relax_band_plain(
+            prev, nxt, flow_init, row0, h_global, sweeps=sweeps, alpha=alpha,
+            temporal_kernel=temporal_kernel, it_offset=it_offset, robust=robust,
+        )
+    out = _launch(prev, nxt, flow_init, it_offset, sweeps, alpha, temporal_kernel, robust,
+                  row0, h_global)
+    hs_relax_band.launches += int(sweeps > 0)  # zero sweeps launch nothing
+    return out
+
+
+def _launch(prev, nxt, flow_init, it_offset, iterations, alpha, temporal_kernel, robust, row0,
+            h_global) -> torch.Tensor:
+    tensors = [t for t in (prev, nxt, flow_init, it_offset) if t is not None]
     dev = _build.require_cuda(*tensors)
     lead, (h, w) = prev.shape[:-2], prev.shape[-2:]
     if (
@@ -151,12 +246,12 @@ def hs_relax(
     _build.launch(
         dev, "of2_hs_relax", p.data_ptr(), n.data_ptr(),
         None if off is None else off.data_ptr(), None if f0 is None else f0.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), b, h, w, int(iterations), MAX_SWEEPS,
-        float(alpha * alpha), masks.ctypes.data, int(robust is not None),
+        out.data_ptr(), scratch.data_ptr(), b, h, w, int(row0), int(h_global), int(iterations),
+        MAX_SWEEPS, float(alpha * alpha), masks.ctypes.data, int(robust is not None),
         float(ed), float(ed * ed), float(es), float(es * es),
     )
-    hs_relax.launches += 1
     return out.reshape(lead + (h, w, 2))
 
 
 hs_relax.launches = 0
+hs_relax_band.launches = 0

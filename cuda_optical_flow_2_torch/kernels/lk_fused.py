@@ -32,6 +32,7 @@ import torch
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.constants import MASKS
 from cuda_optical_flow_2_torch.kernels import _build
+from cuda_optical_flow_2_torch.ops.band import rows_in_image, zero_outside_global
 from cuda_optical_flow_2_torch.ops.gradients import (
     sobel_scale,
     spatial_gradients,
@@ -51,17 +52,37 @@ MAX_WINDOW = 65  # csrc/of2_common.cuh OF2_MAX_R = 32
 
 
 def lk_residual_plain(
-    prev: torch.Tensor, nxt: torch.Tensor, config: LKConfig, centered: bool = False
+    prev: torch.Tensor,
+    nxt: torch.Tensor,
+    config: LKConfig,
+    centered: bool = False,
+    row0: int = 0,
+    h_global: int | None = None,
 ) -> torch.Tensor:
     """The plain PyTorch version: the ops composition of the JAX package's
     ``models/lucas_kanade._lk_residual_xla`` (``centered``:
-    ``models/dis._dis_residual_xla``)."""
+    ``models/dis._dis_residual_xla``).
+
+    With ``h_global``, the frames are a band holding global rows
+    [row0, row0 + H) of an ``h_global``-row image, and the gradients (and
+    the centered count) are zero outside the global image before the window
+    sums, as the JAX package's ``parallel/spatial._banded_residual``: a
+    convolution over the zero rows beyond the image edge still gives
+    nonzero "phantom" gradients next to it, which the whole-image sums never
+    see."""
     ix, iy = spatial_gradients(prev, config.normalize_gradients)
     it = temporal_gradient(prev, nxt, config.temporal_kernel, config.normalize_gradients)
-    sums_fn = centered_structure_tensor_sums if centered else structure_tensor_sums
-    sums = sums_fn(
-        ix, iy, it, config.window, config.window_method, weights=config.window_weights
-    )
+    valid = None
+    if h_global is not None:
+        ix, iy, it = (zero_outside_global(g, row0, h_global) for g in (ix, iy, it))
+        valid = rows_in_image(ix.shape[-2], row0, h_global, ix.device).expand(ix.shape)
+    method, weights = config.window_method, config.window_weights
+    if centered:
+        sums = centered_structure_tensor_sums(
+            ix, iy, it, config.window, method, valid=valid, weights=weights
+        )
+    else:
+        sums = structure_tensor_sums(ix, iy, it, config.window, method, weights=weights)
     return solve_flow(sums, config)
 
 

@@ -130,9 +130,14 @@ def _avg3x3(x: torch.Tensor) -> torch.Tensor:
 
 def _quadratic_relax(
     uv: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, it: torch.Tensor,
-    iterations: int, alpha: float,
+    iterations: int, alpha: float, keep: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The quadratic sweeps of the JAX package's ``hs_level`` XLA path."""
+    """The quadratic sweeps of the JAX package's ``hs_level`` XLA path.
+
+    ``keep`` (a mask broadcasting to the image; spatial-TP bands) zeroes the
+    flow outside the global image after every sweep: the whole image's zero
+    padding stays zero, and the band rows beyond the image must too, or
+    their nonzero average would leak back inward."""
     denom = alpha**2 + ix * ix + iy * iy
     u, v = uv[..., 0], uv[..., 1]
     for _ in range(iterations):
@@ -140,6 +145,8 @@ def _quadratic_relax(
         v_bar = _avg3x3(v)
         rate = (ix * u_bar + iy * v_bar + it) / denom
         u, v = u_bar - ix * rate, v_bar - iy * rate
+        if keep is not None:
+            u, v = torch.where(keep, u, 0.0), torch.where(keep, v, 0.0)
     return torch.stack([u, v], dim=-1)
 
 
@@ -158,39 +165,50 @@ def _robust_relax_xla(
     ``hs_sweep.MAX_SWEEPS`` sweeps and frozen within the chunk; zero-shift
     boundary throughout (the normalization by S with ws = 0 outside the
     image drops missing neighbours: a Neumann-style border)."""
-    ed, es = robust
-    alpha2 = alpha * alpha
-
-    def chunk(uv: torch.Tensor, sweeps: int) -> torch.Tensor:
-        u, v = uv[..., 0], uv[..., 1]
-        r = ix * u + iy * v + it
-        wd = ed * torch.rsqrt(r * r + ed * ed)
-        g2 = (
-            stencil2d(u, _DXC) ** 2
-            + stencil2d(v, _DXC) ** 2
-            + stencil2d(u, _DYC) ** 2
-            + stencil2d(v, _DYC) ** 2
-        )
-        ws = es * torch.rsqrt(g2 + es * es)
-        s_plane = torch.clamp_min((ws + _avg3x3(ws)) * 0.5, 1e-12)
-        inv_s = 1.0 / s_plane
-        inv_denom = 1.0 / (alpha2 * s_plane + wd * (ix * ix + iy * iy))
-        for _ in range(sweeps):
-            u_bar = (ws * _avg3x3(u) + _avg3x3(ws * u)) * 0.5 * inv_s
-            v_bar = (ws * _avg3x3(v) + _avg3x3(ws * v)) * 0.5 * inv_s
-            rate = wd * (ix * u_bar + iy * v_bar + it) * inv_denom
-            u = u_bar - ix * rate
-            v = v_bar - iy * rate
-        return torch.stack([u, v], dim=-1)
-
     k = min(hs_sweep.MAX_SWEEPS, iterations)
     n_full, rem = divmod(iterations, k)
     uv = flow
     for _ in range(n_full):
-        uv = chunk(uv, k)
+        uv = _robust_chunk(uv, ix, iy, it, k, alpha, robust)
     if rem:
-        uv = chunk(uv, rem)
+        uv = _robust_chunk(uv, ix, iy, it, rem, alpha, robust)
     return uv
+
+
+def _robust_chunk(
+    uv: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, it: torch.Tensor,
+    sweeps: int, alpha: float, robust: tuple[float, float],
+    keep: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One Charbonnier chunk: the weights from the incoming flow, frozen for
+    ``sweeps`` sweeps.  ``keep`` as in :func:`_quadratic_relax`; it also
+    zeroes the smoothness weight outside the global image, which the
+    normalizer S reads at the neighbours."""
+    ed, es = robust
+    u, v = uv[..., 0], uv[..., 1]
+    r = ix * u + iy * v + it
+    wd = ed * torch.rsqrt(r * r + ed * ed)
+    g2 = (
+        stencil2d(u, _DXC) ** 2
+        + stencil2d(v, _DXC) ** 2
+        + stencil2d(u, _DYC) ** 2
+        + stencil2d(v, _DYC) ** 2
+    )
+    ws = es * torch.rsqrt(g2 + es * es)
+    if keep is not None:
+        ws = torch.where(keep, ws, 0.0)
+    s_plane = torch.clamp_min((ws + _avg3x3(ws)) * 0.5, 1e-12)
+    inv_s = 1.0 / s_plane
+    inv_denom = 1.0 / (alpha * alpha * s_plane + wd * (ix * ix + iy * iy))
+    for _ in range(sweeps):
+        u_bar = (ws * _avg3x3(u) + _avg3x3(ws * u)) * 0.5 * inv_s
+        v_bar = (ws * _avg3x3(v) + _avg3x3(ws * v)) * 0.5 * inv_s
+        rate = wd * (ix * u_bar + iy * v_bar + it) * inv_denom
+        u = u_bar - ix * rate
+        v = v_bar - iy * rate
+        if keep is not None:
+            u, v = torch.where(keep, u, 0.0), torch.where(keep, v, 0.0)
+    return torch.stack([u, v], dim=-1)
 
 
 def horn_schunck(prev: torch.Tensor, nxt: torch.Tensor, config: HSConfig) -> torch.Tensor:

@@ -1,0 +1,327 @@
+"""The port's spatial and batch sharding against the JAX package (CPU).
+
+Spatial TP of ``cuda_optical_flow_2_torch.parallel`` on a mesh of eight CPU
+devices against the JAX package's same entry on its eight virtual CPU
+devices (``tests/conftest.py``), both on the plain path
+(``use_pallas=False``), and against the port's unsharded pipelines.  With
+``use_pallas`` the CPU shards take the band kernels' plain versions, so the
+kernel-path TP is held to the unsharded kernel path.  Inputs: period-24
+synthetic textures moving (2, 1) px, from seeds.
+
+Tolerances, JAX's own for TP against unsharded (tests/test_parallel.py):
+1e-4 px at a single level, 5e-3 px for an LK pyramid (the warp amplifies
+float-order noise level by level), 5e-4 px for HS.  The two packages'
+TP paths are held to the same limits.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh as JMesh
+
+import cuda_optical_flow_2_tpu as jof
+from cuda_optical_flow_2_tpu import parallel as jparallel
+from cuda_optical_flow_2_tpu.models import horn_schunck as jhs
+from cuda_optical_flow_2_tpu.parallel import spatial as jspatial
+from cuda_optical_flow_2_tpu.parallel import spatial_models as jspatial_models
+
+import cuda_optical_flow_2_torch as tof
+from cuda_optical_flow_2_torch import parallel
+from cuda_optical_flow_2_torch.interop import hs_config_from_jax, lk_config_from_jax
+from cuda_optical_flow_2_torch.kernels import hs_sweep, lk_step_fused
+from cuda_optical_flow_2_torch.parallel import spatial, spatial_models
+from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
+
+SINGLE_LEVEL_TOL = 1e-4
+LK_PYRAMID_TOL = 5e-3
+HS_TOL = 5e-4
+CPU8 = [torch.device("cpu")] * 8
+
+
+def _pair(h, w, seed=0, velocity=(2.0, 1.0)):
+    fr = synthetic_sequence(2, h, w, velocity=velocity, period=24, seed=seed)
+    return fr[0].astype(np.float32), fr[1].astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+
+def _j(a):
+    return jnp.asarray(np.asarray(a, np.float32))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(
+        np.asarray(got, np.float32), np.asarray(want, np.float32), rtol=0, atol=tol
+    )
+
+
+def _mesh():
+    return parallel.make_mesh(axis_name="space", devices=CPU8)
+
+
+def _jmesh():
+    return jparallel.make_mesh(axis_name="space")
+
+
+# --- spatial_pyramidal_lk -----------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "kw,tol",
+    [
+        (dict(levels=1, window=11, iterations=1, max_displacement=16), SINGLE_LEVEL_TOL),
+        (dict(levels=2, window=9, iterations=2, temporal_kernel="gauss3", max_displacement=4),
+         LK_PYRAMID_TOL),
+        (dict(levels=2, window=9, iterations=1, prefilter=jof.BilateralConfig(),
+              max_displacement=16), LK_PYRAMID_TOL),
+    ],
+    ids=["single_level", "pyramid", "prefilter"],
+)
+def test_spatial_pyramidal_lk_matches_jax_and_unsharded(kw, tol):
+    """Both port TP paths against the unsharded kernel path: TP always
+    enforces the warp budget, as the kernel path does (the unclamped plain
+    path runs up to 10 px at the left border here)."""
+    p, n = _pair(256, 48)
+    jcfg = jof.LKConfig(use_pallas=False, **kw)
+    want = np.asarray(jparallel.spatial_pyramidal_lk(_j(p), _j(n), jcfg, _jmesh()))
+    cfg = lk_config_from_jax(jcfg)
+    got = parallel.spatial_pyramidal_lk(_t(p), _t(n), cfg, _mesh())
+    assert tuple(got.shape) == (256, 48, 2)
+    _close(got, want, tol)
+    # the kernel path: the band kernels' plain versions on CPU shards
+    kcfg = dataclasses.replace(cfg, use_pallas=True)
+    unsharded = tof.pyramidal_lk(_t(p), _t(n), kcfg)
+    _close(got, unsharded, tol)
+    _close(parallel.spatial_pyramidal_lk(_t(p), _t(n), kcfg, _mesh()), unsharded, tol)
+
+
+def test_spatial_lk_kernel_path_runs_band_steps():
+    """With use_pallas every level, the coarsest included, runs lk_band_step
+    (zero flow at the coarsest): its plain version once per shard and
+    iteration, and never the whole-image entries."""
+    p, n = _pair(128, 32)
+    cfg = tof.LKConfig(levels=2, window=9, iterations=2, max_displacement=4)
+    calls = []
+    orig = lk_step_fused.lk_band_step_plain
+
+    def spy(*args, **kw):
+        calls.append(args[3])
+        return orig(*args, **kw)
+
+    lk_step_fused.lk_band_step_plain = spy
+    try:
+        parallel.spatial_pyramidal_lk(_t(p), _t(n), cfg, parallel.make_mesh(devices=CPU8[:4],
+                                                                             axis_name="space"))
+    finally:
+        lk_step_fused.lk_band_step_plain = orig
+    # 2 levels x 2 iterations x 4 shards; level 1's first call per shard has
+    # the gradient halo (r_grad = 6), the rest the warp halo (6 + 4 + 2)
+    assert len(calls) == 16
+    assert calls[:4] == [-6, 10, 26, 42]
+    assert calls[-4:] == [-12, 20, 52, 84]
+
+
+def test_grid_pyramidal_lk_matches_jax_and_unsharded():
+    p0, n0 = _pair(256, 48, seed=0)
+    p1, n1 = _pair(256, 48, seed=1, velocity=(-1.0, 1.5))
+    pb, nb = np.stack([p0, p1, p0, p1]), np.stack([n0, n1, n0, n1])
+    jcfg = jof.LKConfig(levels=2, window=9, iterations=1, temporal_kernel="gauss3",
+                        max_displacement=4.0, use_pallas=False)
+    jmesh = JMesh(np.asarray(jax.devices()).reshape(2, 4), ("batch", "space"))
+    want = np.asarray(jparallel.grid_pyramidal_lk(_j(pb), _j(nb), jcfg, jmesh))
+    mesh = parallel.Mesh(np.array(CPU8, dtype=object).reshape(2, 4), ("batch", "space"))
+    assert mesh.shape == {"batch": 2, "space": 4}
+    cfg = lk_config_from_jax(jcfg)
+    got = parallel.grid_pyramidal_lk(_t(pb), _t(nb), cfg, mesh)
+    assert tuple(got.shape) == (4, 256, 48, 2)
+    _close(got, want, LK_PYRAMID_TOL)
+    for i, (p, n) in enumerate([(p0, n0), (p1, n1)] * 2):
+        _close(got[i], tof.pyramidal_lk(_t(p), _t(n), cfg), LK_PYRAMID_TOL)
+    with pytest.raises(ValueError, match="not divisible by batch size 2"):
+        parallel.grid_pyramidal_lk(_t(pb[:3]), _t(nb[:3]), cfg, mesh)
+
+
+# --- spatial_pyramidal_hs -----------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "kw,sweep_tile",
+    [(dict(iterations=12), 6), (dict(iterations=8, alpha=20.0, penalty="charbonnier"), 8)],
+    ids=["quadratic", "charbonnier"],
+)
+def test_spatial_pyramidal_hs_matches_jax_and_unsharded(kw, sweep_tile):
+    """Charbonnier with iterations <= sweep_tile, where the TP chunk (the
+    IRLS cadence) equals the unsharded one."""
+    p, n = _pair(256, 48)
+    base = dict(alpha=8.0, levels=2, max_displacement=8)
+    jcfg = jhs.HSConfig(**{**base, **kw}, use_pallas=False)
+    want = np.asarray(jparallel.spatial_pyramidal_hs(_j(p), _j(n), jcfg, _jmesh(), sweep_tile=sweep_tile))
+    for use_pallas in (False, True):
+        cfg = dataclasses.replace(hs_config_from_jax(jcfg), use_pallas=use_pallas)
+        got = parallel.spatial_pyramidal_hs(_t(p), _t(n), cfg, _mesh(), sweep_tile=sweep_tile)
+        assert tuple(got.shape) == (256, 48, 2)
+        _close(got, want, HS_TOL)
+        _close(got, tof.pyramidal_hs(_t(p), _t(n), cfg), HS_TOL)
+
+
+def test_spatial_hs_kernel_path_chunks_sweeps():
+    """ceil(iterations / sweep_tile) hs_relax_band chunks per level and
+    shard, each of at most sweep_tile sweeps, with a sweeps + 2 halo."""
+    p, n = _pair(128, 32)
+    cfg = tof.HSConfig(alpha=8.0, iterations=10, levels=2, max_displacement=4)
+    calls = []
+    orig = hs_sweep.hs_relax_band_plain
+
+    def spy(prev, nxt, flow, row0, h_global, **kw):
+        calls.append((row0, h_global, kw["sweeps"]))
+        return orig(prev, nxt, flow, row0, h_global, **kw)
+
+    hs_sweep.hs_relax_band_plain = spy
+    try:
+        parallel.spatial_pyramidal_hs(_t(p), _t(n), cfg,
+                                      parallel.make_mesh(devices=CPU8[:2], axis_name="space"),
+                                      sweep_tile=4)
+    finally:
+        hs_sweep.hs_relax_band_plain = orig
+    assert len(calls) == 2 * 3 * 2
+    assert [c[2] for c in calls[:6]] == [4, 4, 4, 4, 2, 2]
+    assert calls[:2] == [(-6, 64, 4), (26, 64, 4)]
+    assert calls[-2:] == [(-6, 128, 2), (58, 128, 2)]
+
+
+# --- model-generic entry points -----------------------------------------
+
+
+def test_spatial_pyramidal_flow_dispatch():
+    p, n = _pair(256, 48)
+    hs_j = jhs.HSConfig(alpha=8.0, iterations=8, levels=2, max_displacement=8, use_pallas=False)
+    hs_cfg = hs_config_from_jax(hs_j)
+    lk_cfg = tof.LKConfig(levels=2, window=9, max_displacement=4, use_pallas=False)
+    a = parallel.spatial_pyramidal_flow(_t(p), _t(n), hs_cfg, _mesh(), sweep_tile=4)
+    torch.testing.assert_close(
+        a, parallel.spatial_pyramidal_hs(_t(p), _t(n), hs_cfg, _mesh(), sweep_tile=4),
+        rtol=0, atol=0)
+    want = jparallel.spatial_pyramidal_flow(_j(p), _j(n), hs_j, _jmesh(), sweep_tile=4)
+    _close(a, want, HS_TOL)
+    torch.testing.assert_close(
+        parallel.spatial_pyramidal_flow(_t(p), _t(n), lk_cfg, _mesh()),
+        parallel.spatial_pyramidal_lk(_t(p), _t(n), lk_cfg, _mesh()), rtol=0, atol=0)
+
+
+def test_grid_pyramidal_flow_matches_jax():
+    p, n = _pair(256, 48)
+    pb, nb = np.stack([p, p * 0.5]), np.stack([n, n * 0.5])
+    jcfg = jhs.HSConfig(alpha=8.0, iterations=8, levels=2, use_pallas=False, max_displacement=8)
+    jmesh = JMesh(np.asarray(jax.devices()).reshape(2, 4), ("batch", "space"))
+    want = np.asarray(jparallel.grid_pyramidal_flow(_j(pb), _j(nb), jcfg, jmesh, sweep_tile=4))
+    mesh = parallel.Mesh([CPU8[:4], CPU8[4:]], ("batch", "space"))
+    got = parallel.grid_pyramidal_flow(_t(pb), _t(nb), hs_config_from_jax(jcfg), mesh,
+                                       sweep_tile=4)
+    assert tuple(got.shape) == (2, 256, 48, 2)
+    _close(got, want, HS_TOL)
+
+
+@pytest.mark.parametrize("family", ["FBConfig", "TVL1Config", "DISConfig"])
+def test_unported_families_raise(family):
+    cfg = getattr(tof, family)(levels=2)
+    x = torch.zeros(64, 32)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+        parallel.spatial_pyramidal_flow(x, x, cfg, _mesh())
+    mesh = parallel.Mesh([CPU8[:4], CPU8[4:]], ("batch", "space"))
+    with pytest.raises(NotImplementedError, match=family):
+        parallel.grid_pyramidal_flow(x[None], x[None], cfg, mesh)
+
+
+def test_jax_config_raises_type_error():
+    x = torch.zeros(64, 32)
+    for cfg in (jof.LKConfig(), jhs.HSConfig(), object()):
+        with pytest.raises(TypeError, match="config must be the port's"):
+            parallel.spatial_pyramidal_flow(x, x, cfg, _mesh())
+
+
+# --- validators: the JAX package's messages -------------------------------
+
+
+def _messages(fn_t, fn_j, *args):
+    with pytest.raises((ValueError, NotImplementedError)) as got:
+        fn_t(*args[0])
+    with pytest.raises(type(got.value)) as want:
+        fn_j(*args[1])
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize(
+    "h,w,kw",
+    [
+        (100, 64, dict(levels=3, window=9)),  # H not divisible by 8 * 4
+        (256, 60, dict(levels=4, window=9)),  # W not divisible by 8
+        (128, 64, dict(levels=3, window=31)),  # coarsest level too short for its halos
+        (1024, 64, dict(levels=3, window=9, iterations=2)),  # a warping coarsest level
+        (64, 64, dict(levels=1, window=9, prefilter=jof.BilateralConfig(window=19))),
+        (256, 64, dict(levels=2, warp_mode="nearest")),
+    ],
+    ids=["rows", "cols", "halo", "coarsest_warps", "prefilter", "nearest"],
+)
+def test_validate_spatial_messages_match_jax(h, w, kw):
+    jcfg = jof.LKConfig(use_pallas=False, **kw)
+    _messages(spatial.validate_spatial, jspatial.validate_spatial,
+              (h, w, lk_config_from_jax(jcfg), 8), (h, w, jcfg, 8))
+
+
+@pytest.mark.parametrize(
+    "h,w,kw,tile",
+    [
+        (500, 64, dict(levels=3), 8),
+        (256, 64, dict(levels=3), 8),  # warp halo 36 > 8 rows per shard at level 2
+        (256, 64, dict(levels=1, iterations=40), 40),  # sweep halo
+    ],
+    ids=["rows", "warp_halo", "sweep_halo"],
+)
+def test_validate_spatial_hs_messages_match_jax(h, w, kw, tile):
+    jcfg = jhs.HSConfig(use_pallas=False, **kw)
+    _messages(spatial_models.validate_spatial_hs, jspatial_models.validate_spatial_hs,
+              (h, w, hs_config_from_jax(jcfg), 8, tile), (h, w, jcfg, 8, tile))
+
+
+# --- the mesh and batch sharding ------------------------------------------
+
+
+def test_make_mesh_needs_cuda_unless_devices_are_given(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.make_mesh()
+    mesh = parallel.make_mesh(devices=CPU8)
+    assert mesh.shape == {"batch": 8}
+    assert all(d == torch.device("cpu") for d in mesh.devices)
+    with pytest.raises(ValueError, match="devices"):
+        parallel.make_mesh(n_devices=9, devices=CPU8)
+    assert parallel.make_mesh(3, "space", devices=CPU8).shape == {"space": 3}
+
+
+def test_sharded_and_chunked_flow_match_unsharded():
+    p, n = _pair(64, 48)
+    pb = _t(np.stack([p + i for i in range(4)]))
+    nb = _t(np.stack([n + i for i in range(4)]))
+    mesh = parallel.make_mesh(devices=CPU8[:2])
+    for cfg in (tof.LKConfig(levels=2, window=9), tof.HSConfig(levels=2, iterations=10)):
+        want = tof.pyramidal_flow(pb, nb, cfg)
+        torch.testing.assert_close(parallel.sharded_flow(pb, nb, cfg, mesh), want,
+                                   rtol=0, atol=1e-5)
+        torch.testing.assert_close(parallel.chunked_flow(pb, nb, cfg, chunk=2), want,
+                                   rtol=0, atol=1e-5)
+    torch.testing.assert_close(
+        parallel.sharded_pyramidal_lk(pb, nb, tof.LKConfig(levels=1), mesh),
+        tof.pyramidal_lk(pb, nb, tof.LKConfig(levels=1)), rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="not divisible by mesh axis size 2"):
+        parallel.sharded_flow(pb[:3], nb[:3], tof.LKConfig(levels=1), mesh)
+    with pytest.raises(ValueError, match="chunk 3"):
+        parallel.chunked_flow(pb, nb, tof.LKConfig(levels=1), chunk=3)
+    shards = parallel.shard_batch(pb, mesh)
+    assert [tuple(s.shape) for s in shards] == [(2, 64, 48)] * 2

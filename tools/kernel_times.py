@@ -1,0 +1,55 @@
+"""Time whole-image CUDA kernels of one checkout; print one JSON line.
+
+    python3 tools/kernel_times.py ROOT
+
+ROOT is the root of a checkout of this repo (its ``chip_smoke.py`` and
+``cuda_optical_flow_2_torch`` are imported from there).  It builds that
+checkout's kernels and times ``lk_level_step`` (``PAPER_1080P``),
+``warp_bilinear_select``, ``bilateral_kernel`` (9x9, the stacked pair) and
+``hs_relax`` (100 sweeps, quadratic and Charbonnier) at 1080x1920 with CUDA
+events, the shapes of ``chip_smoke.py``'s phase 9.  To compare two checkouts, run it on both on one
+card, one after the other in one command, in the order parent, change,
+change, parent.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+
+def main() -> int:
+    root = Path(sys.argv[1]).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    import chip_smoke as cs
+    import cuda_optical_flow_2_torch as of
+    from cuda_optical_flow_2_torch.kernels import (
+        _build,
+        bilateral_tap,
+        hs_sweep,
+        lk_step_fused,
+        warp_select,
+    )
+
+    dev = torch.device("cuda", 0)
+    _build.library()
+    p0, n0, f0 = (torch.as_tensor(a, device=dev) for a in cs.textured_pair(1080, 1920, seed=7))
+    pair = torch.stack([p0, n0])
+    cases = (
+        ("lk_level_step", lambda: lk_step_fused.lk_level_step(p0, n0, f0, of.PAPER_1080P), 30, 10),
+        ("warp_bilinear_select", lambda: warp_select.warp_bilinear_select(p0, f0, 32), 30, 10),
+        ("bilateral_kernel", lambda: bilateral_tap.bilateral_kernel(pair, 9), 30, 10),
+        ("hs_relax", lambda: hs_sweep.hs_relax(p0, n0, None, iterations=100, alpha=10.0,
+                                               temporal_kernel="gauss3"), 10, 1),
+        ("hs_relax charbonnier", lambda: hs_sweep.hs_relax(
+            p0, n0, None, iterations=100, alpha=10.0, temporal_kernel="gauss3",
+            robust=(3.0, 0.1)), 10, 1),
+    )
+    out = {name: cs.cuda_ms(fn, reps, inner=inner) for name, fn, reps, inner in cases}
+    print(json.dumps({"tree": root.name, **out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
