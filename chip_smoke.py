@@ -49,6 +49,19 @@ then, in order:
    translation, and on a 1-shard mesh against the unsharded kernel path;
    ``grid_pyramidal_lk`` on a batch of 2 over a (2 batch x 3 space) mesh;
    launch counts checked against the predicted ones;
+8g. spatial TP for TV-L1 and Farnebäck at 2160x3840 on the same meshes:
+   ``tvl1_relax_band`` (8 iterations, carried duals) and ``fb_band_step``
+   (first and warm) against their plain versions on the top, an interior
+   and the bottom band; ``spatial_pyramidal_tvl1`` at ``TVL1_REALTIME`` and
+   ``spatial_pyramidal_fb`` at ``FBConfig()`` against the plain TP path,
+   the unsharded kernel path and the translation on 3 shards and the
+   unsharded kernel path on 1; ``FBConfig(gaussian_window=True)`` (the
+   non-fused level) and ``TVL1Config()`` on 3 shards against the unsharded
+   kernel path; launch counts checked against the predicted ones;
+8h. window limits: ``LKConfig(levels=3, window=67)`` and a 33-wide
+   bilateral prefilter at 480x640, past the CUDA kernels' limits, take the
+   plain composition for that stage (no launch of the kernel) and are held
+   against the plain path;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K), each kernel, its plain version and, where one PyTorch call
    computes the same function, that call; the median filter (plain
@@ -128,6 +141,12 @@ KERNELS = [
     ("hs_relax_band", "hs_sweep", "hs_relax_band_plain",
      "cuda_optical_flow_2_torch/csrc/hs_sweep.cu",
      "cuda_optical_flow_2_tpu/kernels/hs_sweep.py:252"),
+    ("tvl1_relax_band", "tvl1_sweep", "tvl1_relax_band_plain",
+     "cuda_optical_flow_2_torch/csrc/tvl1_sweep.cu",
+     "cuda_optical_flow_2_tpu/kernels/tvl1_sweep.py:233"),
+    ("fb_band_step", "fb_step_fused", "fb_band_step_plain",
+     "cuda_optical_flow_2_torch/csrc/fb_step.cu",
+     "cuda_optical_flow_2_tpu/kernels/fb_step_fused.py:271"),
 ]
 # The DIS (centered=True) mode of two of them, an entry of its own in the
 # kernels line: launches from the wrappers' ``launches_centered``.
@@ -304,15 +323,18 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
             return 16.0 * px, float(ops * px), sfu
         # + clamp (4), sample coordinates (2), bilinear weights and taps (15), accumulate (2)
         return 24.0 * px, float((ops + 23) * px), sfu
-    if name == "tvl1_relax":
+    if name in ("tvl1_relax", "tvl1_relax_band"):
         px = args[0].numel()
         it = kw["iterations"]
         # constants: Sobel pair (22), |g|^2 (3), threshold and floor (2), it (1);
         # per iteration 46: rho (6), compares (2), threshold step (8),
         # divergences (6), primal (4), forward differences (4), norms (8),
         # dual updates (8); special functions per iteration: the step's two
-        # divisions, four by the norms, two square roots
-        return 32.0 * px, float((28 + 46 * it) * px), float(8 * it * px)
+        # divisions, four by the norms, two square roots.  Bytes: the frames
+        # and the flows (32 per pixel); the band entry reads and writes the
+        # six state planes instead of a flow in and out (+32)
+        nbytes = (32.0 if name == "tvl1_relax" else 64.0) * px
+        return nbytes, float((28 + 46 * it) * px), float(8 * it * px)
     if name in ("warp_bilinear_select", "warp_bilinear_select_band"):
         img = args[0]
         return 16.0 * img.numel(), 21.0 * img.numel(), 0.0
@@ -341,9 +363,10 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
         px, window = args[0].numel(), args[5]
         # two box passes over five planes, then det, numerators, one divide
         return 28.0 * px, float((10 * (window - 1) + 12) * px), 0.0
-    if name == "fb_level_step":
-        nxt, _exp1, flow, cfg = args[:4]
-        first = args[4] if len(args) > 4 else kw.get("first", False)
+    if name in ("fb_level_step", "fb_band_step"):
+        nxt = args[0]
+        cfg, i_first = (args[3], 4) if name == "fb_level_step" else (args[4], 6)
+        first = args[i_first] if len(args) > i_first else kw.get("first", False)
         px = nxt.numel()
         # expansion, products (32), box passes over five planes, solve (12),
         # and unless first the clipped four-tap warp (21)
@@ -500,6 +523,8 @@ def main() -> int:
                         "lk_band_step centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
                         "hs_relax_band": (HS_MEDIAN_ERR, HS_P999_ERR),
                         "tvl1_relax": (TVL1_MEDIAN_ERR, TVL1_P999_ERR),
+                        "tvl1_relax_band": (TVL1_MEDIAN_ERR, TVL1_P999_ERR),
+                        "fb_band_step": (FB_STEP_MEDIAN_ERR, FB_STEP_P999_ERR),
                         "hs_relax": (HS_MEDIAN_ERR, HS_P999_ERR),
                         "fb_level_step": (FB_STEP_MEDIAN_ERR, FB_STEP_P999_ERR),
                         "window_solve": (WIN_SOLVE_MEDIAN_ERR, WIN_SOLVE_P999_ERR)}[name]
@@ -985,7 +1010,12 @@ def main() -> int:
                        {"hs_relax_band": 117, "warp_bilinear_select_band": 6, "pyr_down": 6}),
     }
     unsharded_4k = {}
-    for label, (cfg, tp_fn, whole, tol, (med_lim, p999_lim), expect) in tp_paths.items():
+
+    def run_tp(phase, label, cfg, tp_fn, whole, tol, lims, expect):
+        """A TP path on 3 shards against the plain TP path, the unsharded
+        kernel path and the translation, and on 1 shard against the
+        unsharded kernel path, each with its launches as predicted."""
+        med_lim, p999_lim = lims
         flow, counts = run_path(f"TP {label} 3 shards", lambda: tp_fn(up, un, cfg, mesh3),
                                 tuple(expect))
         require(counts == expect, f"TP {label} 3 shards launches {counts}, predicted {expect}")
@@ -1002,11 +1032,12 @@ def main() -> int:
         if tol is not None:
             require(abs(m[0] - 2.0) <= tol and abs(m[1] - 1.0) <= tol,
                     f"TP {label} inner median flow {m}, expected (2, 1)")
-        print(f"phase 8f TP {label} {uh}x{uw} 3 shards on one card: inner median flow "
+        print(f"phase {phase} TP {label} {uh}x{uw} 3 shards on one card: inner median flow "
               f"({m[0]:.4f}, {m[1]:.4f}) (unsharded ({m_whole[0]:.4f}, {m_whole[1]:.4f})); vs "
-              f"plain TP median {e_plain['median']:.3g} p99 {e_plain['p99']:.3g} max "
-              f"{e_plain['max']:.3g}; vs unsharded median {e_whole['median']:.3g} p99 "
-              f"{e_whole['p99']:.3g} max {e_whole['max']:.3g}; launches {counts} (as predicted)")
+              f"plain TP median {e_plain['median']:.3g} p99 {e_plain['p99']:.3g} p99.9 "
+              f"{e_plain['p999']:.3g} max {e_plain['max']:.3g}; vs unsharded median "
+              f"{e_whole['median']:.3g} p99 {e_whole['p99']:.3g} p99.9 {e_whole['p999']:.3g} max "
+              f"{e_whole['max']:.3g}; launches {counts} (as predicted)")
         expect1 = {k: v // 3 for k, v in expect.items()}
         flow1, counts1 = run_path(f"TP {label} 1 shard", lambda: tp_fn(up, un, cfg, mesh1),
                                   tuple(expect1))
@@ -1014,8 +1045,12 @@ def main() -> int:
         e1 = err_stats(flow1, unsharded_4k[label])
         require(e1["median"] <= med_lim and e1["p999"] <= p999_lim,
                 f"TP {label} 1 shard vs unsharded kernel path: {e1}")
-        print(f"phase 8f TP {label} {uh}x{uw} 1 shard: vs unsharded median {e1['median']:.3g} "
-              f"p99.9 {e1['p999']:.3g} max {e1['max']:.3g}; launches {counts1} (as predicted)")
+        print(f"phase {phase} TP {label} {uh}x{uw} 1 shard: vs unsharded median "
+              f"{e1['median']:.3g} p99.9 {e1['p999']:.3g} max {e1['max']:.3g}; launches {counts1} "
+              "(as predicted)")
+
+    for label, entry in tp_paths.items():
+        run_tp("8f", label, *entry)
     mesh_grid = parallel.Mesh([[dev] * 3] * 2, ("batch", "space"))
     pb, nb = torch.stack([up, un]), torch.stack([un, up])
     expect = {"lk_band_step": 30, "pyr_down": 24}
@@ -1034,6 +1069,91 @@ def main() -> int:
           f"vs unsharded p99 {e_grid[0]['p99']:.3g}, {e_grid[1]['p99']:.3g}; inner median flows "
           f"({m0[0]:.4f}, {m0[1]:.4f}), ({m1[0]:.4f}, {m1[1]:.4f}); launches {counts} "
           "(as predicted)")
+
+    # 8g. spatial TP for TV-L1 and Farnebäck on the same meshes: the two band
+    # kernels at their level-0 band shapes (TV-L1's chunk band 8 + 2, with
+    # nonzero carried duals; FB's fused halo band_margin + 32 + 2 = 46)
+    fb_halo = fb_step_fused.band_margin(of.FBConfig()) + 32 + 2
+    require(fb_halo == 46, f"FBConfig() fused halo {fb_halo}, expected 46")
+    w8 = warp_select.warp_bilinear_select_plain(n8, f8)
+    duals8 = [cuda(rng.normal(0, 0.05, (uh, uw)).astype(np.float32)) for _ in range(4)]
+    exp8 = poly_exp_fused.poly_expansion_plain(p8, 7, 1.5)
+    tvl1_band_kw = dict(tvl1_kw, iterations=8)
+    for lo in (0, band_rows, 2 * band_rows):
+        h10, h46 = (lambda x, h=h: band(x, lo, h) for h in (10, 46))
+        state8 = tuple(h10(x) for x in (f8[..., 0] * 0.5, f8[..., 1] * 0.5, *duals8))
+        fb_args = (h46(n8), tuple(h46(e) for e in exp8), h46(f8), lo - 46, of.FBConfig(), uh)
+        cases = [
+            ("tvl1_relax_band", "8 iterations carried duals",
+             (h10(p8), h10(w8), h10(f8), state8, lo - 10, uh), tvl1_band_kw),
+            ("fb_band_step", "FBConfig() first", fb_args + (True,), {}),
+            ("fb_band_step", "FBConfig() warm", fb_args + (False,), {}),
+        ]
+        parts = []
+        for name, label, args, kw in cases:
+            got, want = wrappers[name](*args, **kw), plains[name](*args, **kw)
+            if name == "tvl1_relax_band":  # the six state planes
+                got, want = torch.stack(got), torch.stack(want)
+            parts.append(check(name, got, want, args[0].shape[-2], uw, label))
+            band_args.setdefault((name, label, lo), (args, kw))
+        print(f"phase 8g band kernels, band rows {lo}-{lo + band_rows} of {uh}x{uw}: "
+              + "; ".join(parts))
+    tp_paths_8g = {
+        "TVL1_REALTIME": (of.TVL1_REALTIME, parallel.spatial_pyramidal_tvl1, of.pyramidal_tvl1,
+                          PRESET_TRANSLATION_TOL, (TVL1_MEDIAN_ERR, TVL1_P999_ERR),
+                          {"tvl1_relax_band": 96, "warp_bilinear_select_band": 48, "pyr_down": 9}),
+        "FBConfig()": (of.FBConfig(), parallel.spatial_pyramidal_fb, of.pyramidal_farneback,
+                       TRANSLATION_TOL, (FB_STEP_MEDIAN_ERR, FB_STEP_P999_ERR),
+                       {"fb_band_step": 27, "poly_expansion_kernel": 9, "pyr_down": 6}),
+    }
+    for label, entry in tp_paths_8g.items():
+        run_tp("8g", label, *entry)
+    # the non-fused FB level (Gaussian window: band warps and expansions) and
+    # the default TV-L1 (its coarsest level holds 45 rows per shard against a
+    # halo of 44), 3 shards against the unsharded kernel path
+    tp_more = {
+        "FBConfig(gaussian_window=True)": (
+            of.FBConfig(gaussian_window=True), parallel.spatial_pyramidal_fb,
+            of.pyramidal_farneback,
+            {"warp_bilinear_select_band": 24, "poly_expansion_kernel": 36, "pyr_down": 6}),
+        "TVL1Config()": (
+            of.TVL1Config(), parallel.spatial_pyramidal_tvl1, of.pyramidal_tvl1,
+            {"tvl1_relax_band": 300, "warp_bilinear_select_band": 75, "pyr_down": 12}),
+    }
+    for label, (cfg, tp_fn, whole, expect) in tp_more.items():
+        flow, counts = run_path(f"TP {label} 3 shards", lambda: tp_fn(up, un, cfg, mesh3),
+                                tuple(expect))
+        require(counts == expect, f"TP {label} 3 shards launches {counts}, predicted {expect}")
+        e = err_stats(flow, whole(up, un, cfg))
+        require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
+                f"TP {label} 3 shards vs unsharded kernel path: {e}")
+        m = inner_median(flow)
+        print(f"phase 8g TP {label} {uh}x{uw} 3 shards on one card: inner median flow "
+              f"({m[0]:.4f}, {m[1]:.4f}); vs unsharded median {e['median']:.3g} p99 "
+              f"{e['p99']:.3g} p99.9 {e['p999']:.3g} max {e['max']:.3g}; launches {counts} "
+              "(as predicted)")
+
+    # 8h. past the CUDA kernels' window limits (LK 65, bilateral 31) the path
+    # takes the plain composition for that stage, decided from the config
+    fr = synthetic_sequence(2, 480, 640, velocity=(2.0, 1.0), period=48)
+    lp, ln = cuda(fr[0]).float(), cuda(fr[1]).float()
+    limits = {
+        "LKConfig(levels=3, window=67)": (
+            of.LKConfig(levels=3, window=67), ("pyr_down",), ("lk_residual", "lk_level_step")),
+        "LKConfig(prefilter=BilateralConfig(window=33))": (
+            of.LKConfig(prefilter=of.BilateralConfig(window=33)),
+            ("pyr_down", "lk_residual", "lk_level_step"), ("bilateral_kernel",)),
+    }
+    for label, (cfg, needs, never) in limits.items():
+        flow, counts = run_path(f"window limit {label}", lambda: of.pyramidal_lk(lp, ln, cfg), needs)
+        require(all(path_launches[f"window limit {label}"][k] == 0 for k in never),
+                f"{label} launched a kernel past its window limit: {counts}")
+        e = err_stats(flow, of.pyramidal_lk(lp, ln, dataclasses.replace(cfg, use_pallas=False)))
+        require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
+                f"{label} kernel path vs plain path: {e}")
+        print(f"phase 8h pyramidal_lk {label} 480x640: no {', '.join(never)} launch; vs plain "
+              f"path median {e['median']:.3g} p99 {e['p99']:.3g} max {e['max']:.3g}; launches "
+              f"{counts}")
 
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
@@ -1070,13 +1190,14 @@ def main() -> int:
            for label, c in dis_cfgs.items()},
     }
     # the TP paths at 4K, each beside its unsharded run
-    for label, (c, tp_fn, whole, *_rest) in tp_paths.items():
+    for label, (c, tp_fn, whole, *_rest) in (tp_paths | tp_paths_8g).items():
+        r = 5 if label == "TVL1_REALTIME" else 10
         paths[f"{whole.__name__} {label} {uh}x{uw}"] = (
             (lambda c=c, g=whole: g(up, un, c)),
-            (lambda c=c, g=whole: g(up, un, dataclasses.replace(c, use_pallas=False))), 10)
+            (lambda c=c, g=whole: g(up, un, dataclasses.replace(c, use_pallas=False))), r)
         paths[f"{tp_fn.__name__} {label} {uh}x{uw} 3 shards"] = (
             (lambda c=c, g=tp_fn: g(up, un, c, mesh3)),
-            (lambda c=c, g=tp_fn: g(up, un, dataclasses.replace(c, use_pallas=False), mesh3)), 10)
+            (lambda c=c, g=tp_fn: g(up, un, dataclasses.replace(c, use_pallas=False), mesh3)), r)
     # a warm FB serving state: the step times one tracked pair with the check
     fb_state = of.init_state(cuda(frames[0]), fb_serve, recovery)
     fb_state, _ = of.step(fb_state, cuda(frames[1]), fb_serve, True, recovery)
@@ -1118,7 +1239,9 @@ def main() -> int:
     # the band kernels at their interior 4K band (rows 720-1440 and halos)
     for name, label in (("lk_band_step", "15x15 tri"), ("warp_bilinear_select_band", ""),
                         ("bilateral_kernel_band", "9x9 stacked pair"),
-                        ("hs_relax_band", "quadratic 8 sweeps")):
+                        ("hs_relax_band", "quadratic 8 sweeps"),
+                        ("tvl1_relax_band", "8 iterations carried duals"),
+                        ("fb_band_step", "FBConfig() warm")):
         timed.append((name, label, *band_args[(name, label, band_rows)]))
     # library yardstick: F.conv2d(stride=2) computes pyr_down's function
     k2 = torch.as_tensor(np.outer(BINOMIAL_1D, BINOMIAL_1D), device=dev)[None, None]

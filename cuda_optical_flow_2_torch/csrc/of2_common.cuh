@@ -55,9 +55,3 @@ __device__ __forceinline__ float of2_warp_pixel_band(const float* __restrict__ i
   const float bot = v10 + tx * (v11 - v10);
   return top + ty * (bot - top);
 }
-
-// The whole-image form: a band that is the image.
-__device__ __forceinline__ float of2_warp_pixel(const float* __restrict__ img, int H, int W,
-                                                int x, int y, float u, float v, float d) {
-  return of2_warp_pixel_band(img, H, W, x, y, u, v, d, 0, H);
-}

@@ -45,10 +45,19 @@ __all__ = [
     "bilateral_kernel_band",
     "bilateral_kernel_band_plain",
     "bilateral_kernel_plain",
+    "supported",
     "MAX_WINDOW",
 ]
 
 MAX_WINDOW = 31  # csrc/bilateral.cu OF2_BL_MAX_R = 15
+
+
+def supported(window: int) -> bool:
+    """Whether the CUDA bilateral kernel (both entries) takes this window:
+    at most ``MAX_WINDOW``.  The config-only counterpart of the JAX
+    ``supported``; past the limit the callers take the plain filter, and
+    the wrappers raise when called directly."""
+    return window <= MAX_WINDOW
 
 
 def bilateral_kernel_plain(

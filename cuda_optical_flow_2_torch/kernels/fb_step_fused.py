@@ -1,8 +1,9 @@
 """Fused Farnebäck iteration: warp + re-expansion + products + window solve.
 
-Replaces ``cuda_optical_flow_2_tpu/kernels/fb_step_fused.py::fb_level_step``
-(whole image; the spatial-TP ``fb_band_step`` is not ported yet).  CUDA
-source: ``csrc/fb_step.cu``, with the expansion of ``csrc/of2_poly.cuh`` and
+Replaces ``cuda_optical_flow_2_tpu/kernels/fb_step_fused.py``: the
+whole-image ``fb_level_step`` and the spatial-TP band entry
+``fb_band_step``.  CUDA source: ``csrc/fb_step.cu``, with the expansion of
+``csrc/of2_poly.cuh`` and
 the window and solve of ``csrc/of2_win_tile.cuh``.  One launch per
 displacement refinement of the ``warp_planes="image"`` formulation computes
 one iteration of ``models.farneback.fb_level_image``'s plain path:
@@ -20,7 +21,7 @@ prev-expansion planes and the flow in, the flow out (40 bytes per pixel),
 against about 190 operations of expansion, 40 of products, 150 of window
 and 30 of warp and solve per pixel at the defaults.  The TPU kernel warped
 with select-loops over a bounded displacement range; here each pixel
-gathers its four taps directly (``of2_warp_pixel``).  The design keeps every
+gathers its four taps directly (``of2_warp_pixel_band``).  The design keeps every
 intermediate in shared memory: a block warps its 32 x 32 tile plus an
 (r_win + r_poly) halo once, expands it and forms the products over the tile
 plus an r_win halo, then windows and solves, so only the flow goes back to
@@ -29,10 +30,19 @@ pixels for a 32 x 32 tile at the defaults) and shared memory: 81,840 bytes
 per block at the defaults, 189,456 at ``winsize = 33, poly_n = 31`` (a
 block may have 232,448).
 
-:func:`fb_level_step` launches the kernel for CUDA tensors and takes
-:func:`fb_level_step_plain` for CPU tensors; ``fb_level_step.launches``
-counts kernel launches.  A config the kernel does not take
-(:func:`supported`) makes the wrapper raise on CUDA tensors.
+The band entry passes the band's global row ``row0`` and the image height
+``h_global``: the warp floors and clamps the sample row in global rows, and
+the warped band and the products are zero outside the global image, so the
+expansion and the window see the whole image's zero padding.  With a caller
+halo of :func:`band_margin` plus the warp budget and 2 rows the kept rows
+match the whole image.  The TPU kernel's recentering mask (``real``) served
+its select-loop warp and has no counterpart.  The whole-image entry is the
+band ``(0, H)``.
+
+:func:`fb_level_step` and :func:`fb_band_step` launch the kernel for CUDA
+tensors and take their plain versions for CPU tensors; ``.launches`` on
+each counts its kernel launches.  A config the kernel does not take
+(:func:`supported`) makes the wrappers raise on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -43,10 +53,18 @@ from cuda_optical_flow_2_torch.kernels import _build
 from cuda_optical_flow_2_torch.kernels.lk_fused import planes
 from cuda_optical_flow_2_torch.kernels.poly_exp_fused import MAX_POLY_N, checked_taps
 from cuda_optical_flow_2_torch.kernels.win_solve import MAX_WINDOW, check_window
+from cuda_optical_flow_2_torch.ops.band import zero_outside_global
 from cuda_optical_flow_2_torch.ops.poly_exp import poly_expansion
-from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
+from cuda_optical_flow_2_torch.ops.warp import warp_bilinear, warp_bilinear_band
 
-__all__ = ["fb_level_step", "fb_level_step_plain", "supported"]
+__all__ = [
+    "band_margin",
+    "fb_band_step",
+    "fb_band_step_plain",
+    "fb_level_step",
+    "fb_level_step_plain",
+    "supported",
+]
 
 
 def supported(config) -> bool:
@@ -59,6 +77,14 @@ def supported(config) -> bool:
         and config.winsize <= MAX_WINDOW
         and config.poly_n <= MAX_POLY_N
     )
+
+
+def band_margin(config) -> int:
+    """Rows at each band edge that the band step leaves as margin (garbage
+    on output): the window and expansion radii plus one, rounded up to 4,
+    the JAX kernel's formula, so spatial TP's halos and validator limits
+    match the JAX package's."""
+    return -(-(config.winsize // 2 + config.poly_n // 2 + 1) // 4) * 4
 
 
 def fb_level_step_plain(
@@ -89,6 +115,41 @@ def fb_level_step_plain(
     return solve_normal_eqs(_window(torch.stack(prods), config), config.det_eps)
 
 
+def fb_band_step_plain(
+    nxt: torch.Tensor,
+    exp1: tuple[torch.Tensor, ...],
+    flow: torch.Tensor | None,
+    row0: int,
+    config,
+    h_global: int,
+    first: bool = False,
+) -> torch.Tensor:
+    """The plain PyTorch version of the band entry: one iteration of the
+    JAX package's non-fused band step on the whole band (the band warp in
+    global rows, the warped band and the products zero outside the global
+    image, zero padding past the band edge)."""
+    from cuda_optical_flow_2_torch.models.farneback import (
+        _window,
+        fb_normal_eq_products,
+        solve_normal_eqs,
+    )
+
+    nxt = nxt.to(torch.float32)
+    if first:
+        warped = nxt
+        u = v = torch.zeros_like(exp1[0])
+    else:
+        d = float(config.max_displacement)
+        flow = flow.clamp(-d, d)
+        warped = warp_bilinear_band(nxt, flow, row0, row0, h_global)
+        u, v = flow[..., 0], flow[..., 1]
+    w_exp = poly_expansion(zero_outside_global(warped, row0, h_global), config.poly_n,
+                           config.poly_sigma)
+    prods = zero_outside_global(torch.stack(fb_normal_eq_products(exp1, w_exp, u, v)), row0,
+                                h_global)
+    return solve_normal_eqs(_window(prods, config), config.det_eps)
+
+
 def fb_level_step(
     nxt: torch.Tensor,
     exp1: tuple[torch.Tensor, ...],
@@ -110,6 +171,36 @@ def fb_level_step(
     tensors = (nxt, *exp1) + (() if first else (flow,))
     if all(t.device.type == "cpu" for t in tensors):
         return fb_level_step_plain(nxt, exp1, flow, config, first)
+    out = _launch(nxt, exp1, flow, config, first, 0, nxt.shape[-2])
+    fb_level_step.launches += 1
+    return out
+
+
+def fb_band_step(
+    nxt: torch.Tensor,
+    exp1: tuple[torch.Tensor, ...],
+    flow: torch.Tensor | None,
+    row0: int,
+    config,
+    h_global: int,
+    first: bool = False,
+) -> torch.Tensor:
+    """One fused Farnebäck refinement on a row band holding global rows
+    [row0, row0 + HB) of an ``h_global``-row image (the spatial-TP entry,
+    ``parallel/spatial_models.py``); arguments as :func:`fb_level_step`, on
+    the band.  Rows at least ``band_margin(config) + ceil(max_displacement)
+    + 2`` from the band edges match :func:`fb_level_step` on the whole
+    image; band-edge rows are for the caller to crop."""
+    tensors = (nxt, *exp1) + (() if first else (flow,))
+    if all(t.device.type == "cpu" for t in tensors):
+        return fb_band_step_plain(nxt, exp1, flow, row0, config, h_global, first)
+    out = _launch(nxt, exp1, flow, config, first, row0, h_global)
+    fb_band_step.launches += 1
+    return out
+
+
+def _launch(nxt, exp1, flow, config, first, row0, h_global) -> torch.Tensor:
+    tensors = (nxt, *exp1) + (() if first else (flow,))
     if config.gaussian_window:
         raise ValueError("the CUDA FB step takes a box window; gaussian_window=True has none")
     rw = check_window(config.winsize)
@@ -125,12 +216,12 @@ def fb_level_step(
     out = torch.empty(n.shape + (2,), dtype=torch.float32, device=dev)
     _build.launch(
         dev, "of2_fb_step", n.data_ptr(), *(x.data_ptr() for x in e),
-        None if f is None else f.data_ptr(), out.data_ptr(), n.shape[0], h, w, rw,
-        config.poly_n // 2, taps.ctypes.data, mix.ctypes.data, float(config.det_eps),
-        float(config.max_displacement), int(first),
+        None if f is None else f.data_ptr(), out.data_ptr(), n.shape[0], h, w, int(row0),
+        int(h_global), rw, config.poly_n // 2, taps.ctypes.data, mix.ctypes.data,
+        float(config.det_eps), float(config.max_displacement), int(first),
     )
-    fb_level_step.launches += 1
     return out.reshape(lead + (h, w, 2))
 
 
 fb_level_step.launches = 0
+fb_band_step.launches = 0

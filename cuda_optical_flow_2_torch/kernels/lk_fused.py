@@ -46,9 +46,18 @@ from cuda_optical_flow_2_torch.ops.window import (
     window_weight_taps,
 )
 
-__all__ = ["lk_residual", "lk_residual_plain", "MAX_WINDOW"]
+__all__ = ["lk_residual", "lk_residual_plain", "supported", "MAX_WINDOW"]
 
 MAX_WINDOW = 65  # csrc/of2_common.cuh OF2_MAX_R = 32
+
+
+def supported(config: LKConfig) -> bool:
+    """Whether the CUDA LK kernels (``lk_residual``, ``lk_level_step`` and
+    its band entry) take this config: a window of at most ``MAX_WINDOW``.
+    The config-only counterpart of the JAX ``supported``; past the limit
+    the callers take the plain composition, as the JAX package takes its
+    XLA twin, and the wrappers raise when called directly."""
+    return config.window <= MAX_WINDOW
 
 
 def lk_residual_plain(

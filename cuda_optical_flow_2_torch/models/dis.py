@@ -20,7 +20,9 @@ hand-written kernels ``kernels.lk_fused.lk_residual`` and
 refinement warp through ``kernels.warp_select`` and its relaxation through
 ``kernels.hs_sweep.hs_relax`` with ``it_offset``; for CPU tensors those
 wrappers take their plain versions.  ``use_pallas=False`` is the plain
-composition, the JAX package's XLA twin.  ``fused_half_upsample`` is
+composition, the JAX package's XLA twin; a window past the LK kernels'
+limit (``lk_fused.supported``) takes it for the search steps, decided from
+the config.  ``fused_half_upsample`` is
 accepted: the port upsamples the flow outside the level kernel (the JAX
 package's two forms agree within 2e-5 px).  Images (..., H, W), flows
 (..., H, W, 2).
@@ -164,8 +166,14 @@ def _dis_residual_xla(prev: torch.Tensor, warped: torch.Tensor, config: DISConfi
     return lk_fused.lk_residual_plain(prev, warped, _lk_like(config), config.mean_normalize)
 
 
+def _kernels(config: DISConfig) -> bool:
+    """The centered LK kernels' dispatch, from the config alone:
+    ``use_pallas`` and a window they take (``lk_fused.supported``)."""
+    return config.use_pallas and lk_fused.supported(_lk_like(config))
+
+
 def _dis_residual(prev: torch.Tensor, warped: torch.Tensor, config: DISConfig) -> torch.Tensor:
-    if config.use_pallas:
+    if _kernels(config):
         return lk_fused.lk_residual(prev, warped, _lk_like(config), config.mean_normalize)
     return _dis_residual_xla(prev, warped, config)
 
@@ -222,7 +230,7 @@ def dis_level(
             # Coarsest start: zero displacement, so the "warped" frame is
             # the frame itself: one plain centered residual step.
             flow = _dis_residual(prev, nxt, config)
-        elif config.use_pallas:
+        elif _kernels(config):
             flow = lk_step_fused.lk_level_step(prev, nxt, flow, lk_like, config.mean_normalize)
         else:
             flow = flow + _dis_residual_xla(prev, warp_bilinear(nxt, flow), config)

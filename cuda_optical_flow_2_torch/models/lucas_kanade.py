@@ -13,7 +13,10 @@ and each pyramid step (``kernels.pyr_down``) in :func:`preprocess`,
 the flow to ``max_displacement`` before warping and accumulate on the
 clamped flow.  For CPU tensors those wrappers take their plain versions.
 ``use_pallas=False`` is the plain ops composition without the clamp, the
-JAX package's XLA twin.
+JAX package's XLA twin.  A window past a kernel's limit
+(``lk_fused.supported``, ``bilateral_tap.supported``) takes the plain
+composition for that stage, decided from the config, as the JAX package
+takes its XLA twin past its kernels' limits.
 
 All entry points accept leading batch dims: images (..., H, W), flows
 (..., H, W, 2).
@@ -44,8 +47,14 @@ __all__ = [
 ]
 
 
+def _kernels(config: LKConfig) -> bool:
+    """The LK kernels' dispatch, from the config alone: ``use_pallas`` and a
+    window they take (``lk_fused.supported``)."""
+    return config.use_pallas and lk_fused.supported(config)
+
+
 def _lk_residual(prev: torch.Tensor, nxt: torch.Tensor, config: LKConfig) -> torch.Tensor:
-    if config.use_pallas:
+    if _kernels(config):
         return lk_fused.lk_residual(prev, nxt, config)
     return lk_fused.lk_residual_plain(prev, nxt, config)
 
@@ -67,15 +76,16 @@ def lk_level(
             prev, nxt, flow, dataclasses.replace(config, iterations=config.iterations - 1)
         )
     flow = flow_init
-    if config.use_pallas and config.warp_mode == "bilinear":
+    if _kernels(config) and config.warp_mode == "bilinear":
         for _ in range(config.iterations):
             flow = lk_step_fused.lk_level_step(prev, nxt, flow, config)
         return flow
     if config.warp_mode == "none":
         # Without warping, re-iterating recomputes the same residual.
         return flow + _lk_residual(prev, nxt, config)
-    # The plain composition (use_pallas=False) or the nearest warp: no
-    # displacement budget, as in the JAX package.
+    # The plain composition (use_pallas=False, or a window past the kernels'
+    # limit) or the nearest warp: no displacement budget, as in the JAX
+    # package.
     warp = warp_nearest if config.warp_mode == "nearest" else warp_bilinear
     for _ in range(config.iterations):
         flow = flow + _lk_residual(prev, warp(nxt, flow), config)
@@ -101,7 +111,7 @@ def preprocess(frame: torch.Tensor, config: LKConfig) -> list[torch.Tensor]:
     plain versions without."""
     if config.prefilter is not None:
         pf = config.prefilter
-        if config.use_pallas:
+        if config.use_pallas and bilateral_tap.supported(pf.window):
             frame = bilateral_tap.bilateral_kernel(
                 frame, pf.window, pf.sigma_spatial, pf.sigma_range
             )

@@ -13,7 +13,7 @@ Counterpart of ``cuda_optical_flow_2_tpu.parallel``, over a :class:`Mesh` of
   ``make_mesh(devices=[torch.device("cuda")] * 3)`` runs three real shards
   on it.
 
-Spatial TP covers Lucas-Kanade and Horn-Schunck; Farnebäck, TV-L1, DIS and
+Spatial TP covers Lucas-Kanade, Horn-Schunck, Farnebäck and TV-L1; DIS and
 the multi-process ``multihost`` module are not ported yet.
 """
 
@@ -33,8 +33,14 @@ from cuda_optical_flow_2_torch.parallel.spatial import (
 )
 from cuda_optical_flow_2_torch.parallel.spatial_models import (
     grid_pyramidal_flow,
+    spatial_pyramidal_fb,
     spatial_pyramidal_flow,
     spatial_pyramidal_hs,
+    spatial_pyramidal_tvl1,
+    validate_spatial_fb,
+    validate_spatial_flow,
+    validate_spatial_hs,
+    validate_spatial_tvl1,
 )
 
 __all__ = [
@@ -48,7 +54,13 @@ __all__ = [
     "halo_exchange",
     "spatial_pyramidal_lk",
     "spatial_pyramidal_hs",
+    "spatial_pyramidal_fb",
+    "spatial_pyramidal_tvl1",
     "spatial_pyramidal_flow",
     "grid_pyramidal_flow",
     "validate_spatial",
+    "validate_spatial_hs",
+    "validate_spatial_fb",
+    "validate_spatial_tvl1",
+    "validate_spatial_flow",
 ]

@@ -20,11 +20,13 @@ the JAX package: the sharded path always enforces the
 kernel path does, where the unsharded plain path warps without one.
 
 The JAX package's dispatch predicates (``_fused_enabled``,
-``_prefilter_pallas``) reduce here to ``config.use_pallas``, as the port's
-single-card dispatch does: the CUDA band kernels take any width and any
-displacement budget.  With ``use_pallas`` the band kernels run on CUDA
-shards and their plain versions on CPU shards; without it the plain ops
-composition (the JAX package's XLA twin) runs.
+``_prefilter_pallas``) reduce here to ``config.use_pallas`` and the
+kernels' window limits (``lk_fused.supported``, ``bilateral_tap.supported``),
+as the port's single-card dispatch does: the CUDA band kernels take any
+width and any displacement budget.  With ``use_pallas`` the band kernels
+run on CUDA shards and their plain versions on CPU shards; without it, or
+past a window limit, the plain ops composition (the JAX package's XLA
+twin) runs.
 """
 
 from __future__ import annotations
@@ -123,7 +125,8 @@ def _local_prefilter(frames: Blocks, config, h_global: int) -> Blocks:
     """
     pf = config.prefilter
     r = pf.window // 2
-    band = bilateral_tap.bilateral_kernel_band if config.use_pallas else bilateral_filter_band
+    kernel = config.use_pallas and bilateral_tap.supported(pf.window)
+    band = bilateral_tap.bilateral_kernel_band if kernel else bilateral_filter_band
     return [
         _crop_rows(band(fp, row0 - r, h_global, pf.window, pf.sigma_spatial, pf.sigma_range), r)
         for fp, row0 in zip(halo_exchange(frames, r, r), _row0s(frames))
@@ -190,7 +193,7 @@ def _local_lk_level(
     """
     r_grad, r_img = _halo_radius(config)
     row0s = _row0s(prev)
-    if config.use_pallas and config.warp_mode == "bilinear":
+    if config.use_pallas and lk_fused.supported(config) and config.warp_mode == "bilinear":
         return _local_lk_level_fused(prev, nxt, flow, config, h_global, r_grad, r_img, centered)
 
     prev_p = halo_exchange(prev, r_grad, r_grad)

@@ -10,8 +10,15 @@ synthetic textures moving (2, 1) px, from seeds.
 
 Tolerances, JAX's own for TP against unsharded (tests/test_parallel.py):
 1e-4 px at a single level, 5e-3 px for an LK pyramid (the warp amplifies
-float-order noise level by level), 5e-4 px for HS.  The two packages'
-TP paths are held to the same limits.
+float-order noise level by level), 5e-4 px for HS and TV-L1, 2e-2 px for
+Farnebäck (1/det of the windowed normal equations amplifies float order),
+with a (2, 1) median check.  The two packages' TP paths are held to the
+same limits.
+
+The window-limit dispatch: past a CUDA kernel's window limit the models and
+the TP levels take the plain composition, decided from the config; spies
+on the kernel wrappers show which ran (on the CPU every wrapper would take
+its plain version itself, so only the call tells).
 """
 
 import dataclasses
@@ -26,20 +33,38 @@ from jax.sharding import Mesh as JMesh
 
 import cuda_optical_flow_2_tpu as jof
 from cuda_optical_flow_2_tpu import parallel as jparallel
+from cuda_optical_flow_2_tpu.models import farneback as jfb
 from cuda_optical_flow_2_tpu.models import horn_schunck as jhs
+from cuda_optical_flow_2_tpu.models import tvl1 as jtvl1
 from cuda_optical_flow_2_tpu.parallel import spatial as jspatial
 from cuda_optical_flow_2_tpu.parallel import spatial_models as jspatial_models
 
 import cuda_optical_flow_2_torch as tof
 from cuda_optical_flow_2_torch import parallel
-from cuda_optical_flow_2_torch.interop import hs_config_from_jax, lk_config_from_jax
-from cuda_optical_flow_2_torch.kernels import hs_sweep, lk_step_fused
+from cuda_optical_flow_2_torch.interop import (
+    fb_config_from_jax,
+    hs_config_from_jax,
+    lk_config_from_jax,
+    tvl1_config_from_jax,
+)
+from cuda_optical_flow_2_torch.kernels import (
+    bilateral_tap,
+    fb_step_fused,
+    hs_sweep,
+    lk_fused,
+    lk_step_fused,
+    poly_exp_fused,
+    tvl1_sweep,
+    warp_select,
+)
 from cuda_optical_flow_2_torch.parallel import spatial, spatial_models
 from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
 
 SINGLE_LEVEL_TOL = 1e-4
 LK_PYRAMID_TOL = 5e-3
 HS_TOL = 5e-4
+TVL1_TOL = 5e-4
+FB_TOL = 2e-2
 CPU8 = [torch.device("cpu")] * 8
 
 
@@ -196,6 +221,99 @@ def test_spatial_hs_kernel_path_chunks_sweeps():
     assert calls[-2:] == [(-6, 128, 2), (58, 128, 2)]
 
 
+# --- spatial_pyramidal_tvl1 and spatial_pyramidal_fb ----------------------
+
+
+def _spy(monkeypatch, module, name, record):
+    """Replace ``module.name`` by a wrapper that appends ``record(args, kw)``
+    to the returned list before calling it."""
+    calls, orig = [], getattr(module, name)
+
+    def spy(*args, **kw):
+        calls.append(record(args, kw))
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def test_spatial_pyramidal_tvl1_matches_jax_and_unsharded():
+    """Both port TP paths against JAX's plain TP and the port's unsharded
+    path on eight shards (the warp halo 6 + 8 + 2 fills level 1's 16 rows);
+    the budget (8 px) never binds here, so the unsharded plain path is the
+    same function."""
+    p, n = _pair(256, 48)
+    jcfg = jtvl1.TVL1Config(levels=2, warps=2, iterations=6, use_pallas=False,
+                            max_displacement=8)
+    want = np.asarray(jparallel.spatial_pyramidal_tvl1(_j(p), _j(n), jcfg, _jmesh(), iter_tile=4))
+    for use_pallas in (False, True):
+        cfg = dataclasses.replace(tvl1_config_from_jax(jcfg), use_pallas=use_pallas)
+        got = parallel.spatial_pyramidal_tvl1(_t(p), _t(n), cfg, _mesh(), iter_tile=4)
+        assert tuple(got.shape) == (256, 48, 2)
+        _close(got, want, TVL1_TOL)
+        _close(got, tof.pyramidal_tvl1(_t(p), _t(n), cfg), TVL1_TOL)
+
+
+@pytest.mark.parametrize("gaussian_window", [False, True], ids=["box", "gaussian"])
+def test_spatial_pyramidal_fb_matches_jax_and_unsharded(gaussian_window):
+    """The plain path on eight shards as JAX's; the kernel path on four (the
+    fused band step's halo, 12 + 4 + 2 rows plus the expansion's 3, needs
+    21 rows at level 1); the Gaussian window takes the non-fused level with
+    the band warp."""
+    p, n = _pair(256, 48)
+    jcfg = jfb.FBConfig(levels=2, iterations=2, winsize=11, use_pallas=False,
+                        max_displacement=4, gaussian_window=gaussian_window)
+    want = np.asarray(jparallel.spatial_pyramidal_fb(_j(p), _j(n), jcfg, _jmesh()))
+    for use_pallas, shards in ((False, 8), (True, 4)):
+        cfg = dataclasses.replace(fb_config_from_jax(jcfg), use_pallas=use_pallas)
+        mesh = parallel.make_mesh(axis_name="space", devices=CPU8[:shards])
+        got = parallel.spatial_pyramidal_fb(_t(p), _t(n), cfg, mesh)
+        assert tuple(got.shape) == (256, 48, 2)
+        _close(got, want, FB_TOL)
+        _close(got, tof.pyramidal_farneback(_t(p), _t(n), cfg), FB_TOL)
+        med = np.median(got.numpy()[32:-32, 16:-16], axis=(0, 1))
+        assert abs(med[0] - 2) < 0.1 and abs(med[1] - 1) < 0.1, med
+
+
+def test_spatial_tvl1_kernel_path_chunks_iterations(monkeypatch):
+    """ceil(iterations / iter_tile) tvl1_relax_band chunks per warp, level
+    and shard with an iterations + 2 halo, and one band warp per warp."""
+    p, n = _pair(128, 32)
+    cfg = tof.TVL1Config(levels=2, warps=2, iterations=10, max_displacement=4)
+    chunks = _spy(monkeypatch, tvl1_sweep, "tvl1_relax_band_plain",
+                  lambda a, kw: (a[4], a[5], kw["iterations"]))
+    warps = _spy(monkeypatch, warp_select, "warp_bilinear_select_band_plain", lambda a, kw: a[2])
+    parallel.spatial_pyramidal_tvl1(_t(p), _t(n), cfg,
+                                    parallel.make_mesh(devices=CPU8[:2], axis_name="space"),
+                                    iter_tile=4)
+    # 2 levels x 2 warps x 3 chunks (4, 4, 2) x 2 shards; halo 4 + 2
+    assert len(chunks) == 24 and len(warps) == 8
+    assert [c[2] for c in chunks[:6]] == [4, 4, 4, 4, 2, 2]
+    assert chunks[:2] == [(-6, 64, 4), (26, 64, 4)]
+    assert chunks[-2:] == [(-6, 128, 2), (58, 128, 2)]
+    # the warp band's halo: 6 + 4 + 2
+    assert warps[:2] == [-12, 20]
+
+
+def test_spatial_fb_kernel_path_runs_band_steps(monkeypatch):
+    """One fb_band_step per iteration, level and shard with the fused halo;
+    the prev expansion once per level and shard through kernel #9."""
+    p, n = _pair(128, 32)
+    cfg = tof.FBConfig(levels=2, iterations=3, max_displacement=4)
+    steps = _spy(monkeypatch, fb_step_fused, "fb_band_step_plain", lambda a, kw: (a[3], a[5]))
+    firsts = _spy(monkeypatch, fb_step_fused, "fb_band_step", lambda a, kw: a[6])
+    expansions = _spy(monkeypatch, poly_exp_fused, "poly_expansion_kernel",
+                      lambda a, kw: tuple(a[0].shape))
+    parallel.spatial_pyramidal_fb(_t(p), _t(n), cfg,
+                                  parallel.make_mesh(devices=CPU8[:2], axis_name="space"))
+    assert len(steps) == 2 * 3 * 2
+    assert steps[:2] == [(-18, 64), (14, 64)] and steps[-2:] == [(-18, 128), (46, 128)]
+    assert firsts == [True, True] + [False] * 10
+    # level 1 (32 x 16 per shard) and level 0 (64 x 32), each with 18 + 3
+    # halo rows
+    assert expansions == [(74, 16)] * 2 + [(106, 32)] * 2
+
+
 # --- model-generic entry points -----------------------------------------
 
 
@@ -215,6 +333,30 @@ def test_spatial_pyramidal_flow_dispatch():
         parallel.spatial_pyramidal_lk(_t(p), _t(n), lk_cfg, _mesh()), rtol=0, atol=0)
 
 
+def test_spatial_and_grid_flow_take_iter_tile():
+    """The generic entries reach TV-L1 and FB with iter_tile, as the
+    direct ones do, and grid_pyramidal_flow matches JAX's for TV-L1."""
+    p, n = _pair(256, 48)
+    tv_j = jtvl1.TVL1Config(levels=2, warps=1, iterations=6, use_pallas=False,
+                            max_displacement=8)
+    tv = tvl1_config_from_jax(tv_j)
+    fbc = tof.FBConfig(levels=2, iterations=1, max_displacement=4, use_pallas=False)
+    mesh = _mesh()
+    torch.testing.assert_close(
+        parallel.spatial_pyramidal_flow(_t(p), _t(n), tv, mesh, iter_tile=3),
+        parallel.spatial_pyramidal_tvl1(_t(p), _t(n), tv, mesh, iter_tile=3), rtol=0, atol=0)
+    torch.testing.assert_close(
+        parallel.spatial_pyramidal_flow(_t(p), _t(n), fbc, mesh),
+        parallel.spatial_pyramidal_fb(_t(p), _t(n), fbc, mesh), rtol=0, atol=0)
+    pb, nb = np.stack([p, n]), np.stack([n, p])
+    jmesh = JMesh(np.asarray(jax.devices()).reshape(2, 4), ("batch", "space"))
+    want = np.asarray(jparallel.grid_pyramidal_flow(_j(pb), _j(nb), tv_j, jmesh, iter_tile=3))
+    gmesh = parallel.Mesh([CPU8[:4], CPU8[4:]], ("batch", "space"))
+    got = parallel.grid_pyramidal_flow(_t(pb), _t(nb), tv, gmesh, iter_tile=3)
+    assert tuple(got.shape) == (2, 256, 48, 2)
+    _close(got, want, TVL1_TOL)
+
+
 def test_grid_pyramidal_flow_matches_jax():
     p, n = _pair(256, 48)
     pb, nb = np.stack([p, p * 0.5]), np.stack([n, n * 0.5])
@@ -228,11 +370,11 @@ def test_grid_pyramidal_flow_matches_jax():
     _close(got, want, HS_TOL)
 
 
-@pytest.mark.parametrize("family", ["FBConfig", "TVL1Config", "DISConfig"])
+@pytest.mark.parametrize("family", ["DISConfig"])
 def test_unported_families_raise(family):
     cfg = getattr(tof, family)(levels=2)
     x = torch.zeros(64, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1\\)"):
         parallel.spatial_pyramidal_flow(x, x, cfg, _mesh())
     mesh = parallel.Mesh([CPU8[:4], CPU8[4:]], ("batch", "space"))
     with pytest.raises(NotImplementedError, match=family):
@@ -288,6 +430,90 @@ def test_validate_spatial_hs_messages_match_jax(h, w, kw, tile):
     jcfg = jhs.HSConfig(use_pallas=False, **kw)
     _messages(spatial_models.validate_spatial_hs, jspatial_models.validate_spatial_hs,
               (h, w, hs_config_from_jax(jcfg), 8, tile), (h, w, jcfg, 8, tile))
+
+
+@pytest.mark.parametrize(
+    "h,w,kw,tile",
+    [
+        (100, 64, dict(levels=2), 8),  # H not divisible by 8 * 2
+        (256, 64, dict(levels=2), 8),  # 16 rows per shard at level 1, need 44
+        (512, 64, dict(levels=1, max_displacement=2, median_filtering=135), 8),  # median halo
+    ],
+    ids=["rows", "halo", "median_halo"],
+)
+def test_validate_spatial_tvl1_messages_match_jax(h, w, kw, tile):
+    jcfg = jtvl1.TVL1Config(use_pallas=False, **kw)
+    _messages(spatial_models.validate_spatial_tvl1, jspatial_models.validate_spatial_tvl1,
+              (h, w, tvl1_config_from_jax(jcfg), 8, tile), (h, w, jcfg, 8, tile))
+
+
+@pytest.mark.parametrize(
+    "h,w,kw",
+    [
+        (100, 64, dict(levels=2)),  # H not divisible by 8 * 2
+        (256, 64, dict(levels=2)),  # the warp halo at level 1
+        (128, 64, dict(levels=1, iterations=1, winsize=33)),  # a coarsest level that never warps
+        (256, 64, dict(levels=2, warp_planes="coeff")),
+    ],
+    ids=["rows", "halo", "coarsest", "coeff"],
+)
+def test_validate_spatial_fb_messages_match_jax(h, w, kw):
+    jcfg = jfb.FBConfig(use_pallas=False, **kw)
+    _messages(spatial_models.validate_spatial_fb, jspatial_models.validate_spatial_fb,
+              (h, w, fb_config_from_jax(jcfg), 8), (h, w, jcfg, 8))
+
+
+# --- the window-limit dispatch --------------------------------------------
+
+
+def _kernel_calls(monkeypatch):
+    """Spies on the wrappers of the LK and bilateral kernels: the names of
+    those the code under test called."""
+    called = []
+    for module, name in ((lk_fused, "lk_residual"), (lk_step_fused, "lk_level_step"),
+                         (lk_step_fused, "lk_band_step"), (bilateral_tap, "bilateral_kernel"),
+                         (bilateral_tap, "bilateral_kernel_band")):
+        _spy(monkeypatch, module, name, lambda a, kw, name=name: called.append(name))
+    return called
+
+
+@pytest.mark.parametrize(
+    "kw,called",
+    [
+        (dict(), {"lk_residual", "lk_level_step"}),
+        (dict(window=67), set()),
+        (dict(prefilter=tof.BilateralConfig()), {"bilateral_kernel", "lk_residual",
+                                                 "lk_level_step"}),
+        (dict(prefilter=tof.BilateralConfig(window=33)), {"lk_residual", "lk_level_step"}),
+    ],
+    ids=["default", "lk_window_67", "bilateral", "bilateral_window_33"],
+)
+def test_window_limit_dispatch_lk(monkeypatch, kw, called):
+    """Past the CUDA kernels' window limits (65 for LK, 31 for the
+    bilateral) pyramidal_lk and the LK TP level take the plain composition,
+    as the JAX package takes its XLA twin; within them the kernels."""
+    p, n = _pair(128, 32)
+    cfg = tof.LKConfig(levels=2, max_displacement=4, **{"window": 9, **kw})
+    calls = _kernel_calls(monkeypatch)
+    flow = tof.pyramidal_lk(_t(p), _t(n), cfg)
+    assert set(calls) == called
+    plain = tof.pyramidal_lk(_t(p), _t(n), dataclasses.replace(cfg, use_pallas=False))
+    _close(flow, plain, LK_PYRAMID_TOL)
+    calls.clear()
+    parallel.spatial_pyramidal_lk(_t(p), _t(n), cfg,
+                                  parallel.make_mesh(devices=CPU8[:1], axis_name="space"))
+    band = {"lk_band_step"} if "lk_level_step" in called else set()
+    band |= {"bilateral_kernel_band"} if "bilateral_kernel" in called else set()
+    assert set(calls) == band
+
+
+@pytest.mark.parametrize("window,called", [(9, True), (67, False)], ids=["default", "window_67"])
+def test_window_limit_dispatch_dis(monkeypatch, window, called):
+    p, n = _pair(64, 32)
+    cfg = tof.DISConfig(levels=2, window=window, refine_iterations=2)
+    calls = _kernel_calls(monkeypatch)
+    tof.pyramidal_dis(_t(p), _t(n), cfg)
+    assert set(calls) == ({"lk_residual", "lk_level_step"} if called else set())
 
 
 # --- the mesh and batch sharding ------------------------------------------

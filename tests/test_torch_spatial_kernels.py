@@ -2,10 +2,11 @@
 
 ``parallel.spatial.halo_exchange``, the plain band ops
 (``ops.warp.warp_bilinear_band``, ``ops.bilateral.bilateral_filter_band``)
-and the plain versions of the four band kernels (``lk_band_step`` in both
+and the plain versions of the six band kernels (``lk_band_step`` in both
 modes, ``warp_bilinear_select_band``, ``bilateral_kernel_band``,
-``hs_relax_band`` quadratic and Charbonnier), which the wrappers take for
-CPU tensors.  Each band is cut as ``parallel/spatial.py`` cuts a shard's:
+``hs_relax_band`` quadratic and Charbonnier, ``tvl1_relax_band`` with
+carried duals, ``fb_band_step`` first and warm), which the wrappers take
+for CPU tensors.  Each band is cut as ``parallel/spatial.py`` cuts a shard's:
 the kept rows plus a halo, zero-filled beyond the image, so ``row0`` is
 negative on the top band; an interior band and both global edges are held.
 The CUDA kernels are held to these plain versions on the card by
@@ -17,7 +18,10 @@ global-row floor and fraction); the bilateral band 1e-4 on intensities
 between the two libraries); the band kernels 2e-4 for flow and 1e-4 for
 intensities, as tests/test_torch_kernels.py holds the whole-image kernels;
 the band forms at ``row0 = 0, h_global = H`` bit-equal to the whole-image
-plain versions, whose arithmetic they repeat.
+plain versions, whose arithmetic they repeat.  ``tvl1_relax_band``: 1e-4 px
+against the Pallas band kernel, which folds ``u0`` into the residual before
+the iterations (another rounding order) and rounds ``sqrt`` and division as
+XLA does (4.2e-5 px seen here).
 """
 
 import numpy as np
@@ -28,19 +32,31 @@ import jax.numpy as jnp
 
 import cuda_optical_flow_2_tpu as jof
 from cuda_optical_flow_2_tpu.kernels import bilateral_tap as jbilateral_tap
+from cuda_optical_flow_2_tpu.kernels import fb_step_fused as jfb_step_fused
 from cuda_optical_flow_2_tpu.kernels import hs_sweep as jhs_sweep
+from cuda_optical_flow_2_tpu.kernels import tvl1_sweep as jtvl1_sweep
 from cuda_optical_flow_2_tpu.kernels import lk_step_fused as jlk_step_fused
 from cuda_optical_flow_2_tpu.kernels import warp_select as jwarp_select
 from cuda_optical_flow_2_tpu.ops import bilateral as jbilateral
 from cuda_optical_flow_2_tpu.ops import warp as jwarp
 
-from cuda_optical_flow_2_torch.interop import lk_config_from_jax
-from cuda_optical_flow_2_torch.kernels import bilateral_tap, hs_sweep, lk_step_fused, warp_select
+from cuda_optical_flow_2_torch.interop import fb_config_from_jax, lk_config_from_jax
+from cuda_optical_flow_2_torch.kernels import (
+    bilateral_tap,
+    fb_step_fused,
+    hs_sweep,
+    lk_step_fused,
+    poly_exp_fused,
+    tvl1_sweep,
+    warp_select,
+)
 from cuda_optical_flow_2_torch.ops import bilateral, warp
 from cuda_optical_flow_2_torch.parallel.spatial import halo_exchange
 
 FLOW_TOL = 2e-4
 IMG_TOL = 1e-4
+TVL1_BAND_TOL = 1e-4
+TVL1_KW = dict(lambda_=0.15, theta=0.3, tau=0.25, eps=1e-6)
 H, W = 64, 48
 # (lo, hi) kept rows: the top edge, an interior band, the bottom edge
 BANDS = [(0, 24), (20, 44), (40, 64)]
@@ -209,6 +225,54 @@ def test_hs_relax_band_matches_pallas_interpret(robust):
         _close(got.numpy()[keep], np.asarray(want)[keep], FLOW_TOL)
 
 
+def _tvl1_state(seed):
+    """A warm six-plane state: a smooth flow and small nonzero duals."""
+    _, _, flow = _frames(seed)
+    rng = np.random.default_rng(seed + 100)
+    duals = [rng.normal(0, 0.05, (H, W)).astype(np.float32) for _ in range(4)]
+    return [flow[..., 0] * 0.5, flow[..., 1] * 0.5] + duals
+
+
+def test_tvl1_relax_band_matches_pallas_interpret():
+    """One chunk of 8 iterations with carried duals, halo iterations + 2 as
+    the TP level exchanges; the warp point is the smooth flow."""
+    prev, warped, flow = _frames(10)
+    state = _tvl1_state(10)
+    halo = 8 + 2
+    for lo, hi in BANDS:
+        pb, wb, fb = (_band(x, lo, hi, halo) for x in (prev, warped, flow))
+        sb = [_band(x, lo, hi, halo) for x in state]
+        got = tvl1_sweep.tvl1_relax_band(_t(pb), _t(wb), _t(fb), tuple(_t(x) for x in sb),
+                                         lo - halo, H, iterations=8, **TVL1_KW)
+        want = jtvl1_sweep.tvl1_relax_band(_j(pb), _j(wb), _j(fb), tuple(_j(x) for x in sb),
+                                           lo - halo, H, iterations=8, interpret=True, **TVL1_KW)
+        keep = slice(halo, halo + hi - lo)
+        assert len(got) == 6
+        for g, w_ in zip(got, want):
+            _close(g.numpy()[keep], np.asarray(w_)[keep], TVL1_BAND_TOL)
+
+
+@pytest.mark.parametrize("first", [True, False], ids=["first", "warm"])
+def test_fb_band_step_matches_pallas_interpret(first):
+    """Halo band_margin + d + 2, as the fused TP level exchanges; the prev
+    expansion is of the whole frame, cut into the band."""
+    prev, nxt, flow = _frames(11)
+    jcfg = jof.FBConfig(max_displacement=4)
+    cfg = fb_config_from_jax(jcfg)
+    exp1 = [x.numpy() for x in poly_exp_fused.poly_expansion_plain(_t(prev), 7, 1.5)]
+    halo = fb_step_fused.band_margin(cfg) + 4 + 2
+    assert halo == jfb_step_fused.band_margin(jcfg) + 4 + 2 == 18
+    for lo, hi in BANDS:
+        nb, fb = _band(nxt, lo, hi, halo), _band(flow, lo, hi, halo)
+        eb = [_band(x, lo, hi, halo) for x in exp1]
+        got = fb_step_fused.fb_band_step(_t(nb), tuple(_t(x) for x in eb), _t(fb), lo - halo,
+                                         cfg, H, first)
+        want = jfb_step_fused.fb_band_step(_j(nb), tuple(_j(x) for x in eb), _j(fb), lo - halo,
+                                           jcfg, H, first=first, interpret=True)
+        keep = slice(halo, halo + hi - lo)
+        _close(got.numpy()[keep], np.asarray(want)[keep], FLOW_TOL)
+
+
 # --- band forms at (0, H) are the whole-image plain versions -------------
 
 
@@ -243,6 +307,32 @@ def test_hs_relax_band_whole_band_is_relax(robust, offset):
     torch.testing.assert_close(
         hs_sweep.hs_relax_band_plain(prev, nxt, flow * 0.1, 0, H, sweeps=16, **kw),
         hs_sweep.hs_relax_plain(prev, nxt, flow * 0.1, iterations=16, **kw), rtol=0, atol=0,
+    )
+
+
+def test_tvl1_relax_band_whole_band_is_relax():
+    """Zero duals at (0, H): the whole-image scan, and the chunk keeps the
+    duals it ends with."""
+    prev, warped, flow = (_t(x) for x in _frames(12))
+    zero = torch.zeros(H, W)
+    out = tvl1_sweep.tvl1_relax_band_plain(prev, warped, flow, (flow[..., 0], flow[..., 1]) +
+                                           (zero,) * 4, 0, H, iterations=14, **TVL1_KW)
+    torch.testing.assert_close(
+        torch.stack(out[:2], -1),
+        tvl1_sweep.tvl1_relax_plain(prev, warped, flow, flow, iterations=14, **TVL1_KW),
+        rtol=0, atol=0,
+    )
+    assert all(bool(d.abs().sum() > 0) for d in out[2:])
+
+
+@pytest.mark.parametrize("first", [True, False], ids=["first", "warm"])
+def test_fb_band_step_whole_band_is_level_step(first):
+    prev, nxt, flow = (_t(x) for x in _frames(13))
+    cfg = fb_config_from_jax(jof.FBConfig(max_displacement=3, winsize=11))
+    exp1 = poly_exp_fused.poly_expansion_plain(prev, 7, 1.5)
+    torch.testing.assert_close(
+        fb_step_fused.fb_band_step_plain(nxt, exp1, flow, 0, cfg, H, first),
+        fb_step_fused.fb_level_step_plain(nxt, exp1, flow, cfg, first), rtol=0, atol=0,
     )
 
 
@@ -283,3 +373,31 @@ def test_band_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="one chunk"):
         hs_sweep.hs_relax_band(meta, meta, None, 0, 16, sweeps=hs_sweep.MAX_SWEEPS + 1,
                                alpha=8.0, temporal_kernel="gauss3")
+
+
+def test_tvl1_and_fb_band_wrappers_take_plain_on_cpu_and_raise_off_it():
+    prev, nxt, flow = (_t(x) for x in _frames(14))
+    state = tuple(_t(x) for x in _tvl1_state(14))
+    cfg = fb_config_from_jax(jof.FBConfig(max_displacement=4))
+    exp1 = poly_exp_fused.poly_expansion_plain(prev, 7, 1.5)
+    before = (tvl1_sweep.tvl1_relax_band.launches, fb_step_fused.fb_band_step.launches)
+    kw = dict(iterations=5, **TVL1_KW)
+    for g, w_ in zip(tvl1_sweep.tvl1_relax_band(prev, nxt, flow, state, -4, 60, **kw),
+                     tvl1_sweep.tvl1_relax_band_plain(prev, nxt, flow, state, -4, 60, **kw)):
+        torch.testing.assert_close(g, w_, rtol=0, atol=0)
+    torch.testing.assert_close(fb_step_fused.fb_band_step(nxt, exp1, flow, 7, cfg, 90),
+                               fb_step_fused.fb_band_step_plain(nxt, exp1, flow, 7, cfg, 90),
+                               rtol=0, atol=0)
+    assert (tvl1_sweep.tvl1_relax_band.launches, fb_step_fused.fb_band_step.launches) == before
+    meta = torch.empty(16, 16, device="meta")
+    meta_flow = torch.empty(16, 16, 2, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tvl1_sweep.tvl1_relax_band(meta, meta, meta_flow, (meta,) * 6, 0, 16, **kw)
+    with pytest.raises(ValueError, match="one chunk"):
+        tvl1_sweep.tvl1_relax_band(meta, meta, meta_flow, (meta,) * 6, 0, 16,
+                                   iterations=tvl1_sweep.MAX_ITERS + 1, **TVL1_KW)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fb_step_fused.fb_band_step(meta, (meta,) * 5, meta_flow, 0, cfg, 16)
+    with pytest.raises(ValueError, match="box window"):
+        fb_step_fused.fb_band_step(meta, (meta,) * 5, meta_flow, 0,
+                                   fb_config_from_jax(jof.FBConfig(gaussian_window=True)), 16)

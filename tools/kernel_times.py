@@ -5,9 +5,10 @@
 ROOT is the root of a checkout of this repo (its ``chip_smoke.py`` and
 ``cuda_optical_flow_2_torch`` are imported from there).  It builds that
 checkout's kernels and times ``lk_level_step`` (``PAPER_1080P``),
-``warp_bilinear_select``, ``bilateral_kernel`` (9x9, the stacked pair) and
-``hs_relax`` (100 sweeps, quadratic and Charbonnier) at 1080x1920 with CUDA
-events, the shapes of ``chip_smoke.py``'s phase 9.  To compare two checkouts, run it on both on one
+``warp_bilinear_select``, ``bilateral_kernel`` (9x9, the stacked pair),
+``hs_relax`` (100 sweeps, quadratic and Charbonnier), ``tvl1_relax`` (14
+iterations, warm) and ``fb_level_step`` (``FBConfig()``, warm) at 1080x1920
+with CUDA events, the shapes of ``chip_smoke.py``'s phase 9.  To compare two checkouts, run it on both on one
 card, one after the other in one command, in the order parent, change,
 change, parent.
 """
@@ -27,8 +28,11 @@ def main() -> int:
     from cuda_optical_flow_2_torch.kernels import (
         _build,
         bilateral_tap,
+        fb_step_fused,
         hs_sweep,
         lk_step_fused,
+        poly_exp_fused,
+        tvl1_sweep,
         warp_select,
     )
 
@@ -36,6 +40,10 @@ def main() -> int:
     _build.library()
     p0, n0, f0 = (torch.as_tensor(a, device=dev) for a in cs.textured_pair(1080, 1920, seed=7))
     pair = torch.stack([p0, n0])
+    w0 = warp_select.warp_bilinear_select_plain(n0, f0)
+    exp0 = poly_exp_fused.poly_expansion_plain(p0, 7, 1.5)
+    tv = of.TVL1Config()
+    tvl1_kw = dict(iterations=14, lambda_=tv.lambda_, theta=tv.theta, tau=tv.tau, eps=tv.epsilon)
     cases = (
         ("lk_level_step", lambda: lk_step_fused.lk_level_step(p0, n0, f0, of.PAPER_1080P), 30, 10),
         ("warp_bilinear_select", lambda: warp_select.warp_bilinear_select(p0, f0, 32), 30, 10),
@@ -45,6 +53,8 @@ def main() -> int:
         ("hs_relax charbonnier", lambda: hs_sweep.hs_relax(
             p0, n0, None, iterations=100, alpha=10.0, temporal_kernel="gauss3",
             robust=(3.0, 0.1)), 10, 1),
+        ("tvl1_relax", lambda: tvl1_sweep.tvl1_relax(p0, w0, f0, f0, **tvl1_kw), 10, 1),
+        ("fb_level_step", lambda: fb_step_fused.fb_level_step(n0, exp0, f0, of.FBConfig()), 30, 10),
     )
     out = {name: cs.cuda_ms(fn, reps, inner=inner) for name, fn, reps, inner in cases}
     print(json.dumps({"tree": root.name, **out}))
