@@ -11,7 +11,8 @@ then, in order:
    turns TF32 off for cuDNN and matmul;
 2. build: compiles the kernels and prints the build time;
 3. kernels: each kernel against its plain PyTorch version at the paths'
-   level-0 shapes (1080x1920 and 480x640);
+   level-0 shapes (1080x1920 and 480x640); ``lk_level_step``'s ``flow_half``
+   mode bit-equal to the step on ``upsample_flow`` of the coarser flow;
 4. path ``PAPER_1080P``: ``pyramidal_lk`` on a 1080x1920 pair translating at
    (2, 1) px, against the plain path (``use_pallas=False``, the same plain
    ops without the budget clamp, which (2, 1) never reaches);
@@ -62,6 +63,16 @@ then, in order:
    bilateral prefilter at 480x640, past the CUDA kernels' limits, take the
    plain composition for that stage (no launch of the kernel) and are held
    against the plain path;
+8i. ``fused_half_upsample=True``: ``PAPER_1080P`` and ``DISConfig()`` at
+   1080x1920 bit-equal to the flag off, with the (2, 1) checks and
+   ``flow_half`` on 3 of their level steps, and a warm LK stream
+   (``levels=3``) over phase 6's frames bit-equal to the flag off;
+8j. spatial TP for DIS at 2160x3840: ``DISConfig(levels=4)`` and its
+   Charbonnier form on 3 shards (``DISConfig()`` does not fit 3 shards at
+   4K: level 4 holds 45 rows per shard against a halo of 46),
+   ``DISConfig()`` and ``DIS_REALTIME`` on 1 shard, each against the
+   unsharded kernel path and the translation, launch counts checked against
+   the predicted ones;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K), each kernel, its plain version and, where one PyTorch call
    computes the same function, that call; the median filter (plain
@@ -73,8 +84,9 @@ Each phase prints one line per check; any failed check raises and the
 script exits non-zero.  The launch counters are zeroed just before each path
 (phases 4-8f) and read just after it: every kernel must launch on the paths
 that use it.  The line before the last is a JSON object with each kernel's
-numbers, the centered (DIS) modes of ``lk_residual`` and ``lk_level_step``
-as entries of their own (``launches`` is its sum over the path runs, ``bound_ms`` the least
+numbers, the centered (DIS) modes of ``lk_residual``, ``lk_level_step`` and
+``lk_band_step`` and the ``flow_half`` mode of ``lk_level_step`` as entries
+of their own (``launches`` is its sum over the path runs, ``bound_ms`` the least
 time the card could take for the timed call's work: the larger of its bytes
 over the memory rate and its operations over the peak rate of their kind);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -148,9 +160,12 @@ KERNELS = [
      "cuda_optical_flow_2_torch/csrc/fb_step.cu",
      "cuda_optical_flow_2_tpu/kernels/fb_step_fused.py:271"),
 ]
-# The DIS (centered=True) mode of two of them, an entry of its own in the
+# The DIS (centered=True) mode of three of them, an entry of its own in the
 # kernels line: launches from the wrappers' ``launches_centered``.
-CENTERED = ["lk_residual", "lk_level_step"]
+CENTERED = ["lk_residual", "lk_level_step", "lk_band_step"]
+# lk_level_step's in-kernel 2x flow upsample, an entry of its own:
+# launches from ``lk_level_step.launches_half``.
+HALF = "lk_level_step flow_half"
 
 WARP_MAX_ERR = 1e-3      # intensities 0-255: float order of four taps
 PYR_MAX_ERR = 1e-4       # intensities 0-255: 9-tap sum against separable slices
@@ -321,6 +336,10 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
         sfu = float(px) if centered else 0.0
         if name == "lk_residual":
             return 16.0 * px, float(ops * px), sfu
+        if kw.get("flow_half"):
+            # the flow read at a quarter size (2 bytes per pixel), upsampled:
+            # per channel three 0.75/0.25 blends (3 each) and the doubling
+            return 18.0 * px, float((ops + 23 + 20) * px), sfu
         # + clamp (4), sample coordinates (2), bilinear weights and taps (15), accumulate (2)
         return 24.0 * px, float((ops + 23) * px), sfu
     if name in ("tvl1_relax", "tvl1_relax_band"):
@@ -464,6 +483,7 @@ def main() -> int:
     from cuda_optical_flow_2_torch.models.farneback import fb_normal_eq_products
     from cuda_optical_flow_2_torch.ops.median import median_filter
     from cuda_optical_flow_2_torch.ops.poly_exp import gaussian_1d, mixing_matrix
+    from cuda_optical_flow_2_torch.ops.resize import upsample_flow
     from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
 
     mods = {"lk_fused": lk_fused, "lk_step_fused": lk_step_fused, "warp_select": warp_select,
@@ -494,7 +514,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions on the card
     max_err = {name: 0.0 for name, *_ in KERNELS} | {f"{n} centered": 0.0 for n in CENTERED}
-    max_err["lk_band_step centered"] = 0.0  # checked in 8f; first used by DIS TP
+    max_err |= {HALF: 0.0, f"{HALF} centered": 0.0}
 
     def check(name, got, want, h, w, label=""):
         torch.cuda.synchronize()
@@ -521,6 +541,8 @@ def main() -> int:
                         "lk_level_step centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
                         "lk_band_step": (LK_MEDIAN_ERR, LK_P999_ERR),
                         "lk_band_step centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
+                        HALF: (LK_MEDIAN_ERR, LK_P999_ERR),
+                        f"{HALF} centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
                         "hs_relax_band": (HS_MEDIAN_ERR, HS_P999_ERR),
                         "tvl1_relax": (TVL1_MEDIAN_ERR, TVL1_P999_ERR),
                         "tvl1_relax_band": (TVL1_MEDIAN_ERR, TVL1_P999_ERR),
@@ -573,6 +595,31 @@ def main() -> int:
               "9x9 box"),
     ]
     print("phase 3 kernels 1080x1920 TV-L1 and DIS: " + "; ".join(parts))
+    # lk_level_step flow_half: the coarser level's flow (half the textured
+    # pair's, in its own pixel units), upsampled in the kernel, must give the
+    # bits of the step on upsample_flow of it, and stay within the step's
+    # limits of the plain version
+    parts = []
+    for (b, h, w), cfg, centered, label in (
+        ((1, 1080, 1920), of.PAPER_1080P, False, "15x15 tri"),
+        ((1, 1080, 1920), dis_lk, True, "9x9 box centered"),
+        ((2, 540, 960), of.PAPER_1080P, False, "15x15 tri batch 2"),
+    ):
+        trip = [textured_pair(h, w, seed=h + 2 + i) for i in range(b)]
+        p, n, half = (cuda(np.stack([t[j] if j < 2 else t[2][::2, ::2] * 0.5 for t in trip]))
+                      for j in range(3))
+        if b == 1:
+            p, n, half = p[0], n[0], half[0]
+        got = lk_step_fused.lk_level_step(p, n, half, cfg, centered, flow_half=True)
+        full = lk_step_fused.lk_level_step(p, n, upsample_flow(half, (h, w)), cfg, centered)
+        torch.cuda.synchronize()
+        bits = float((got - full).abs().max())
+        require(bits == 0.0, f"{HALF} {label} {b}x{h}x{w}: max |d| {bits} from the step on "
+                             "upsample_flow, expected bit-equal")
+        plain = lk_step_fused.lk_level_step_plain(p, n, half, cfg, centered, flow_half=True)
+        parts.append(check(f"{HALF} centered" if centered else HALF, got, plain, h, w,
+                           f"{label} {b}x{h}x{w}, bit-equal to upsample_flow + step"))
+    print("phase 3 kernels lk_level_step flow_half: " + "; ".join(parts))
     rng = np.random.default_rng(3)
     for h, w in ((1080, 1920), (480, 640)):
         p, n, f = (cuda(a) for a in textured_pair(h, w, seed=h + 1))
@@ -643,10 +690,12 @@ def main() -> int:
             wrapper.launches = 0
         for name in CENTERED:
             wrappers[name].launches_centered = 0
+        lk_step_fused.lk_level_step.launches_half = 0
         out = fn()
         torch.cuda.synchronize()
         counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
         counts |= {f"{name} centered": wrappers[name].launches_centered for name in CENTERED}
+        counts[HALF] = lk_step_fused.lk_level_step.launches_half
         for name in needs:
             require(counts[name] > 0, f"path {label} did not launch {name}: {counts}")
         path_launches[label] = counts
@@ -1155,6 +1204,102 @@ def main() -> int:
               f"path median {e['median']:.3g} p99 {e['p99']:.3g} max {e['max']:.3g}; launches "
               f"{counts}")
 
+    # 8i. fused_half_upsample=True at 1080x1920: the first step of levels 2,
+    # 1 and 0 takes the coarser flow (level 3 has an odd height), bit-equal to
+    # the flag off; the launches as predicted in PERF.md
+    half_paths = {
+        "PAPER_1080P": (of.PAPER_1080P, of.pyramidal_lk, (prev, nxt),
+                        {"pyr_down": 4, "lk_residual": 1, "lk_level_step": 4, HALF: 3}),
+        "DISConfig()": (of.DISConfig(), of.pyramidal_dis, (tp, tn), full | {HALF: 3}),
+    }
+    for label, (cfg, entry, frames_, expect) in half_paths.items():
+        on_cfg = dataclasses.replace(cfg, fused_half_upsample=True)
+        flow, counts = run_path(f"{label} fused_half_upsample", lambda: entry(*frames_, on_cfg),
+                                tuple(expect))
+        require(counts == expect, f"{label} fused_half_upsample launches {counts}, predicted "
+                                  f"{expect}")
+        bits = float((flow - entry(*frames_, cfg)).abs().max())
+        require(bits == 0.0, f"{label} fused_half_upsample: max |d| {bits} from the flag off")
+        e = err_stats(flow, entry(*frames_, dataclasses.replace(cfg, use_pallas=False)))
+        require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
+                f"{label} fused_half_upsample kernel path vs plain path: {e}")
+        m = inner_median(flow)
+        epe = float((flow[64:-64, 64:-64] - flow.new_tensor([2.0, 1.0])).norm(dim=-1).mean())
+        if entry is of.pyramidal_lk:
+            require(abs(m[0] - 2.0) <= TRANSLATION_TOL and abs(m[1] - 1.0) <= TRANSLATION_TOL,
+                    f"{label} fused_half_upsample inner median flow {m}, expected (2, 1)")
+        else:
+            require(epe < DIS_EPE_TOL, f"{label} fused_half_upsample inner EPE {epe}")
+        print(f"phase 8i {entry.__name__} {label} fused_half_upsample=True 1080x1920 period 48: "
+              f"bit-equal to the flag off; inner EPE {epe:.4f}, median flow ({m[0]:.4f}, "
+              f"{m[1]:.4f}); vs plain path median {e['median']:.3g} p99 {e['p99']:.3g}; launches "
+              f"{counts} (as predicted)")
+    # the warm LK stream over phase 6's frames, three levels: every pair runs
+    # levels 1 and 0 with the coarser flow (a warm start enters level 2 at
+    # its own resolution, a cold pair solves it without a step)
+    stream_cfg = of.LKConfig(levels=3, window=15)
+
+    def stream(cfg):
+        return dict(of.process_sequence((None if f is None else cuda(f) for f in frames), cfg,
+                                        warm_start=True, recovery=recovery))
+
+    flows, counts = run_path("LK serving levels=3 fused_half_upsample", lambda: stream(
+        dataclasses.replace(stream_cfg, fused_half_upsample=True)), ("lk_level_step", HALF))
+    flows_off = stream(stream_cfg)
+    require(sorted(flows) == sorted(flows_off) == [1, 2, 3, 4, 5, 6],
+            f"fused_half_upsample stream yielded {sorted(flows)}")
+    bits = max(float((flows[i] - flows_off[i]).abs().max()) for i in flows)
+    require(bits == 0.0, f"fused_half_upsample stream: max |d| {bits} from the flag off")
+    require(counts[HALF] == 2 * len(flows),
+            f"fused_half_upsample stream: {counts[HALF]} flow_half launches for {len(flows)} "
+            "pairs, predicted 2 per pair")
+    m3 = inner_median(flows[3])
+    print(f"phase 8i LK serving loop levels=3 fused_half_upsample=True warm + "
+          f"RecoveryConfig(levels=3), 8 frames 1080x1920: bit-equal to the flag off over "
+          f"{sorted(flows)}; warm median flow at 3 ({m3[0]:.4f}, {m3[1]:.4f}); launches {counts}")
+
+    # 8j. spatial TP for DIS at 2160x3840: DISConfig() needs 46 halo rows per
+    # shard and its level 4 holds 45 on 3 shards, so 3 shards run four levels
+    dis4 = of.DISConfig(levels=4)
+    dis4_cb = of.DISConfig(levels=4, refine_penalty="charbonnier", refine_alpha=40.0)
+    tp_dis = {
+        "DISConfig(levels=4) 3 shards": (dis4, mesh3, {
+            "pyr_down": 9, "lk_band_step": 24, "lk_band_step centered": 24,
+            "warp_bilinear_select_band": 12, "hs_relax_band": 12}),
+        "DISConfig(levels=4) charbonnier 3 shards": (dis4_cb, mesh3, {
+            "pyr_down": 9, "lk_band_step": 24, "lk_band_step centered": 24,
+            "warp_bilinear_select_band": 12, "hs_relax_band": 12}),
+        "DISConfig() 1 shard": (of.DISConfig(), mesh1, {
+            "pyr_down": 4, "lk_band_step": 10, "lk_band_step centered": 10,
+            "warp_bilinear_select_band": 5, "hs_relax_band": 5}),
+        "DIS_REALTIME 1 shard": (of.DIS_REALTIME, mesh1, {
+            "pyr_down": 4, "lk_band_step": 8, "lk_band_step centered": 8,
+            "warp_bilinear_select_band": 4, "hs_relax_band": 4}),
+    }
+    for label, (cfg, mesh, expect) in tp_dis.items():
+        flow, counts = run_path(f"TP DIS {label}",
+                                lambda: parallel.spatial_pyramidal_dis(up, un, cfg, mesh),
+                                tuple(expect))
+        require(counts == expect, f"TP DIS {label} launches {counts}, predicted {expect}")
+        require(tuple(flow.shape) == (uh, uw, 2) and flow.device == dev,
+                f"TP DIS {label} flow {tuple(flow.shape)} on {flow.device}")
+        whole = of.pyramidal_dis(up, un, cfg)
+        e = err_stats(flow, whole)
+        require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
+                f"TP DIS {label} vs unsharded kernel path: {e}")
+        m = inner_median(flow)
+        epe = float((flow[64:-64, 64:-64] - flow.new_tensor([2.0, 1.0])).norm(dim=-1).mean())
+        if cfg.finest_level:
+            require(abs(m[0] - 2.0) <= PRESET_TRANSLATION_TOL
+                    and abs(m[1] - 1.0) <= PRESET_TRANSLATION_TOL,
+                    f"TP DIS {label} inner median flow {m}, expected (2, 1)")
+        else:
+            require(epe < DIS_EPE_TOL, f"TP DIS {label} inner EPE {epe}")
+        print(f"phase 8j TP spatial_pyramidal_dis {label} {uh}x{uw} on one card: inner EPE "
+              f"{epe:.4f}, median flow ({m[0]:.4f}, {m[1]:.4f}); vs unsharded median "
+              f"{e['median']:.3g} p99 {e['p99']:.3g} p99.9 {e['p999']:.3g} max {e['max']:.3g}; "
+              f"launches {counts} (as predicted)")
+
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
     for name, n_launch in launches.items():
@@ -1188,6 +1333,12 @@ def main() -> int:
             (lambda c=c: of.pyramidal_dis(tp, tn, c)),
             (lambda c=c: of.pyramidal_dis(tp, tn, dataclasses.replace(c, use_pallas=False))), 10)
            for label, c in dis_cfgs.items()},
+        # the in-kernel upsample beside the flag off (the rows above)
+        **{f"{entry.__name__} {label} fused_half_upsample 1080x1920": (
+            (lambda c=c, g=entry, a=a: g(*a, dataclasses.replace(c, fused_half_upsample=True))),
+            (lambda c=c, g=entry, a=a: g(*a, dataclasses.replace(c, use_pallas=False))),
+            30 if entry is of.pyramidal_lk else 10)
+           for label, (c, entry, a, _e) in half_paths.items()},
     }
     # the TP paths at 4K, each beside its unsharded run
     for label, (c, tp_fn, whole, *_rest) in (tp_paths | tp_paths_8g).items():
@@ -1198,6 +1349,17 @@ def main() -> int:
         paths[f"{tp_fn.__name__} {label} {uh}x{uw} 3 shards"] = (
             (lambda c=c, g=tp_fn: g(up, un, c, mesh3)),
             (lambda c=c, g=tp_fn: g(up, un, dataclasses.replace(c, use_pallas=False), mesh3)), r)
+    # DIS TP at 4K beside its unsharded runs
+    for label, c, mesh, shards in (("DISConfig(levels=4)", dis4, mesh3, 3),
+                                   ("DISConfig()", of.DISConfig(), mesh1, 1)):
+        r = 10 if shards == 3 else 5
+        paths[f"pyramidal_dis {label} {uh}x{uw}"] = (
+            (lambda c=c: of.pyramidal_dis(up, un, c)),
+            (lambda c=c: of.pyramidal_dis(up, un, dataclasses.replace(c, use_pallas=False))), r)
+        paths[f"spatial_pyramidal_dis {label} {uh}x{uw} {shards} shard{'s' * (shards > 1)}"] = (
+            (lambda c=c, m=mesh: parallel.spatial_pyramidal_dis(up, un, c, m)),
+            (lambda c=c, m=mesh: parallel.spatial_pyramidal_dis(
+                up, un, dataclasses.replace(c, use_pallas=False), m)), r)
     # a warm FB serving state: the step times one tracked pair with the check
     fb_state = of.init_state(cuda(frames[0]), fb_serve, recovery)
     fb_state, _ = of.step(fb_state, cuda(frames[1]), fb_serve, True, recovery)
@@ -1218,6 +1380,7 @@ def main() -> int:
     hs_kw = dict(iterations=100, alpha=10.0, temporal_kernel="gauss3")
     small = torch.stack([p0[:480, :640], n0[:480, :640]]).contiguous()
     w0 = warp_select.warp_bilinear_select_plain(n0, f0)
+    half0 = (f0[::2, ::2] * 0.5).contiguous()  # a coarser level's flow
     # (name, label, args, keyword args); the first entry of each name is the
     # one in the kernels line
     timed = [
@@ -1235,6 +1398,10 @@ def main() -> int:
         ("tvl1_relax", "14 iterations warm", (p0, w0, f0, f0), tvl1_kw),
         ("lk_residual", "9x9 box centered", (p0, n0, dis_lk), {"centered": True}),
         ("lk_level_step", "9x9 box centered", (p0, n0, f0, dis_lk), {"centered": True}),
+        ("lk_level_step", "15x15 tri flow_half", (p0, n0, half0, of.PAPER_1080P),
+         {"flow_half": True}),
+        ("lk_level_step", "9x9 box centered flow_half", (p0, n0, half0, dis_lk),
+         {"centered": True, "flow_half": True}),
     ]
     # the band kernels at their interior 4K band (rows 720-1440 and halos)
     for name, label in (("lk_band_step", "15x15 tri"), ("warp_bilinear_select_band", ""),
@@ -1243,6 +1410,8 @@ def main() -> int:
                         ("tvl1_relax_band", "8 iterations carried duals"),
                         ("fb_band_step", "FBConfig() warm")):
         timed.append((name, label, *band_args[(name, label, band_rows)]))
+    args, _kw = band_args[("lk_band_step centered", "9x9 box", band_rows)]
+    timed.append(("lk_band_step", "9x9 box centered", args[:-1], {"centered": True}))
     # library yardstick: F.conv2d(stride=2) computes pyr_down's function
     k2 = torch.as_tensor(np.outer(BINOMIAL_1D, BINOMIAL_1D), device=dev)[None, None]
 
@@ -1282,8 +1451,9 @@ def main() -> int:
         lib_name, lib_fn = library.get(name, (None, None))
         lib_ms = None if lib_fn is None else cuda_ms(lib_fn, reps, inner=10)
         b_ms, b_by = bound(name, args, kw)
-        timing.setdefault(f"{name} centered" if kw.get("centered") else name,
-                          (k_ms, p_ms, b_ms, b_by, lib_ms))
+        key = name + (" centered" if kw.get("centered") else "") + (
+            " flow_half" if kw.get("flow_half") else "")
+        timing.setdefault(key, (k_ms, p_ms, b_ms, b_by, lib_ms))
         shape = "x".join(map(str, args[0].shape))
         print(f"phase 9 timing [{card}] {name} {shape} {label}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms" + ("" if lib_ms is None else f", {lib_name} {lib_ms:.4f} ms")
@@ -1310,6 +1480,8 @@ def main() -> int:
     entries = [(name, src, rep) for name, _m, _p, src, rep in KERNELS]
     entries += [(f"{name} centered", src, rep)
                 for name, _m, _p, src, rep in KERNELS if name in CENTERED]
+    entries += [(HALF, src, rep) for name, _m, _p, src, rep in KERNELS if name == "lk_level_step"]
+    max_err[HALF] = max(max_err[HALF], max_err.pop(f"{HALF} centered"))
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": max_err[name],

@@ -20,7 +20,7 @@ plain PyTorch versions.
 
 ``process_sequence``, ``init_state`` and ``step`` stream any of the five
 families, warm or cold, with scene-cut recovery.  ``parallel`` shards batches
-of pairs, or one pair's rows (LK, HS, Farnebäck and TV-L1), over a mesh of
+of pairs, or one pair's rows (any of the five families), over a mesh of
 devices.
 """
 

@@ -17,8 +17,10 @@ config crosses between the packages unchanged (``interop.lk_config_from_jax``):
   is a direct gather and has no such bound; they are validated and ignored.
 * ``window_method`` changes only the float summation order; the kernels
   ignore it as the Pallas kernels do.
-* ``fused_half_upsample`` is accepted; the port always upsamples outside the
-  level kernel.
+* ``fused_half_upsample`` (default False, as in the JAX package) lets a
+  level's first kernel step take the coarser flow and upsample it inside
+  the kernel (``kernels.lk_step_fused`` ``flow_half``), bit for bit as the
+  separate ``ops.resize.upsample_flow`` pass it replaces.
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ class LKConfig:
         (``REFERENCE_GPU`` sets the reference's 9x9 filter).
       use_pallas: take the hand-written kernel path (see module docstring).
       d_local, c_max: TPU select-warp bounds; validated, unused by the port.
-      fused_half_upsample: TPU in-kernel upsample switch; unused by the port.
+      fused_half_upsample: upsample the coarser flow inside the level
+        kernel (``flow_half``) where ``lk_step_fused.supported_half`` allows;
+        the same flow, one pass fewer.
     """
 
     levels: int = 4

@@ -22,6 +22,11 @@
 // image, and everything outside the band reads as zero, as the plain version
 // (kernels/lk_step_fused.lk_band_step_plain) computes.  The whole image is
 // the band row0 = 0, Hg = H.
+//
+// HALF (STEP, whole image only): flow_in is the coarser level's flow, (B,
+// H/2, W/2, 2), and every read of the flow upsamples it at that pixel
+// (of2_up2x_flow): four coarse taps per read, from global memory, in place
+// of the separate upsample pass and its full-size flow plane.
 #pragma once
 
 #include "of2_common.cuh"
@@ -63,7 +68,17 @@ __device__ __forceinline__ float of2_stencil3(const float* __restrict__ s, int l
   return acc;
 }
 
-template <bool STEP, bool CENTERED>
+// The incoming flow at pixel (y, x): read, or with HALF upsampled from the
+// coarser level's (H/2, W/2) flow.
+template <bool HALF>
+__device__ __forceinline__ float2 of2_flow_at(const float* __restrict__ f, int H, int W, int y,
+                                              int x) {
+  if (HALF) return of2_up2x_flow(f, H >> 1, W >> 1, y, x);
+  const size_t k = (size_t)y * W + x;
+  return make_float2(f[2 * k], f[2 * k + 1]);
+}
+
+template <bool STEP, bool CENTERED, bool HALF>
 __global__ void __launch_bounds__(OF2_THREADS)
 of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt,
                    const float* __restrict__ flow_in, float* __restrict__ flow_out,
@@ -80,9 +95,10 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
   float* rows = s_prev;  // R reuses S once the gradients are taken
 
   const size_t plane = (size_t)H * W;
+  const size_t flow_plane = HALF ? (size_t)(H >> 1) * (W >> 1) : plane;
   const float* P = prev + blockIdx.z * plane;
   const float* N = nxt + blockIdx.z * plane;
-  const float* Fin = STEP ? flow_in + 2 * blockIdx.z * plane : nullptr;
+  const float* Fin = STEP ? flow_in + 2 * blockIdx.z * flow_plane : nullptr;
   float* Fout = flow_out + 2 * blockIdx.z * plane;
   const int oy = blockIdx.y * OF2_TILE_H, ox = blockIdx.x * OF2_TILE_W;
 
@@ -95,10 +111,15 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
       const size_t k = (size_t)y * W + x;
       pv = P[k];
       const bool in_image = p.row0 + y >= 0 && p.row0 + y < p.Hg;
-      const float nv = !in_image ? 0.f
-                       : STEP    ? of2_warp_pixel_band(N, H, W, x, y, Fin[2 * k], Fin[2 * k + 1],
-                                                       p.max_disp, p.row0, p.Hg)
-                                 : N[k];
+      float nv = 0.f;
+      if (in_image) {
+        if (STEP) {
+          const float2 f = of2_flow_at<HALF>(Fin, H, W, y, x);
+          nv = of2_warp_pixel_band(N, H, W, x, y, f.x, f.y, p.max_disp, p.row0, p.Hg);
+        } else {
+          nv = N[k];
+        }
+      }
       dv = nv - pv;
     }
     s_prev[i] = pv;
@@ -210,35 +231,39 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
     const size_t k = (size_t)y * W + x;
     if (STEP) {
       // Accumulate on the budget-clamped flow, not the border-clamped one.
-      u += of2_clamp(Fin[2 * k], -p.max_disp, p.max_disp);
-      v += of2_clamp(Fin[2 * k + 1], -p.max_disp, p.max_disp);
+      const float2 f = of2_flow_at<HALF>(Fin, H, W, y, x);
+      u += of2_clamp(f.x, -p.max_disp, p.max_disp);
+      v += of2_clamp(f.y, -p.max_disp, p.max_disp);
     }
     Fout[2 * k] = u;
     Fout[2 * k + 1] = v;
   }
 }
 
-template <bool STEP, bool CENTERED>
+template <bool STEP, bool CENTERED, bool HALF>
 static int of2_lk_run(const float* prev, const float* nxt, const float* flow_in, float* flow_out,
                       int B, int H, int W, const Of2LKParams& p, void* stream) {
   const size_t smem = of2_lk_smem_floats(p.r, CENTERED) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(of2_lk_tile_kernel<STEP, CENTERED>,
+  cudaError_t err = cudaFuncSetAttribute(of2_lk_tile_kernel<STEP, CENTERED, HALF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + OF2_TILE_W - 1) / OF2_TILE_W, (H + OF2_TILE_H - 1) / OF2_TILE_H, B);
-  of2_lk_tile_kernel<STEP, CENTERED><<<grid, OF2_THREADS, smem, (cudaStream_t)stream>>>(
+  of2_lk_tile_kernel<STEP, CENTERED, HALF><<<grid, OF2_THREADS, smem, (cudaStream_t)stream>>>(
       prev, nxt, flow_in, flow_out, p);
   return (int)cudaGetLastError();
 }
 
 // Host side: fill the parameters, allow the dynamic shared memory, launch,
-// and return the launch status (cudaSuccess == 0).
+// and return the launch status (cudaSuccess == 0).  half != 0 (STEP only)
+// takes the (B, H/2, W/2, 2) coarser flow: even H and W, the whole image.
 template <bool STEP>
 static int of2_lk_launch(const float* prev, const float* nxt, const float* flow_in,
                          float* flow_out, int B, int H, int W, int row0, int Hg, int r,
                          const float* taps, const float* masks, float det_eps, float max_disp,
-                         int centered, void* stream) {
+                         int centered, int half, void* stream) {
   if (r < 0 || r > OF2_MAX_R || B < 1 || H < 1 || W < 1 || Hg < 1)
+    return (int)cudaErrorInvalidValue;
+  if (half && (!STEP || (H & 1) || (W & 1) || row0 != 0 || Hg != H))
     return (int)cudaErrorInvalidValue;
   Of2LKParams p;
   for (int d = 0; d < OF2_MAX_TAPS; ++d) p.taps[d] = d <= 2 * r ? taps[d] : 0.f;
@@ -254,6 +279,13 @@ static int of2_lk_launch(const float* prev, const float* nxt, const float* flow_
   p.W = W;
   p.row0 = row0;
   p.Hg = Hg;
-  return centered ? of2_lk_run<STEP, true>(prev, nxt, flow_in, flow_out, B, H, W, p, stream)
-                  : of2_lk_run<STEP, false>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
+  if constexpr (STEP) {
+    if (half)
+      return centered
+                 ? of2_lk_run<STEP, true, true>(prev, nxt, flow_in, flow_out, B, H, W, p, stream)
+                 : of2_lk_run<STEP, false, true>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
+  }
+  return centered
+             ? of2_lk_run<STEP, true, false>(prev, nxt, flow_in, flow_out, B, H, W, p, stream)
+             : of2_lk_run<STEP, false, false>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
 }

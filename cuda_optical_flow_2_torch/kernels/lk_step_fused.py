@@ -1,10 +1,10 @@
 """Fused LK level step: clamp + warp + gradients + window sums + solve + update.
 
 Replaces ``cuda_optical_flow_2_tpu/kernels/lk_step_fused.py``: the
-whole-image ``lk_level_step`` (with the DIS ``centered`` mode) and the
-spatial-TP band entry ``lk_band_step``; the in-kernel 2x upsample
-``flow_half`` is not ported yet.  CUDA source: ``csrc/lk_step_fused.cu``
-with the tile body in ``csrc/of2_lk_tile.cuh`` and the clamp + warp in
+whole-image ``lk_level_step`` with its DIS ``centered`` mode and its
+in-kernel 2x flow upsample ``flow_half``, and the spatial-TP band entry
+``lk_band_step``.  CUDA source: ``csrc/lk_step_fused.cu`` with the tile body
+in ``csrc/of2_lk_tile.cuh`` and the clamp + warp and the upsample in
 ``csrc/of2_common.cuh``.  It computes::
 
     fc  = clip(flow, +-max_displacement)
@@ -21,6 +21,14 @@ per-tile recentering (``d_local``) and row correction (``c_max``) existed
 because the TPU has no gather; here the warp is a direct four-tap gather,
 exact for any flow.
 
+``flow_half``: the flow argument is the coarser level's, (..., H/2, W/2, 2),
+and each read of the flow upsamples it at that pixel, bit for bit as
+``ops/resize.upsample_flow`` does, so the step reads a quarter-size flow and
+the separate upsample pass with its full-size flow plane goes.  The TPU
+kernel needed a lane-interleave network for it (``kernels/updown.py``); here
+it is index arithmetic over four coarse taps.  :func:`supported_half` gates
+it: even H and W, a flow of exactly (H/2, W/2), and the kernel path.
+
 The band entry is the same kernel with the band's global row ``row0`` and
 the image height ``h_global``: the warp's sample row and bounds test, the
 warped frame's zero outside the image and the gradient mask all act on
@@ -29,8 +37,9 @@ whole-image entry is the band ``(0, H)``.
 
 :func:`lk_level_step` and :func:`lk_band_step` launch the kernel for CUDA
 tensors and take their plain versions for CPU tensors; ``.launches`` on each
-counts its kernel launches and ``.launches_centered`` those with
-``centered=True``.
+counts its kernel launches, ``.launches_centered`` those with
+``centered=True`` and ``lk_level_step.launches_half`` those with
+``flow_half=True``.
 """
 
 from __future__ import annotations
@@ -39,11 +48,36 @@ import torch
 
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.kernels import _build
-from cuda_optical_flow_2_torch.kernels.lk_fused import kernel_constants, lk_residual_plain, planes
+from cuda_optical_flow_2_torch.kernels.lk_fused import (
+    kernel_constants,
+    lk_residual_plain,
+    planes,
+    supported,
+)
 from cuda_optical_flow_2_torch.ops.band import zero_outside_global
+from cuda_optical_flow_2_torch.ops.resize import upsample_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear, warp_bilinear_band
 
-__all__ = ["lk_band_step", "lk_band_step_plain", "lk_level_step", "lk_level_step_plain"]
+__all__ = [
+    "lk_band_step", "lk_band_step_plain", "lk_level_step", "lk_level_step_plain", "supported_half",
+]
+
+
+def supported_half(h: int, w: int, flow_shape, config: LKConfig) -> bool:
+    """Whether the step at an (h, w) level may take the coarser flow of
+    shape ``flow_shape`` (..., h/2, w/2, 2) with ``flow_half``: even h and
+    w, a flow of exactly half the level, and the kernel path (``use_pallas``,
+    the bilinear warp and a window the kernel takes).  The JAX package's
+    power-of-two padded width and ``max_displacement <= 96`` are limits of
+    its TPU kernel; this one has neither."""
+    return (
+        h % 2 == 0
+        and w % 2 == 0
+        and tuple(flow_shape[-3:-1]) == (h // 2, w // 2)
+        and config.use_pallas
+        and config.warp_mode == "bilinear"
+        and supported(config)
+    )
 
 
 def lk_level_step_plain(
@@ -52,8 +86,12 @@ def lk_level_step_plain(
     flow: torch.Tensor,
     config: LKConfig,
     centered: bool = False,
+    flow_half: bool = False,
 ) -> torch.Tensor:
-    """The plain PyTorch version: clip + warp_bilinear + residual + add."""
+    """The plain PyTorch version: (``flow_half``: upsample_flow +) clip +
+    warp_bilinear + residual + add."""
+    if flow_half:
+        flow = upsample_flow(flow, tuple(prev.shape[-2:]))
     d = float(config.max_displacement)
     fc = flow.clamp(-d, d)
     return fc + lk_residual_plain(prev, warp_bilinear(nxt, fc), config, centered)
@@ -77,21 +115,28 @@ def lk_band_step_plain(
     return fc + lk_residual_plain(prev, warped, config, centered, row0, h_global)
 
 
-def _launch(prev, nxt, flow, config, centered, row0, h_global) -> torch.Tensor:
+def _launch(prev, nxt, flow, config, centered, row0, h_global, flow_half=False) -> torch.Tensor:
     dev = _build.require_cuda(prev, nxt, flow)
     lead, (h, w) = prev.shape[:-2], prev.shape[-2:]
-    if nxt.shape != prev.shape or flow.shape != prev.shape + (2,):
+    fh, fw = (h // 2, w // 2) if flow_half else (h, w)
+    if (
+        nxt.shape != prev.shape
+        or flow.shape != lead + (fh, fw, 2)
+        or (flow_half and (h % 2 or w % 2))
+    ):
+        want = "(..., H/2, W/2, 2) of an even H and W" if flow_half else "(..., H, W, 2)"
         raise ValueError(
             f"shapes prev {tuple(prev.shape)}, next {tuple(nxt.shape)}, flow "
-            f"{tuple(flow.shape)}: want (..., H, W) twice and (..., H, W, 2)"
+            f"{tuple(flow.shape)}: want (..., H, W) twice and {want}"
         )
-    p, n, f = planes(prev.reshape(-1, h, w), nxt.reshape(-1, h, w), flow.reshape(-1, h, w, 2))
-    out = torch.empty_like(f)
+    p, n = planes(prev.reshape(-1, h, w), nxt.reshape(-1, h, w))
+    (f,) = planes(flow.reshape(-1, fh, fw, 2))
+    out = torch.empty(p.shape + (2,), dtype=torch.float32, device=dev)
     r, taps, masks = kernel_constants(config)
     _build.launch(
         dev, "of2_lk_level_step", p.data_ptr(), n.data_ptr(), f.data_ptr(), out.data_ptr(),
         p.shape[0], h, w, int(row0), int(h_global), r, taps.ctypes.data, masks.ctypes.data,
-        float(config.det_eps), float(config.max_displacement), int(centered),
+        float(config.det_eps), float(config.max_displacement), int(centered), int(flow_half),
     )
     return out.reshape(lead + (h, w, 2))
 
@@ -102,18 +147,22 @@ def lk_level_step(
     flow: torch.Tensor,
     config: LKConfig,
     centered: bool = False,
+    flow_half: bool = False,
 ) -> torch.Tensor:
     """One warp + solve + update iteration of an LK level (``centered``:
     of a DIS level, with the mean-normalized sums).
 
-    Args: prev/nxt (..., H, W), flow (..., H, W, 2).  Returns the updated
-    flow (..., H, W, 2) float32.
+    Args: prev/nxt (..., H, W), flow (..., H, W, 2), or with ``flow_half``
+    the coarser level's flow (..., H/2, W/2, 2), upsampled in the kernel
+    (callers gate on :func:`supported_half`).  Returns the updated flow
+    (..., H, W, 2) float32.
     """
     if all(t.device.type == "cpu" for t in (prev, nxt, flow)):
-        return lk_level_step_plain(prev, nxt, flow, config, centered)
-    out = _launch(prev, nxt, flow, config, centered, 0, prev.shape[-2])
+        return lk_level_step_plain(prev, nxt, flow, config, centered, flow_half)
+    out = _launch(prev, nxt, flow, config, centered, 0, prev.shape[-2], flow_half)
     lk_level_step.launches += 1
     lk_level_step.launches_centered += int(centered)
+    lk_level_step.launches_half += int(flow_half)
     return out
 
 
@@ -145,5 +194,6 @@ def lk_band_step(
 
 lk_level_step.launches = 0
 lk_level_step.launches_centered = 0
+lk_level_step.launches_half = 0
 lk_band_step.launches = 0
 lk_band_step.launches_centered = 0

@@ -13,8 +13,9 @@ Counterpart of ``cuda_optical_flow_2_tpu.parallel``, over a :class:`Mesh` of
   ``make_mesh(devices=[torch.device("cuda")] * 3)`` runs three real shards
   on it.
 
-Spatial TP covers Lucas-Kanade, Horn-Schunck, Farnebäck and TV-L1; DIS and
-the multi-process ``multihost`` module are not ported yet.
+Spatial TP covers all five families (Lucas-Kanade, Horn-Schunck,
+Farnebäck, TV-L1, DIS); the multi-process ``multihost`` module is not
+ported yet.
 """
 
 from cuda_optical_flow_2_torch.parallel.batching import (
@@ -33,10 +34,12 @@ from cuda_optical_flow_2_torch.parallel.spatial import (
 )
 from cuda_optical_flow_2_torch.parallel.spatial_models import (
     grid_pyramidal_flow,
+    spatial_pyramidal_dis,
     spatial_pyramidal_fb,
     spatial_pyramidal_flow,
     spatial_pyramidal_hs,
     spatial_pyramidal_tvl1,
+    validate_spatial_dis,
     validate_spatial_fb,
     validate_spatial_flow,
     validate_spatial_hs,
@@ -56,11 +59,13 @@ __all__ = [
     "spatial_pyramidal_hs",
     "spatial_pyramidal_fb",
     "spatial_pyramidal_tvl1",
+    "spatial_pyramidal_dis",
     "spatial_pyramidal_flow",
     "grid_pyramidal_flow",
     "validate_spatial",
     "validate_spatial_hs",
     "validate_spatial_fb",
     "validate_spatial_tvl1",
+    "validate_spatial_dis",
     "validate_spatial_flow",
 ]

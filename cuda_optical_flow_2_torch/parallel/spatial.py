@@ -320,11 +320,13 @@ LevelFn = Callable[[Blocks, Blocks, "Blocks | None", int], Blocks]
 
 
 def _local_family_pipeline(
-    prev: Blocks, nxt: Blocks, config, h: int, level_fn: LevelFn
+    prev: Blocks, nxt: Blocks, config, h: int, level_fn: LevelFn, finest_level: int = 0
 ) -> Blocks:
     """The per-shard pipeline every family instantiates: optional banded
     prefilter -> shard-local pyramids -> coarse-to-fine with
-    ``level_fn(prev, nxt, flow, h_level)`` per level.
+    ``level_fn(prev, nxt, flow, h_level)`` per solved level -> the
+    remaining 2x upsamples (DIS's ``finest_level``; 0 for the other
+    families).
 
     The two frames of each block go through the prefilter and the pyramid
     stacked, one kernel launch per block and stage, as the unsharded
@@ -337,10 +339,12 @@ def _local_family_pipeline(
     for _ in range(1, config.levels):
         pyramid.append(_local_pyr_down(pyramid[-1], config.use_pallas))
     flow = None
-    for k in range(config.levels - 1, -1, -1):
+    for k in range(config.levels - 1, finest_level - 1, -1):
         if flow is not None:
             flow = _local_upsample2x_flow(flow)
         flow = level_fn([b[0] for b in pyramid[k]], [b[1] for b in pyramid[k]], flow, h >> k)
+    for _ in range(finest_level):
+        flow = _local_upsample2x_flow(flow)
     return flow
 
 

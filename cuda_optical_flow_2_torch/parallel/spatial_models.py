@@ -1,8 +1,7 @@
-"""Spatial (tensor-parallel) sharding for Horn-Schunck, Farnebäck and TV-L1,
-and the model-generic spatial entry points.
+"""Spatial (tensor-parallel) sharding for Horn-Schunck, Farnebäck, TV-L1 and
+DIS, and the model-generic spatial entry points.
 
-Counterpart of ``cuda_optical_flow_2_tpu.parallel.spatial_models`` (its HS,
-FB and TV-L1 parts and the shared skeleton):
+Counterpart of ``cuda_optical_flow_2_tpu.parallel.spatial_models``:
 
 * **Horn-Schunck**: the gradients of each row block are built on an
   exchanged band, then the Jacobi relaxation runs time-tiled, each halo
@@ -20,42 +19,57 @@ FB and TV-L1 parts and the shared skeleton):
   between chunks, and the shard-local median with an edge-replicated halo.
   With ``use_pallas`` each chunk is one call of
   ``kernels.tvl1_sweep.tvl1_relax_band``.
+* **DIS**: the centered inverse search as LK's shard-local level (with
+  ``use_pallas`` the centered mode of ``kernels.lk_step_fused.lk_band_step``),
+  then the refinement: the linearization offset built once on a band wide
+  enough for its window mean, and ``sweep_tile`` relaxation sweeps per
+  exchange (with ``use_pallas`` one ``hs_relax_band`` call with
+  ``it_offset`` per chunk).  Levels below ``finest_level`` are 2x upsamples.
 
 With ``use_pallas`` every coarse-to-fine warp outside the fused FB step is
 one call of ``kernels.warp_select.warp_bilinear_select_band``; without it
 the plain composition (the JAX package's XLA twin) runs.
 
-Under the Charbonnier penalty the HS sweep chunk is the IRLS cadence:
-sharded equals unsharded while ``iterations <= sweep_tile`` (and, with the
-kernels, ``<= MAX_SWEEPS``).  DIS under spatial TP is not ported yet: its
-config raises ``NotImplementedError`` (ROADMAP queue 1 item 1).
+Under the Charbonnier penalty the HS and DIS sweep chunk is the IRLS
+cadence: sharded equals unsharded while ``iterations <= sweep_tile`` (DIS:
+``refine_iterations``; with the kernels also ``<= MAX_SWEEPS``).  DIS's
+refinement window means start their prefix sums at the band's first row, so
+DIS under TP matches the unsharded path to float order, not bit for bit; at
+``finest_level >= 2`` TP upsamples in 2x steps where the unsharded path
+resizes once.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from cuda_optical_flow_2_torch.config import LKConfig
+from cuda_optical_flow_2_torch.constants import MASKS
 from cuda_optical_flow_2_torch.kernels import fb_step_fused, hs_sweep, tvl1_sweep, warp_select
 from cuda_optical_flow_2_torch.models import farneback as fb
 from cuda_optical_flow_2_torch.models import horn_schunck as hs
 from cuda_optical_flow_2_torch.models.dis import DISConfig
+from cuda_optical_flow_2_torch.models.dis import _lk_like as dis_lk_like
 from cuda_optical_flow_2_torch.models.farneback import FBConfig
 from cuda_optical_flow_2_torch.models.horn_schunck import HSConfig
 from cuda_optical_flow_2_torch.models.streaming import not_ported
 from cuda_optical_flow_2_torch.models.tvl1 import TVL1Config
 from cuda_optical_flow_2_torch.ops.band import rows_in_image, zero_outside_global
-from cuda_optical_flow_2_torch.ops.gradients import spatial_gradients, temporal_gradient
+from cuda_optical_flow_2_torch.ops.conv import stencil2d
+from cuda_optical_flow_2_torch.ops.gradients import SOBEL_GAIN, spatial_gradients, temporal_gradient
 from cuda_optical_flow_2_torch.ops.median import median_filter
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear_band
+from cuda_optical_flow_2_torch.ops.window import window_sum
 from cuda_optical_flow_2_torch.parallel.batching import Mesh
 from cuda_optical_flow_2_torch.parallel.spatial import (
     Blocks,
     _crop_rows,
     _grid,
     _local_family_pipeline,
+    _local_lk_level,
     _local_pipeline,
     _row0s,
     _run_sharded,
@@ -71,9 +85,11 @@ __all__ = [
     "spatial_pyramidal_hs",
     "spatial_pyramidal_fb",
     "spatial_pyramidal_tvl1",
+    "spatial_pyramidal_dis",
     "validate_spatial_hs",
     "validate_spatial_fb",
     "validate_spatial_tvl1",
+    "validate_spatial_dis",
 ]
 
 
@@ -545,6 +561,174 @@ def spatial_pyramidal_tvl1(
 
 
 # ---------------------------------------------------------------------------
+# DIS (mean-normalized inverse search + variational refinement)
+# ---------------------------------------------------------------------------
+
+
+def _dis_lk_like(config: DISConfig) -> LKConfig:
+    """LKConfig view of a DISConfig with the search iteration count folded
+    in, so ``spatial._local_lk_level`` runs the whole per-level search."""
+    return dataclasses.replace(dis_lk_like(config), iterations=config.iterations)
+
+
+def _local_dis_refine(
+    prev: Blocks, nxt: Blocks, flow: Blocks, config: DISConfig, h_global: int, sweep_tile: int
+) -> Blocks:
+    """Variational refinement on row blocks (``models.dis._refine``'s TP twin).
+
+    The linearization offset ``-(ix u0 + iy v0) - win_mean(it_warped)`` is
+    built once per block on an ``rp``-extended band (``rp = rg + window//2
+    + 1``: the relaxation halo ``rg = k + 2`` plus the window mean's and the
+    temporal stencil's margins), with the gradients, the count plane and the
+    offset zero outside the GLOBAL image, as the unsharded centering sees
+    them.  Then ``k``-sweep chunks relax the total flow per exchange: with
+    ``use_pallas`` one ``kernels.hs_sweep.hs_relax_band`` call with
+    ``it_offset`` per chunk and block, on bands cropped to ``rg`` rows;
+    without it the plain sweeps with ``off`` folded into ``it``.
+    """
+    if config.refine_iterations <= 0:
+        return flow
+    kernel = config.use_pallas
+    k = min(sweep_tile, config.refine_iterations)
+    if kernel:
+        k = min(k, hs_sweep.MAX_SWEEPS)
+    rg = k + 2
+    m = (config.window // 2 + 1) if config.mean_normalize else 1
+    rp = rg + m
+    d = float(config.max_displacement)
+    flow_c = [f.clamp(-d, d) for f in flow]
+    warped_p = _band_warp(nxt, flow_c, _dis_lk_like(config), h_global, rp)
+    prev_p = halo_exchange(prev, rp, rp)
+    flow_p = halo_exchange(flow_c, rp, rp, row_axis=-3)
+    row0s = _row0s(prev)
+    sscale = 1.0 / SOBEL_GAIN
+    tmask = MASKS[config.temporal_kernel]
+    bands = []  # per block: (ix, iy, it_w, off) on the rp band
+    for pp, wp, fp, r0 in zip(prev_p, warped_p, flow_p, row0s):
+        ix = zero_outside_global(stencil2d(pp, MASKS["sobel_x"] * sscale), r0 - rp, h_global)
+        iy = zero_outside_global(stencil2d(pp, MASKS["sobel_y"] * sscale), r0 - rp, h_global)
+        off = -(ix * fp[..., 0] + iy * fp[..., 1])
+        it_w = zero_outside_global(stencil2d(wp - pp, tmask / tmask.sum()), r0 - rp, h_global)
+        if config.mean_normalize:
+            valid = zero_outside_global(torch.ones_like(it_w), r0 - rp, h_global)
+            counts = window_sum(valid, config.window, "cumsum")
+            off = off - window_sum(it_w, config.window, "cumsum") / torch.clamp_min(counts, 1.0)
+        bands.append((ix, iy, it_w, zero_outside_global(off, r0 - rp, h_global)))
+
+    robust = (
+        (config.refine_eps_data, config.refine_eps_smooth)
+        if config.refine_penalty == "charbonnier" else None
+    )
+    uv = flow_c
+    sweeps_left = config.refine_iterations
+    if kernel:
+        c = rp - rg
+        for _ in range(-(-config.refine_iterations // k)):
+            s = min(k, sweeps_left)
+            sweeps_left -= s
+            uv = [
+                _crop_rows(
+                    hs_sweep.hs_relax_band(
+                        _crop_rows(pp, c), _crop_rows(wp, c), uv_p, r0 - rg, h_global,
+                        sweeps=s, alpha=config.refine_alpha,
+                        temporal_kernel=config.temporal_kernel,
+                        it_offset=_crop_rows(off, c), robust=robust,
+                    ),
+                    rg, -3,
+                )
+                for pp, wp, (_, _, _, off), uv_p, r0 in zip(
+                    prev_p, warped_p, bands, halo_exchange(uv, rg, rg, row_axis=-3), row0s
+                )
+            ]
+        return uv
+
+    # Plain twin: kh-halo gradient bands (k + 1 under the Charbonnier
+    # penalty: the lagged weights' central-difference ring), the data term
+    # constant across sweeps, the weights recomputed per chunk.
+    kh = k + (1 if robust is not None else 0)
+    ck = rp - kh
+    grads = [
+        (_crop_rows(ix, ck), _crop_rows(iy, ck), _crop_rows(it_w, ck) + _crop_rows(off, ck))
+        for ix, iy, it_w, off in bands
+    ]
+    for _ in range(-(-config.refine_iterations // k)):
+        s = min(k, sweeps_left)
+        sweeps_left -= s
+        out = []
+        for uv_p, (ix, iy, it), r0 in zip(halo_exchange(uv, kh, kh, row_axis=-3), grads, row0s):
+            keep = rows_in_image(uv_p.shape[-3], r0 - kh, h_global, uv_p.device)
+            if robust is not None:
+                uv_p = hs._robust_chunk(uv_p, ix, iy, it, s, config.refine_alpha, robust, keep)
+            else:
+                uv_p = hs._quadratic_relax(uv_p, ix, iy, it, s, config.refine_alpha, keep)
+            out.append(_crop_rows(uv_p, kh, -3))
+        uv = out
+    return uv
+
+
+def _local_dis_level(
+    prev: Blocks, nxt: Blocks, flow: Blocks | None, config: DISConfig, h_global: int,
+    sweep_tile: int,
+) -> Blocks:
+    """One DIS pyramid level on row blocks: the centered inverse-search
+    steps (``spatial._local_lk_level`` with ``centered=mean_normalize``: the
+    band kernel's centered mode, or the centered banded residual), then the
+    banded refinement."""
+    flow = _local_lk_level(prev, nxt, flow, _dis_lk_like(config), h_global,
+                           centered=config.mean_normalize)
+    return _local_dis_refine(prev, nxt, flow, config, h_global, sweep_tile)
+
+
+def validate_spatial_dis(h: int, w: int, config: DISConfig, n: int, sweep_tile: int = 8) -> None:
+    validate_prefilter_shards(h, n, config)
+    top = config.levels - 1
+    if h % (n << top) or (top and w % (1 << top)):
+        raise ValueError(
+            f"spatial DIS needs H divisible by n_shards * 2^(levels-1) "
+            f"= {n << top} and W by {1 << top}; got {h}x{w}"
+        )
+    r_grad = config.window // 2 + 2
+    d = int(math.ceil(config.max_displacement))
+    r_img = r_grad + d + 2
+    r_refine = 0
+    if config.refine_iterations > 0:
+        k = min(sweep_tile, config.refine_iterations)
+        m = (config.window // 2 + 1) if config.mean_normalize else 1
+        # the refine warp exchanges rp + d + 2 rows in one hop
+        r_refine = (k + 2 + m) + d + 2
+    for lvl in range(config.finest_level, config.levels):
+        warps = lvl < top or config.iterations > 1
+        hk = (h >> lvl) // n
+        need = max(r_img if warps else r_grad, r_refine, 2)
+        if hk < need:
+            raise ValueError(
+                f"DIS level {lvl} holds {hk} rows/shard but its halos need "
+                f"{need}; reduce levels, window, refine sweeps, "
+                f"max_displacement or shards"
+            )
+
+
+def spatial_pyramidal_dis(
+    prev: torch.Tensor,
+    nxt: torch.Tensor,
+    config: DISConfig,
+    mesh: Mesh,
+    axis_name: str = "space",
+    sweep_tile: int = 8,
+) -> torch.Tensor:
+    """Pyramidal DIS for ONE pair, rows sharded over ``mesh``;
+    ``sweep_tile`` refinement sweeps run per halo exchange.  Levels below
+    ``config.finest_level`` are never solved; the flow upsamples the rest
+    of the way shard-locally, in 2x steps.  Under the Charbonnier penalty
+    ``sweep_tile`` is also the IRLS cadence (see the module docstring).
+    Returns (H, W, 2) flow on the mesh's first device."""
+    h, w = prev.shape[-2:]
+    validate_spatial_dis(h, w, config, mesh.shape[axis_name], sweep_tile)
+    return _run_sharded(prev, nxt, mesh.axis_devices(axis_name),
+                        _family_local(config, h, sweep_tile, 8))
+
+
+# ---------------------------------------------------------------------------
 # Model-generic spatial entry points
 # ---------------------------------------------------------------------------
 
@@ -562,15 +746,14 @@ def _family_local(config, h: int, sweep_tile: int, iter_tile: int):
         def level_fn(p: Blocks, q: Blocks, flow: Blocks | None, h_level: int) -> Blocks:
             return _local_tvl1_level(p, q, flow, config, h_level, iter_tile)
     elif isinstance(config, DISConfig):
-        raise NotImplementedError(
-            "spatial TP for DISConfig is not ported yet (ROADMAP queue 1 item 1); run it "
-            "unsharded (models.pyramidal_flow) or batch-sharded (parallel.sharded_flow)"
-        )
+        def level_fn(p: Blocks, q: Blocks, flow: Blocks | None, h_level: int) -> Blocks:
+            return _local_dis_level(p, q, flow, config, h_level, sweep_tile)
     elif isinstance(config, LKConfig):
         return lambda p, q: _local_pipeline(p, q, config, h)
     else:
         raise not_ported(config)
-    return lambda p, q: _local_family_pipeline(p, q, config, h, level_fn)
+    finest = getattr(config, "finest_level", 0)
+    return lambda p, q: _local_family_pipeline(p, q, config, h, level_fn, finest)
 
 
 def validate_spatial_flow(h: int, w: int, config, n: int, sweep_tile: int = 8,
@@ -582,6 +765,8 @@ def validate_spatial_flow(h: int, w: int, config, n: int, sweep_tile: int = 8,
         validate_spatial_fb(h, w, config, n)
     elif isinstance(config, TVL1Config):
         validate_spatial_tvl1(h, w, config, n, iter_tile)
+    elif isinstance(config, DISConfig):
+        validate_spatial_dis(h, w, config, n, sweep_tile)
     elif isinstance(config, LKConfig):
         validate_spatial(h, w, config, n)
     else:

@@ -139,6 +139,101 @@ def test_lk_level_step_nan_flow_keeps_unwarped_pixel(rng):
     _close(g[~np.isnan(want)], want[~np.isnan(want)])
 
 
+# --- kernel #2, flow_half: the in-kernel 2x flow upsample -------------------
+
+
+def test_lk_level_step_flow_half_matches_pallas_interpret(rng, monkeypatch):
+    """The plain flow_half step (upsample_flow, then the step) against the
+    Pallas kernel's flow_half mode itself, interpret mode, at the smallest
+    shape the TPU kernel admits (tests/test_pallas.py: a power-of-two padded
+    width); a smooth half flow keeps its variation inside d_local."""
+    from cuda_optical_flow_2_tpu.kernels import lk_step_fused as jlk_step_fused
+
+    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
+    h, w = 64, 448
+    prev, nxt = _pair(rng, h, w)
+    half = _smooth_flow(h // 2, w // 2, 2.0)
+    jcfg = jof.LKConfig(levels=2, window=9, max_displacement=8, d_local=7)
+    assert jlk_step_fused.supported_half(_j(prev), jcfg)
+    want = jlk_step_fused.lk_level_step(_j(prev), _j(nxt), _j(half), jcfg, interpret=True,
+                                        flow_half=True)
+    got = lk_step_fused.lk_level_step_plain(_t(prev), _t(nxt), _t(half), lk_config_from_jax(jcfg),
+                                            flow_half=True)
+    _close(got, want)
+
+
+def test_lk_level_step_flow_half_cpu_is_upsample_then_step(rng):
+    """On CPU tensors the wrapper with flow_half is upsample_flow + the
+    plain step bit for bit, centered or not, and launches nothing."""
+    from cuda_optical_flow_2_torch.ops.resize import upsample_flow
+
+    prev, nxt = _pair(rng, 2 * 18, 2 * 23)
+    half = _t(_smooth_flow(18, 23, 3.0))
+    cfg = lk_config_from_jax(jof.LKConfig(levels=1, window=9, max_displacement=4))
+    before = (lk_step_fused.lk_level_step.launches, lk_step_fused.lk_level_step.launches_half)
+    for centered in (False, True):
+        got = lk_step_fused.lk_level_step(_t(prev), _t(nxt), half, cfg, centered, flow_half=True)
+        want = lk_step_fused.lk_level_step_plain(_t(prev), _t(nxt), upsample_flow(half, (36, 46)),
+                                                 cfg, centered)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (lk_step_fused.lk_level_step.launches,
+            lk_step_fused.lk_level_step.launches_half) == before
+
+
+def test_lk_level_step_flow_half_launch_arguments(rng, monkeypatch):
+    """What the wrapper hands the C entry (the launch itself stubbed): the
+    quarter-size flow and half = 1; a flow of the wrong size for the mode,
+    or an odd level, raises before any launch."""
+    calls = []
+    monkeypatch.setattr(_build, "require_cuda", lambda *t: torch.device("cpu"))
+    monkeypatch.setattr(_build, "launch", lambda dev, name, *args: calls.append((name, args)))
+    prev, nxt = (_t(a) for a in _pair(rng, 32, 48))
+    half, full = _t(_smooth_flow(16, 24, 2.0)), _t(_smooth_flow(32, 48, 2.0))
+    cfg = lk_config_from_jax(jof.LKConfig(levels=1, window=9))
+    lk_step_fused._launch(prev, nxt, half, cfg, True, 0, 32, flow_half=True)
+    lk_step_fused._launch(prev, nxt, full, cfg, False, 0, 32)
+    (name, a), (_, b) = calls
+    assert name == "of2_lk_level_step" and a[4:7] == (1, 32, 48)
+    assert a[-2:] == (1, 1) and b[-2:] == (0, 0)  # centered, half
+    for flow, flow_half, p in ((full, True, prev), (half, False, prev), (half, True, prev[:31])):
+        with pytest.raises(ValueError, match="want"):
+            lk_step_fused._launch(p, p, flow, cfg, False, 0, p.shape[-2], flow_half=flow_half)
+    assert len(calls) == 2
+
+
+@pytest.mark.parametrize(
+    "shape,flow_shape,kw,want",
+    [
+        ((64, 448), (32, 224), dict(), True),
+        ((128, 448), (64, 224), dict(window=15, max_displacement=16), True),
+        ((64, 448), (64, 448), dict(), False),  # a warm start at level resolution
+        ((63, 448), (31, 224), dict(), False),  # an odd level
+        ((64, 448), (32, 224), dict(use_pallas=False), False),
+        ((64, 448), (32, 224), dict(warp_mode="nearest"), False),
+        ((64, 448), (32, 224), dict(fused_half_upsample=False), False),
+    ],
+    ids=["half", "window15", "warm_start", "odd", "plain", "nearest", "off"],
+)
+def test_fused_half_gate_matches_jax(monkeypatch, shape, flow_shape, kw, want):
+    """The port's gate against JAX's ``_fused_half_upsample`` where the TPU
+    kernel's padded width is a power of two (its one extra clause): both
+    take the mode exactly for an even level, a flow of half its size and
+    the kernel path, and only when the config opts in."""
+    from cuda_optical_flow_2_tpu.models import lucas_kanade as jlk
+
+    from cuda_optical_flow_2_torch.models import lucas_kanade as tlk
+
+    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
+    jcfg = jof.LKConfig(levels=2, **{"window": 9, "max_displacement": 8,
+                                     "fused_half_upsample": True, **kw})
+    prev, flow = np.zeros(shape, np.float32), np.zeros(flow_shape + (2,), np.float32)
+    assert jlk._fused_half_upsample(_j(prev), _j(flow), jcfg) is want
+    tcfg = lk_config_from_jax(jcfg)
+    assert tlk._fused_half_upsample(_t(prev), _t(flow), tcfg) is want
+    assert lk_step_fused.supported_half(*shape, flow_shape + (2,), tcfg) is (
+        want or not tcfg.fused_half_upsample)
+
+
 # --- kernel #3: warp_bilinear_select ------------------------------------
 
 

@@ -225,3 +225,63 @@ def test_serving_loop_cpu_launches_nothing():
     list(tof.process_sequence((torch.from_numpy(f) for f in frames), lk_config_from_jax(SERVE),
                               warm_start=True, recovery=tof.RecoveryConfig()))
     assert [fn.launches for fn in wrappers] == before
+
+
+# --- fused_half_upsample: the in-kernel 2x upsample of lk_level_step ------
+
+
+def _half_calls(monkeypatch):
+    """A spy on lk_level_step: the flow_half of each call, in order."""
+    calls, orig = [], lk_step_fused.lk_level_step
+
+    def spy(*args, flow_half=False, **kw):
+        calls.append(flow_half)
+        return orig(*args, flow_half=flow_half, **kw)
+
+    monkeypatch.setattr(lk_step_fused, "lk_level_step", spy)
+    return calls
+
+
+@pytest.mark.parametrize(
+    "cfg,entry,half_levels",
+    [
+        (tof.PAPER_1080P, tof.pyramidal_lk, [False, True, True, True]),
+        (tof.REFERENCE_GPU, tof.pyramidal_lk, [True, True, True]),
+        (tof.DISConfig(), tof.pyramidal_dis, [False] * 3 + [True, False] * 3),
+        (tof.DIS_REALTIME, tof.pyramidal_dis, [False] * 3 + [True, False] * 2),
+    ],
+    ids=["PAPER_1080P", "REFERENCE_GPU", "DISConfig", "DIS_REALTIME"],
+)
+def test_fused_half_upsample_levels_and_bits(monkeypatch, cfg, entry, half_levels):
+    """72x96 has 1080x1920's level parities (72, 36, 18, 9, 4 rows): with
+    the flag on, the first step of levels 2, 1 and 0 takes flow_half (level
+    3 has an odd height; a solved coarsest level has no coarser flow), as
+    at 1080x1920: 3 of 4 LK steps, 3 of 9 DIS steps, 2 of 7 with
+    finest_level=1.  The flow is bit-equal to the flag off: on CPU the
+    plain step upsamples with upsample_flow, the pass the flag removes."""
+    fr = _frames(2, 72, 96, velocity=(2.0, 1.0), period=24)
+    p, n = torch.from_numpy(fr[0]), torch.from_numpy(fr[1])
+    calls = _half_calls(monkeypatch)
+    on = entry(p, n, dataclasses.replace(cfg, fused_half_upsample=True))
+    assert calls == half_levels
+    calls.clear()
+    off = entry(p, n, cfg)
+    assert calls == [False] * len(half_levels)
+    torch.testing.assert_close(on, off, rtol=0, atol=0)
+
+
+def test_fused_half_upsample_warm_stream(monkeypatch):
+    """A warm LK stream (levels=3) with the flag on: the cold first pair
+    solves its coarsest level without a step; a warm start enters the
+    coarsest level at its own resolution (no flow_half); levels 1 and 0
+    take the coarser flow.  The flows are bit-equal to the flag off."""
+    frames = [torch.from_numpy(f) for f in _frames(4, 64, 96, velocity=(2.0, 1.0), period=24)]
+    cfg = tof.LKConfig(levels=3, window=11)
+    calls = _half_calls(monkeypatch)
+    on = dict(tof.process_sequence(frames, dataclasses.replace(cfg, fused_half_upsample=True),
+                                   warm_start=True))
+    assert calls == [True, True] + [False, True, True] * 2
+    off = dict(tof.process_sequence(frames, cfg, warm_start=True))
+    assert sorted(on) == sorted(off) == [1, 2, 3]
+    for i in on:
+        torch.testing.assert_close(on[i], off[i], rtol=0, atol=0)

@@ -12,8 +12,10 @@ Tolerances, JAX's own for TP against unsharded (tests/test_parallel.py):
 1e-4 px at a single level, 5e-3 px for an LK pyramid (the warp amplifies
 float-order noise level by level), 5e-4 px for HS and TV-L1, 2e-2 px for
 Farnebäck (1/det of the windowed normal equations amplifies float order),
-with a (2, 1) median check.  The two packages' TP paths are held to the
-same limits.
+1e-4 px for DIS (JAX's limit for its kernel-path DIS TP; the refinement's
+cumsum window means round differently on a band, 3.4e-6 px here), with a
+(2, 1) median check.  The two packages' TP paths are held to the same
+limits.
 
 The window-limit dispatch: past a CUDA kernel's window limit the models and
 the TP levels take the plain composition, decided from the config; spies
@@ -33,6 +35,7 @@ from jax.sharding import Mesh as JMesh
 
 import cuda_optical_flow_2_tpu as jof
 from cuda_optical_flow_2_tpu import parallel as jparallel
+from cuda_optical_flow_2_tpu.models import dis as jdis
 from cuda_optical_flow_2_tpu.models import farneback as jfb
 from cuda_optical_flow_2_tpu.models import horn_schunck as jhs
 from cuda_optical_flow_2_tpu.models import tvl1 as jtvl1
@@ -42,6 +45,7 @@ from cuda_optical_flow_2_tpu.parallel import spatial_models as jspatial_models
 import cuda_optical_flow_2_torch as tof
 from cuda_optical_flow_2_torch import parallel
 from cuda_optical_flow_2_torch.interop import (
+    dis_config_from_jax,
     fb_config_from_jax,
     hs_config_from_jax,
     lk_config_from_jax,
@@ -65,6 +69,7 @@ LK_PYRAMID_TOL = 5e-3
 HS_TOL = 5e-4
 TVL1_TOL = 5e-4
 FB_TOL = 2e-2
+DIS_TOL = 1e-4
 CPU8 = [torch.device("cpu")] * 8
 
 
@@ -85,6 +90,21 @@ def _close(got, want, tol):
     np.testing.assert_allclose(
         np.asarray(got, np.float32), np.asarray(want, np.float32), rtol=0, atol=tol
     )
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run torch on one thread here.  The shard loops issue thousands of
+    small ops, and torch spreads an expensive elementwise op such as
+    ``exp`` over every core even at a few thousand elements: a 2x128x32
+    ``exp`` took 84 us on 8 threads and 9 us on one on this test's CPU, and
+    the 33x33 plain bilateral runs 3267 of them.  Under several pytest
+    workers the threads contend and such a case stalled for a minute.
+    Elementwise results do not depend on the thread count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _mesh():
@@ -370,15 +390,23 @@ def test_grid_pyramidal_flow_matches_jax():
     _close(got, want, HS_TOL)
 
 
-@pytest.mark.parametrize("family", ["DISConfig"])
-def test_unported_families_raise(family):
-    cfg = getattr(tof, family)(levels=2)
-    x = torch.zeros(64, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1\\)"):
-        parallel.spatial_pyramidal_flow(x, x, cfg, _mesh())
-    mesh = parallel.Mesh([CPU8[:4], CPU8[4:]], ("batch", "space"))
-    with pytest.raises(NotImplementedError, match=family):
-        parallel.grid_pyramidal_flow(x[None], x[None], cfg, mesh)
+def test_spatial_and_grid_flow_dispatch_dis():
+    """The generic entries take a DISConfig to spatial_pyramidal_dis, with
+    sweep_tile, and grid_pyramidal_flow shards a batch of DIS pairs, each
+    as its own spatial run; they validate with the DIS validator."""
+    p, n = _pair(256, 64)
+    cfg = tof.DISConfig(levels=2, window=9, max_displacement=4, refine_iterations=6)
+    mesh = _mesh4()
+    got = parallel.spatial_pyramidal_flow(_t(p), _t(n), cfg, mesh, sweep_tile=4)
+    torch.testing.assert_close(
+        got, parallel.spatial_pyramidal_dis(_t(p), _t(n), cfg, mesh, sweep_tile=4), rtol=0, atol=0)
+    gmesh = parallel.Mesh([CPU8[:4], CPU8[4:]], ("batch", "space"))
+    flows = parallel.grid_pyramidal_flow(_t(np.stack([p, n])), _t(np.stack([n, p])), cfg, gmesh)
+    assert tuple(flows.shape) == (2, 256, 64, 2)
+    torch.testing.assert_close(
+        flows[1], parallel.spatial_pyramidal_dis(_t(n), _t(p), cfg, mesh), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="spatial DIS needs H divisible"):
+        parallel.spatial_pyramidal_flow(_t(p[:100]), _t(n[:100]), cfg, mesh)
 
 
 def test_jax_config_raises_type_error():
@@ -386,6 +414,84 @@ def test_jax_config_raises_type_error():
     for cfg in (jof.LKConfig(), jhs.HSConfig(), object()):
         with pytest.raises(TypeError, match="config must be the port's"):
             parallel.spatial_pyramidal_flow(x, x, cfg, _mesh())
+
+
+# --- spatial_pyramidal_dis ----------------------------------------------
+
+
+def _mesh4():
+    return parallel.make_mesh(axis_name="space", devices=CPU8[:4])
+
+
+def _jmesh4():
+    return jparallel.make_mesh(4, axis_name="space")
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(), dict(mean_normalize=False), dict(refine_penalty="charbonnier"),
+     dict(finest_level=1)],
+    ids=["quadratic", "raw", "charbonnier", "finest1"],
+)
+def test_spatial_pyramidal_dis_matches_jax_and_unsharded(kw):
+    """Both port TP paths (the plain one and the band kernels' plain
+    versions) against JAX's plain TP on four shards and the port's
+    unsharded path: 256x64 at levels=2, window 9 and a 4 px budget is what
+    JAX's validator admits on four shards.  The Charbonnier case keeps
+    refine_iterations (5) <= sweep_tile (8), where the TP IRLS cadence is
+    the unsharded one; finest_level=1's last step is the exact 2x
+    upsample on both sides."""
+    p, n = _pair(256, 64)
+    jcfg = jdis.DISConfig(levels=2, window=9, max_displacement=4, use_pallas=False, **kw)
+    want = np.asarray(jparallel.spatial_pyramidal_dis(_j(p), _j(n), jcfg, _jmesh4()))
+    for use_pallas in (False, True):
+        cfg = dataclasses.replace(dis_config_from_jax(jcfg), use_pallas=use_pallas)
+        got = parallel.spatial_pyramidal_dis(_t(p), _t(n), cfg, _mesh4())
+        assert tuple(got.shape) == (256, 64, 2)
+        _close(got, want, DIS_TOL)
+        _close(got, tof.pyramidal_dis(_t(p), _t(n), cfg), DIS_TOL)
+        med = np.median(got.numpy()[32:-32, 16:-16].reshape(-1, 2), axis=0)
+        assert abs(med[0] - 2) < 0.1 and abs(med[1] - 1) < 0.1, med
+
+
+def test_spatial_dis_finest_level_2_matches_jax_tp():
+    """At finest_level >= 2 TP upsamples in 2x steps where the unsharded
+    path resizes once (0.2 px apart here), so TP is held to JAX's TP:
+    levels=3 and 2 refinement sweeps fit level 2's 16 rows per shard."""
+    p, n = _pair(256, 64)
+    jcfg = jdis.DISConfig(levels=3, finest_level=2, refine_iterations=2, window=9,
+                          max_displacement=4, use_pallas=False)
+    want = np.asarray(jparallel.spatial_pyramidal_dis(_j(p), _j(n), jcfg, _jmesh4()))
+    for use_pallas in (False, True):
+        cfg = dataclasses.replace(dis_config_from_jax(jcfg), use_pallas=use_pallas)
+        _close(parallel.spatial_pyramidal_dis(_t(p), _t(n), cfg, _mesh4()), want, DIS_TOL)
+
+
+def test_spatial_dis_kernel_path_runs_band_kernels(monkeypatch):
+    """With use_pallas each level and shard runs the centered band step per
+    search iteration, one band warp and one hs_relax_band chunk with the
+    it_offset plane (k = min(8, 5, 16) = 5 sweeps), and never a
+    whole-image kernel."""
+    p, n = _pair(128, 32)
+    cfg = tof.DISConfig(levels=2, window=9, max_displacement=4)
+    steps = _spy(monkeypatch, lk_step_fused, "lk_band_step_plain", lambda a, kw: (a[3], a[6]))
+    relax = _spy(monkeypatch, hs_sweep, "hs_relax_band_plain",
+                 lambda a, kw: (a[3], kw["sweeps"], kw["it_offset"] is not None))
+    warps = _spy(monkeypatch, warp_select, "warp_bilinear_select_band_plain", lambda a, kw: a[2])
+    whole = []
+    for module, name in ((lk_fused, "lk_residual"), (lk_step_fused, "lk_level_step"),
+                         (hs_sweep, "hs_relax"), (warp_select, "warp_bilinear_select")):
+        _spy(monkeypatch, module, name, lambda a, kw, name=name: whole.append(name))
+    parallel.spatial_pyramidal_dis(_t(p), _t(n), cfg,
+                                   parallel.make_mesh(devices=CPU8[:2], axis_name="space"))
+    assert not whole
+    # level 1 (32 rows per shard): the zero-flow step with the gradient halo
+    # (6), then the warp halo (6 + 4 + 2); level 0 (64 rows) twice the latter
+    assert steps == [(-6, True), (26, True), (-12, True), (20, True),
+                     (-12, True), (52, True), (-12, True), (52, True)]
+    # rg = 5 + 2; the refine warp band rp + d + 2 = (7 + 5) + 4 + 2
+    assert relax == [(-7, 5, True), (25, 5, True), (-7, 5, True), (57, 5, True)]
+    assert warps == [-18, 14, -18, 46]
 
 
 # --- validators: the JAX package's messages -------------------------------
@@ -461,6 +567,24 @@ def test_validate_spatial_fb_messages_match_jax(h, w, kw):
     jcfg = jfb.FBConfig(use_pallas=False, **kw)
     _messages(spatial_models.validate_spatial_fb, jspatial_models.validate_spatial_fb,
               (h, w, fb_config_from_jax(jcfg), 8), (h, w, jcfg, 8))
+
+
+@pytest.mark.parametrize(
+    "h,w,n,kw",
+    [
+        (100, 64, 8, dict(levels=2)),  # H not divisible by 8 * 2
+        (256, 64, 8, dict(levels=2)),  # the search warp halo at level 1
+        (2160, 3840, 3, dict()),  # 4K DISConfig(): level 4 holds 45 rows, needs 46
+        (256, 64, 8, dict(levels=1, max_displacement=2, refine_iterations=40)),  # refine halo
+        (256, 64, 4, dict(levels=3, finest_level=2, max_displacement=4)),  # level 2's sweeps
+        (64, 64, 1, dict(levels=1, prefilter=jof.BilateralConfig(window=131))),
+    ],
+    ids=["rows", "halo", "uhd_3_shards", "refine_halo", "finest2", "prefilter"],
+)
+def test_validate_spatial_dis_messages_match_jax(h, w, n, kw):
+    jcfg = jdis.DISConfig(use_pallas=False, **kw)
+    _messages(spatial_models.validate_spatial_dis, jspatial_models.validate_spatial_dis,
+              (h, w, dis_config_from_jax(jcfg), n, 40), (h, w, jcfg, n, 40))
 
 
 # --- the window-limit dispatch --------------------------------------------

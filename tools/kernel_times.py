@@ -4,15 +4,20 @@
 
 ROOT is the root of a checkout of this repo (its ``chip_smoke.py`` and
 ``cuda_optical_flow_2_torch`` are imported from there).  It builds that
-checkout's kernels and times ``lk_level_step`` (``PAPER_1080P``),
-``warp_bilinear_select``, ``bilateral_kernel`` (9x9, the stacked pair),
-``hs_relax`` (100 sweeps, quadratic and Charbonnier), ``tvl1_relax`` (14
-iterations, warm) and ``fb_level_step`` (``FBConfig()``, warm) at 1080x1920
-with CUDA events, the shapes of ``chip_smoke.py``'s phase 9.  To compare two checkouts, run it on both on one
-card, one after the other in one command, in the order parent, change,
-change, parent.
+checkout's kernels and times, at 1080x1920 with CUDA events and the shapes
+of ``chip_smoke.py``'s phase 9: the kernels of the shared LK tile body,
+``lk_residual`` (``PAPER_1080P``), ``lk_level_step`` (``PAPER_1080P`` and
+the 9x9 box centered mode, and ``flow_half`` where the checkout has it) and
+``lk_band_step`` (``PAPER_1080P``, the frames as the band of rows 497-1577
+of a 2160-row image); ``warp_bilinear_select``,
+``bilateral_kernel`` (9x9, the stacked pair), ``hs_relax`` (100 sweeps,
+quadratic and Charbonnier), ``tvl1_relax`` (14 iterations, warm) and
+``fb_level_step`` (``FBConfig()``, warm).  To compare two checkouts, run it
+on both on one card, one after the other in one command, in the order
+parent, change, change, parent.
 """
 
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -30,6 +35,7 @@ def main() -> int:
         bilateral_tap,
         fb_step_fused,
         hs_sweep,
+        lk_fused,
         lk_step_fused,
         poly_exp_fused,
         tvl1_sweep,
@@ -44,8 +50,14 @@ def main() -> int:
     exp0 = poly_exp_fused.poly_expansion_plain(p0, 7, 1.5)
     tv = of.TVL1Config()
     tvl1_kw = dict(iterations=14, lambda_=tv.lambda_, theta=tv.theta, tau=tv.tau, eps=tv.epsilon)
-    cases = (
-        ("lk_level_step", lambda: lk_step_fused.lk_level_step(p0, n0, f0, of.PAPER_1080P), 30, 10),
+    dis_lk = of.LKConfig(levels=5, window=9, iterations=1, window_weights="box")
+    cfg = of.PAPER_1080P
+    cases = [
+        ("lk_residual", lambda: lk_fused.lk_residual(p0, n0, cfg), 30, 10),
+        ("lk_level_step", lambda: lk_step_fused.lk_level_step(p0, n0, f0, cfg), 30, 10),
+        ("lk_level_step centered", lambda: lk_step_fused.lk_level_step(
+            p0, n0, f0, dis_lk, centered=True), 30, 10),
+        ("lk_band_step", lambda: lk_step_fused.lk_band_step(p0, n0, f0, 497, cfg, 2160), 30, 10),
         ("warp_bilinear_select", lambda: warp_select.warp_bilinear_select(p0, f0, 32), 30, 10),
         ("bilateral_kernel", lambda: bilateral_tap.bilateral_kernel(pair, 9), 30, 10),
         ("hs_relax", lambda: hs_sweep.hs_relax(p0, n0, None, iterations=100, alpha=10.0,
@@ -55,7 +67,11 @@ def main() -> int:
             robust=(3.0, 0.1)), 10, 1),
         ("tvl1_relax", lambda: tvl1_sweep.tvl1_relax(p0, w0, f0, f0, **tvl1_kw), 10, 1),
         ("fb_level_step", lambda: fb_step_fused.fb_level_step(n0, exp0, f0, of.FBConfig()), 30, 10),
-    )
+    ]
+    if "flow_half" in inspect.signature(lk_step_fused.lk_level_step).parameters:
+        half = f0[::2, ::2].contiguous()
+        cases.append(("lk_level_step flow_half", lambda: lk_step_fused.lk_level_step(
+            p0, n0, half, cfg, flow_half=True), 30, 10))
     out = {name: cs.cuda_ms(fn, reps, inner=inner) for name, fn, reps, inner in cases}
     print(json.dumps({"tree": root.name, **out}))
     return 0
