@@ -11,8 +11,10 @@ then, in order:
    turns TF32 off for cuDNN and matmul;
 2. build: compiles the kernels and prints the build time;
 3. kernels: each kernel against its plain PyTorch version at the paths'
-   level-0 shapes (1080x1920 and 480x640); ``lk_level_step``'s ``flow_half``
-   mode bit-equal to the step on ``upsample_flow`` of the coarser flow;
+   level-0 shapes (1080x1920 and 480x640); the time-tiled relaxations on a
+   ragged batch (2x479x641, counts no launch depth divides), TV-L1
+   bit-equal; ``lk_level_step``'s ``flow_half`` mode bit-equal to the step
+   on ``upsample_flow`` of the coarser flow;
 4. path ``PAPER_1080P``: ``pyramidal_lk`` on a 1080x1920 pair translating at
    (2, 1) px, against the plain path (``use_pallas=False``, the same plain
    ops without the budget clamp, which (2, 1) never reaches);
@@ -595,6 +597,38 @@ def main() -> int:
               "9x9 box"),
     ]
     print("phase 3 kernels 1080x1920 TV-L1 and DIS: " + "; ".join(parts))
+    # the time-tiled relaxations on a ragged batch (no tile or launch depth
+    # divides the shape or the counts): TV-L1 bit-equal, HS within its limits;
+    # the bands reach past both edges of the global image
+    trip = [textured_pair(479, 641, seed=11 + i) for i in range(2)]
+    rp, rn, rf = (cuda(np.stack([t[j] for t in trip])) for j in range(3))
+    rw = warp_select.warp_bilinear_select_plain(rn, rf)
+    rng_r = np.random.default_rng(12)
+    rstate = (rf[..., 0] * 0.5, rf[..., 1] * 0.5,
+              *(cuda(rng_r.normal(0, 0.05, (2, 479, 641)).astype(np.float32)) for _ in range(4)))
+    roff = cuda(np.random.default_rng(13).normal(0, 5, (2, 479, 641)).astype(np.float32))
+    rhs = dict(alpha=10.0, temporal_kernel="gauss3")
+    ragged = [
+        ("tvl1_relax", "13 iterations", (rp, rw, rf, rf * 0.9), dict(tvl1_kw, iterations=13)),
+        ("tvl1_relax", "30 iterations", (rp, rw, rf, rf * 0.9), dict(tvl1_kw, iterations=30)),
+        ("tvl1_relax_band", "rows -6-473 of 470, 13 iterations carried duals",
+         (rp, rw, rf, rstate, -6, 470), dict(tvl1_kw, iterations=13)),
+        ("hs_relax", "quadratic 100 sweeps", (rp, rn, None), dict(rhs, iterations=100)),
+        ("hs_relax", "charbonnier it_offset 37 sweeps", (rp, rn, rf * 0.1),
+         dict(rhs, iterations=37, robust=(3.0, 0.1), it_offset=roff)),
+        ("hs_relax_band", "rows -6-473 of 470, charbonnier it_offset 11 sweeps",
+         (rp, rn, rf * 0.1, -6, 470), dict(rhs, sweeps=11, robust=(3.0, 0.1), it_offset=roff)),
+    ]
+    parts = []
+    for name, label, args, kw in ragged:
+        got, want = wrappers[name](*args, **kw), plains[name](*args, **kw)
+        if name == "tvl1_relax_band":  # the six state planes
+            got, want = torch.stack(got), torch.stack(want)
+        parts.append(check(name, got, want, 479, 641, f"batch 2 {label}"))
+        if name.startswith("tvl1"):
+            bits = float((got - want).abs().max())
+            require(bits == 0.0, f"{name} 2x479x641 {label}: max |d| {bits}, expected bit-equal")
+    print("phase 3 kernels ragged 2x479x641 time-tiled relaxations: " + "; ".join(parts))
     # lk_level_step flow_half: the coarser level's flow (half the textured
     # pair's, in its own pixel units), upsampled in the kernel, must give the
     # bits of the step on upsample_flow of it, and stay within the step's

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "of2_pyr_down": [_P, _P, _I, _I, _I, _L, _L, _L, _P],
     "of2_bilateral": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _F, _P],
     "of2_hs_relax": [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _F, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P, _I, _F, _F, _F, _F, _P,
     ],
     "of2_poly_exp": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "of2_window_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -55,7 +55,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _F, _I, _P,
     ],
     "of2_tvl1_relax": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _F, _F, _F, _P,
     ],
 }
 

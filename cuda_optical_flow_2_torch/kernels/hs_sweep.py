@@ -17,14 +17,20 @@ It computes, from ``Ix, Iy`` = Sobel / 8 of ``prev`` and
 What bounds it on an H100: with the whole relaxation counted once, FP32
 operations (about 27 per pixel per quadratic sweep, 56 per Charbonnier
 sweep, against 16-28 bytes of frames and flow per pixel for the whole
-call).  The design is the simple one: one launch computes the
-gradient planes, then one launch per sweep reads the flow and the constant
-planes and writes the next flow into a ping-pong buffer, so each sweep is a
-full pass over device memory and the kernel runs at the bandwidth of that
-pass, not at its operation bound.  The TPU kernel's time tiling (a K-row
-halo per band kept in VMEM for K sweeps) is the way to close that gap in a
-later change.  The C entry point issues every launch of the call, so the
-wrapper makes one ctypes call per level.
+call).  The design is time tiling, the TPU kernel's K sweeps per resident
+band carried over to 64 x 64 tiles in shared memory: one launch runs up
+to ``SWEEPS_PER_LAUNCH`` (K) sweeps on each tile with the flow
+double-buffered there (and, Charbonnier, the chunk's smoothness weights)
+and each pixel's constants in the registers of the thread that owns it,
+and writes back only the tile's inner (64 - 2R)^2 pixels.  A sweep reads
+the eight neighbours, so a ring of ``ring(k)`` = k cells keeps them exact.
+One launch computes the gradients (and the quadratic denominators); then
+quadratic, a call of n sweeps runs in ceil(n / K) tile launches;
+Charbonnier, each ``MAX_SWEEPS`` chunk runs two launches of weights and
+normalizers, then its ceil(16 / K) tile launches.  So the flow makes one
+pass over device memory per tile launch, not per sweep.
+The C entry point issues every launch of the call, so the wrapper makes
+one ctypes call per level.
 
 The band entry runs one chunk of at most ``MAX_SWEEPS`` sweeps on a band
 holding global rows [row0, row0 + HB) of an ``h_global``-row image: the
@@ -54,11 +60,31 @@ from cuda_optical_flow_2_torch.ops.gradients import (
     temporal_mask,
 )
 
-__all__ = ["hs_relax", "hs_relax_band", "hs_relax_band_plain", "hs_relax_plain", "MAX_SWEEPS"]
+__all__ = [
+    "hs_relax",
+    "hs_relax_band",
+    "hs_relax_band_plain",
+    "hs_relax_plain",
+    "MAX_SWEEPS",
+    "SWEEPS_PER_LAUNCH",
+    "ring",
+]
 
 # Sweeps per Charbonnier chunk: the lagged weights are refreshed this often
 # (the JAX kernel's time-tiling depth, which fixes the IRLS cadence).
 MAX_SWEEPS = 16
+
+# K: sweeps per launch (each on 64 x 64 tiles with a ring of K cells); the
+# result does not depend on it.
+SWEEPS_PER_LAUNCH = 8
+
+
+def ring(k: int) -> int:
+    """The tile ring, in cells, of a launch of ``k`` sweeps: the kernel
+    writes back the pixels at least this far from its tile's edge (the
+    gradients and the Charbonnier weights come whole from their own
+    launches)."""
+    return k
 
 
 def _identity(prev: torch.Tensor, flow_init: torch.Tensor | None) -> torch.Tensor:
@@ -240,15 +266,15 @@ def _launch(prev, nxt, flow_init, it_offset, iterations, alpha, temporal_kernel,
     out = torch.empty((b, h, w, 2), dtype=torch.float32, device=dev)
     n_px = b * h * w
     n2 = n_px + (n_px & 1)  # keeps the float4 scratch planes 16-byte aligned
-    scratch = torch.empty((12 if robust else 6) * n2, dtype=torch.float32, device=dev)
+    scratch = torch.empty((14 if robust else 8) * n2, dtype=torch.float32, device=dev)
     ed, es = robust if robust is not None else (1.0, 1.0)
     masks = _masks(temporal_kernel)
     _build.launch(
         dev, "of2_hs_relax", p.data_ptr(), n.data_ptr(),
         None if off is None else off.data_ptr(), None if f0 is None else f0.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), b, h, w, int(row0), int(h_global), int(iterations),
-        MAX_SWEEPS, float(alpha * alpha), masks.ctypes.data, int(robust is not None),
-        float(ed), float(ed * ed), float(es), float(es * es),
+        MAX_SWEEPS, SWEEPS_PER_LAUNCH, float(alpha * alpha), masks.ctypes.data,
+        int(robust is not None), float(ed), float(ed * ed), float(es), float(es * es),
     )
     return out.reshape(lead + (h, w, 2))
 

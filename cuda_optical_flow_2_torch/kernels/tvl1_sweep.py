@@ -18,19 +18,25 @@ result and the whole-image entry ignores it.
 What bounds it on an H100: with the whole call counted once, operations:
 eight divisions and square roots per pixel and iteration (about 0.055 ms
 for 14 iterations at 1080x1920) against 32 bytes of frames and flows per
-pixel for the call.  The design is the simple one, as ``hs_relax``'s: one
-launch computes the constants (gx, gy, th, max(|g|^2, eps), it), then one
-launch per iteration; each block stages the four duals of its 16 x 32 tile
-and a one-pixel ring in shared memory, computes (u, v) over the tile plus
-its right column and bottom row there, and writes the tile's new flow and
-duals into ping-pong buffers.  Each iteration is therefore a pass over
-device memory (about 76 bytes per pixel) and the kernel runs at the
-bandwidth of that pass, not at its operation bound.  The TPU kernel's time
-tiling (K iterations per band with a K-row halo) is the way to close the
-gap, in a later change.  The C entry point issues every launch, so the
-wrapper makes one ctypes call per warp.  The arithmetic is rounded step by
-step in the plain version's order (no FMA), so near-ties of the threshold
-step (``rho`` against ``+-th``) resolve as they do in the plain ops.
+pixel for the call.  The design is time tiling, the TPU kernel's K
+iterations per resident band carried over to 64 x 64 tiles in shared
+memory.  One launch computes the constants (gx, gy, th, max(|g|^2, eps),
+it); then each launch runs up to ``ITERS_PER_LAUNCH`` (K) iterations on
+each tile, with the six state planes in shared memory and each pixel's
+constants and u0 in the registers of the thread that owns it, and writes
+back only the tile's inner (64 - 2R)^2 pixels.  One iteration reaches one
+cell up and left (the divergence) and one down and right (the forward
+differences), so a ring of ``ring(k)`` = k cells keeps the written pixels
+exact; the neighbouring tiles recompute the ring (64 % more cell updates
+for a launch of 7).  A call of n iterations runs in ceil(n / K) tile
+launches of near equal length, so the state makes one pass over device
+memory per launch, not per iteration.  The C entry point issues every
+launch, so the wrapper makes one ctypes call per warp.  The arithmetic is
+rounded step by step in the plain version's order (no FMA, no reciprocal
+multiply), and a pixel's arithmetic does not depend on its tile, so
+near-ties of the threshold step (``rho`` against ``+-th``) resolve as they
+do in the plain ops and the kernel is bit-equal to the plain version on
+the card.
 
 The band entry runs one chunk of at most ``MAX_ITERS`` iterations on a
 band holding global rows [row0, row0 + HB) of an ``h_global``-row image,
@@ -66,6 +72,9 @@ __all__ = [
     "tvl1_relax_band_plain",
     "tvl1_relax_plain",
     "MAX_ITERS",
+    "ITERS_PER_LAUNCH",
+    "launch_iterations",
+    "ring",
 ]
 
 # The JAX kernel's iterations per time-tiled chunk: the band entry's limit
@@ -73,9 +82,26 @@ __all__ = [
 # (TVL1_REALTIME's 14 iterations fill one chunk there).
 MAX_ITERS = 14
 
+# K: iterations per launch (each on 64 x 64 tiles with a ring of K cells);
+# the result does not depend on it.
+ITERS_PER_LAUNCH = 8
+
 _MASKS = np.concatenate(
     [(MASKS["sobel_x"] / SOBEL_GAIN).ravel(), (MASKS["sobel_y"] / SOBEL_GAIN).ravel()]
 ).astype(np.float32)
+
+
+def ring(k: int) -> int:
+    """The tile ring, in cells, of a launch of ``k`` iterations: the
+    kernel writes back the pixels at least this far from its tile's edge."""
+    return k
+
+
+def launch_iterations(iterations: int) -> list[int]:
+    """The iterations of each tile launch of a call: ceil(iterations / K)
+    launches of near equal length (``of2_part`` in ``csrc/of2_tile.cuh``)."""
+    n = -(-iterations // ITERS_PER_LAUNCH)
+    return [iterations // n + (j < iterations % n) for j in range(n)]
 
 
 def tvl1_relax_plain(
@@ -312,13 +338,15 @@ def _launch(prev, warped, u0, flow, duals, row0, h_global, iterations, lambda_, 
     if duals is not None:
         (d_in,) = planes(duals.reshape(-1, h, w, 4))
         d_out = torch.empty_like(d_in)
-    scratch = torch.empty(15 * b * h * w, dtype=torch.float32, device=dev)
+    n2 = b * h * w + (b * h * w) % 2  # keeps the float4 scratch planes 16-byte aligned
+    slots = min(len(launch_iterations(iterations)) - 1, 2)
+    scratch = torch.empty((5 + 6 * slots) * n2, dtype=torch.float32, device=dev)
     _build.launch(
         dev, "of2_tvl1_relax", p.data_ptr(), wp.data_ptr(), f0.data_ptr(), f.data_ptr(),
         None if d_in is None else d_in.data_ptr(), out.data_ptr(),
         None if d_out is None else d_out.data_ptr(), scratch.data_ptr(), b, h, w, int(row0),
-        int(h_global), int(iterations), _MASKS.ctypes.data, float(lambda_ * theta),
-        float(theta), float(tau / theta), float(eps),
+        int(h_global), int(iterations), ITERS_PER_LAUNCH, _MASKS.ctypes.data,
+        float(lambda_ * theta), float(theta), float(tau / theta), float(eps),
     )
     out = out.reshape(lead + (h, w, 2))
     return out, None if d_out is None else d_out.reshape(lead + (h, w, 4))

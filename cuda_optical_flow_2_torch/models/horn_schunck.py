@@ -181,9 +181,19 @@ def _robust_chunk(
     keep: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One Charbonnier chunk: the weights from the incoming flow, frozen for
-    ``sweeps`` sweeps.  ``keep`` as in :func:`_quadratic_relax`; it also
-    zeroes the smoothness weight outside the global image, which the
-    normalizer S reads at the neighbours."""
+    ``sweeps`` sweeps.  ``keep`` as in :func:`_quadratic_relax`."""
+    weights = _robust_weights(uv, ix, iy, it, alpha, robust, keep)
+    return _robust_sweeps(uv, ix, iy, it, weights, sweeps, keep)
+
+
+def _robust_weights(
+    uv: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, it: torch.Tensor,
+    alpha: float, robust: tuple[float, float], keep: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """A chunk's frozen weights from its incoming flow: (wd, ws, 1/S,
+    1/(alpha^2 S + wd |grad I|^2)).  ``keep`` zeroes the smoothness weight
+    outside the global image, which the normalizer S reads at the
+    neighbours."""
     ed, es = robust
     u, v = uv[..., 0], uv[..., 1]
     r = ix * u + iy * v + it
@@ -200,6 +210,17 @@ def _robust_chunk(
     s_plane = torch.clamp_min((ws + _avg3x3(ws)) * 0.5, 1e-12)
     inv_s = 1.0 / s_plane
     inv_denom = 1.0 / (alpha * alpha * s_plane + wd * (ix * ix + iy * iy))
+    return wd, ws, inv_s, inv_denom
+
+
+def _robust_sweeps(
+    uv: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor, it: torch.Tensor,
+    weights: tuple[torch.Tensor, ...], sweeps: int, keep: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``sweeps`` Charbonnier sweeps with the frozen ``weights`` of
+    :func:`_robust_weights`; ``keep`` as in :func:`_quadratic_relax`."""
+    wd, ws, inv_s, inv_denom = weights
+    u, v = uv[..., 0], uv[..., 1]
     for _ in range(sweeps):
         u_bar = (ws * _avg3x3(u) + _avg3x3(ws * u)) * 0.5 * inv_s
         v_bar = (ws * _avg3x3(v) + _avg3x3(ws * v)) * 0.5 * inv_s

@@ -12,7 +12,11 @@ the 9x9 box centered mode, and ``flow_half`` where the checkout has it) and
 of a 2160-row image); ``warp_bilinear_select``,
 ``bilateral_kernel`` (9x9, the stacked pair), ``hs_relax`` (100 sweeps,
 quadratic and Charbonnier), ``tvl1_relax`` (14 iterations, warm) and
-``fb_level_step`` (``FBConfig()``, warm).  To compare two checkouts, run it
+``fb_level_step`` (``FBConfig()``, warm); and the relaxations' band entries
+at phase 9's interior 4K band (rows 720-1440 of 2160x3840 and the TP halo
+of 10 rows): ``hs_relax_band`` (8 quadratic sweeps; 8 Charbonnier sweeps
+with ``it_offset``) and ``tvl1_relax_band`` (8 iterations, carried
+duals).  To compare two checkouts, run it
 on both on one card, one after the other in one command, in the order
 parent, change, change, parent.
 """
@@ -21,6 +25,8 @@ import inspect
 import json
 import sys
 from pathlib import Path
+
+import numpy as np
 
 
 def main() -> int:
@@ -67,6 +73,29 @@ def main() -> int:
             robust=(3.0, 0.1)), 10, 1),
         ("tvl1_relax", lambda: tvl1_sweep.tvl1_relax(p0, w0, f0, f0, **tvl1_kw), 10, 1),
         ("fb_level_step", lambda: fb_step_fused.fb_level_step(n0, exp0, f0, of.FBConfig()), 30, 10),
+    ]
+    # the band entries at the interior 4K band, with its TP halo of 10 rows
+    rng = np.random.default_rng(3)
+    p8, n8, f8 = (torch.as_tensor(a, device=dev) for a in cs.textured_pair(2160, 3840, seed=8))
+    w8 = warp_select.warp_bilinear_select_plain(n8, f8)
+    off8, *duals8 = (torch.as_tensor(rng.normal(0, s, (2160, 3840)).astype(np.float32), device=dev)
+                     for s in (5.0, 0.05, 0.05, 0.05, 0.05))
+
+    def band(x):
+        return x[710:1450].contiguous()
+
+    state8 = tuple(band(x) for x in (f8[..., 0] * 0.5, f8[..., 1] * 0.5, *duals8))
+    hs_band = (band(p8), band(n8), band(f8) * 0.1, 710, 2160)
+    hs_band_kw = dict(sweeps=8, alpha=10.0, temporal_kernel="gauss3")
+    hs_charb_kw = dict(hs_band_kw, robust=(3.0, 0.1), it_offset=band(off8))
+    tvl1_band = (band(p8), band(w8), band(f8), state8, 710, 2160)
+    tvl1_band_kw = dict(tvl1_kw, iterations=8)
+    cases += [
+        ("hs_relax_band", lambda: hs_sweep.hs_relax_band(*hs_band, **hs_band_kw), 30, 10),
+        ("hs_relax_band charbonnier", lambda: hs_sweep.hs_relax_band(*hs_band, **hs_charb_kw),
+         30, 10),
+        ("tvl1_relax_band", lambda: tvl1_sweep.tvl1_relax_band(*tvl1_band, **tvl1_band_kw), 30,
+         10),
     ]
     if "flow_half" in inspect.signature(lk_step_fused.lk_level_step).parameters:
         half = f0[::2, ::2].contiguous()
