@@ -14,7 +14,10 @@ then, in order:
    level-0 shapes (1080x1920 and 480x640); the time-tiled relaxations on a
    ragged batch (2x479x641, counts no launch depth divides), TV-L1
    bit-equal; ``lk_level_step``'s ``flow_half`` mode bit-equal to the step
-   on ``upsample_flow`` of the coarser flow;
+   on ``upsample_flow`` of the coarser flow; the window kernels' tile edges
+   (LK windows 65 and 1, FB windows 15 and 1 on the ragged batch, a band
+   bit-equal to the whole image at the 1x1 windows, ``flow_half`` at
+   2x478x642);
 4. path ``PAPER_1080P``: ``pyramidal_lk`` on a 1080x1920 pair translating at
    (2, 1) px, against the plain path (``use_pallas=False``, the same plain
    ops without the budget clamp, which (2, 1) never reaches);
@@ -76,9 +79,11 @@ then, in order:
    unsharded kernel path and the translation, launch counts checked against
    the predicted ones;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
-   runs at 4K), each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call; the median filter (plain
-   PyTorch, no kernel);
+   runs at 4K; host time included), each kernel, its plain version and,
+   where one PyTorch call computes the same function, that call, in device
+   time (the card waits in a sleep kernel while the host enqueues the
+   calls, so a wrapper's launch cost does not hide a faster kernel); the
+   median filter (plain PyTorch, no kernel);
 10. profile: ``torch.profiler`` over a few pairs of each path (device busy
     share, kernels per pair, the kernels that lead).
 
@@ -272,16 +277,25 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, inner: int = 1, warmup: int = 3) -> float:
+# about 11 ms of SM clock: longer than the host takes to enqueue the calls
+# of one timed run, plain versions included
+DEVICE_PAD_CYCLES = 20_000_000
+
+
+def cuda_ms(fn, reps: int, inner: int = 1, warmup: int = 3, device: bool = False) -> float:
     """Median over ``reps`` of the ms per call of ``inner`` back-to-back calls
-    between two CUDA events (host enqueue time included where it exceeds
-    the device's)."""
+    between two CUDA events: the host enqueue time included where it exceeds
+    the device's, or with ``device`` the device's alone (the card waits in a
+    sleep kernel until the host has enqueued the calls)."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if device:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(DEVICE_PAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -654,6 +668,71 @@ def main() -> int:
         parts.append(check(f"{HALF} centered" if centered else HALF, got, plain, h, w,
                            f"{label} {b}x{h}x{w}, bit-equal to upsample_flow + step"))
     print("phase 3 kernels lk_level_step flow_half: " + "; ".join(parts))
+    # the edges of the window kernels' tile geometry (kernels/tile_geometry.py
+    # picks a tile per radius; FB's largest window and expansion are the
+    # 33x33 poly_n=31 cases below): the largest LK window in both modes and
+    # the 1x1 window on the ragged batch (no tile divides 2x479x641), FB's
+    # default and 1x1 windows there, first and warm, and flow_half at a
+    # ragged even size; each kernel's rows of a band bit-equal
+    # to its whole-image rows at the 1x1 windows.  A 1x1 LK window's A is
+    # rank one (det 0 in exact arithmetic, and in the rounded products of
+    # both versions); a 1x1 FB window solves each pixel's own expansion,
+    # whose det(A)^2 nears 0 at saddle points, where 1/det turns the
+    # expansions' float order into any flow: det_eps = 1.0 (intensities
+    # 0-255) leaves those pixels to the guard in both versions.
+    parts = []
+    for window, centered in ((65, False), (65, True), (1, False), (1, True)):
+        cfg = of.LKConfig(levels=1, window=window, window_weights="box" if centered else "tri")
+        mode = " centered" if centered else ""
+        label = f"batch 2 window {window}"
+        parts.append(check(f"lk_residual{mode}", lk_fused.lk_residual(rp, rn, cfg, centered),
+                           lk_fused.lk_residual_plain(rp, rn, cfg, centered), 479, 641, label))
+        parts.append(check(f"lk_level_step{mode}",
+                           lk_step_fused.lk_level_step(rp, rn, rf, cfg, centered),
+                           lk_step_fused.lk_level_step_plain(rp, rn, rf, cfg, centered), 479, 641,
+                           label))
+        if window == 1:
+            whole = lk_step_fused.lk_level_step(rp, rn, rf, cfg, centered)
+            band = lk_step_fused.lk_band_step(rp[:, 100:300], rn[:, 100:300], rf[:, 100:300], 100,
+                                              cfg, 479, centered)
+            torch.cuda.synchronize()
+            bits = float((band[:, 40:-40] - whole[:, 140:260]).abs().max())
+            require(bits == 0.0, f"lk_band_step{mode} window 1 rows 140-260 of 2x479x641: "
+                                 f"max |d| {bits} from the whole image, expected bit-equal")
+    for cfg in (of.FBConfig(), of.FBConfig(winsize=1, poly_n=5, poly_sigma=1.1, det_eps=1.0)):
+        for first in (True, False):
+            exp_c = poly_exp_fused.poly_expansion_plain(rp, cfg.poly_n, cfg.poly_sigma)
+            parts.append(check(
+                "fb_level_step", fb_step_fused.fb_level_step(rn, exp_c, rf, cfg, first),
+                fb_step_fused.fb_level_step_plain(rn, exp_c, rf, cfg, first), 479, 641,
+                f"batch 2 {cfg.winsize}x{cfg.winsize} poly_n={cfg.poly_n} "
+                f"{'first' if first else 'warm'}"))
+            if cfg.winsize == 1:
+                whole = fb_step_fused.fb_level_step(rn, exp_c, rf, cfg, first)
+                sl = slice(100, 300)
+                band = fb_step_fused.fb_band_step(rn[:, sl], tuple(e[:, sl] for e in exp_c),
+                                                  rf[:, sl], 100, cfg, 479, first)
+                torch.cuda.synchronize()
+                bits = float((band[:, 40:-40] - whole[:, 140:260]).abs().max())
+                require(bits == 0.0, f"fb_band_step 1x1 rows 140-260 of 2x479x641: max |d| "
+                                     f"{bits} from the whole image, expected bit-equal")
+    for centered in (False, True):
+        cfg = dis_lk if centered else of.PAPER_1080P
+        h, w = 478, 642  # even, and no tile divides it
+        trip = [textured_pair(h, w, seed=h + 7 + i) for i in range(2)]
+        p, n, half = (cuda(np.stack([t[j] if j < 2 else t[2][::2, ::2] * 0.5 for t in trip]))
+                      for j in range(3))
+        got = lk_step_fused.lk_level_step(p, n, half, cfg, centered, flow_half=True)
+        full = lk_step_fused.lk_level_step(p, n, upsample_flow(half, (h, w)), cfg, centered)
+        torch.cuda.synchronize()
+        bits = float((got - full).abs().max())
+        require(bits == 0.0, f"{HALF} 2x{h}x{w}: max |d| {bits} from the step on "
+                             "upsample_flow, expected bit-equal")
+        plain = lk_step_fused.lk_level_step_plain(p, n, half, cfg, centered, flow_half=True)
+        parts.append(check(f"{HALF} centered" if centered else HALF, got, plain, h, w,
+                           f"batch 2, bit-equal to upsample_flow + step"))
+    print("phase 3 kernels tile edges (ragged batch 2x479x641: LK window 65 and 1, FB 15 and 1; "
+          "flow_half 2x478x642): " + "; ".join(parts))
     rng = np.random.default_rng(3)
     for h, w in ((1080, 1920), (480, 640)):
         p, n, f = (cuda(a) for a in textured_pair(h, w, seed=h + 1))
@@ -1479,11 +1558,12 @@ def main() -> int:
     timing = {}
     for name, label, args, kw in timed:
         slow = name in ("hs_relax", "tvl1_relax")
-        k_ms = cuda_ms(lambda: wrappers[name](*args, **kw), 10 if slow else reps,
+        k_ms = cuda_ms(lambda: wrappers[name](*args, **kw), 10 if slow else reps, device=True,
                        inner=1 if slow else 10)
-        p_ms = cuda_ms(lambda: plains[name](*args, **kw), 3 if slow else 10, warmup=1)
+        p_ms = cuda_ms(lambda: plains[name](*args, **kw), 3 if slow else 10, warmup=1,
+                       device=True)
         lib_name, lib_fn = library.get(name, (None, None))
-        lib_ms = None if lib_fn is None else cuda_ms(lib_fn, reps, inner=10)
+        lib_ms = None if lib_fn is None else cuda_ms(lib_fn, reps, inner=10, device=True)
         b_ms, b_by = bound(name, args, kw)
         key = name + (" centered" if kw.get("centered") else "") + (
             " flow_half" if kw.get("flow_half") else "")
@@ -1494,7 +1574,7 @@ def main() -> int:
               + f", bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / k_ms:.1f} % of the kernel's time)")
 
     # the median filter of TV-L1's warps: plain PyTorch, no kernel
-    med_ms = cuda_ms(lambda: median_filter(f0.movedim(-1, 0), 5), 10, warmup=2)
+    med_ms = cuda_ms(lambda: median_filter(f0.movedim(-1, 0), 5), 10, warmup=2, device=True)
     print(f"phase 9 timing [{card}] median_filter 5x5 of a 2x1080x1920 flow (plain PyTorch "
           f"torch.median over 25 stacked slices, no kernel): {med_ms:.4f} ms")
 

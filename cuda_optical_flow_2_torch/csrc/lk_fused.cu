@@ -5,10 +5,11 @@
 
 // prev, nxt: (B, H, W) float32; flow: (B, H, W, 2) float32 output.
 // taps: 2r+1 host floats; masks: 27 host floats (Sobel-x, Sobel-y, temporal).
-// centered != 0: the mean-normalized (DIS) sums.
+// centered != 0: the mean-normalized (DIS) sums.  th x tw: the output tile
+// (kernels/tile_geometry.lk_tile).
 extern "C" int of2_lk_residual(const float* prev, const float* nxt, float* flow, int B, int H,
-                               int W, int r, const float* taps, const float* masks,
-                               float det_eps, int centered, void* stream) {
-  return of2_lk_launch<false>(prev, nxt, nullptr, flow, B, H, W, 0, H, r, taps, masks, det_eps,
-                              0.f, centered, 0, stream);
+                               int W, int r, int th, int tw, const float* taps,
+                               const float* masks, float det_eps, int centered, void* stream) {
+  return of2_lk_launch<false>(prev, nxt, nullptr, flow, B, H, W, 0, H, r, th, tw, taps, masks,
+                              det_eps, 0.f, centered, 0, stream);
 }

@@ -10,11 +10,13 @@
 // H and W, the whole image), a buffer distinct from flow_out.  The H rows
 // are global rows [row0, row0 + H) of an Hg-row image (the whole image:
 // row0 = 0, Hg = H).  taps: 2r+1 host floats; masks: 27 host floats.
-// centered != 0: the mean-normalized (DIS) sums.
+// centered != 0: the mean-normalized (DIS) sums.  th x tw: the output tile
+// (kernels/tile_geometry.lk_tile).
 extern "C" int of2_lk_level_step(const float* prev, const float* nxt, const float* flow_in,
                                  float* flow_out, int B, int H, int W, int row0, int Hg, int r,
-                                 const float* taps, const float* masks, float det_eps,
-                                 float max_disp, int centered, int half, void* stream) {
-  return of2_lk_launch<true>(prev, nxt, flow_in, flow_out, B, H, W, row0, Hg, r, taps, masks,
-                             det_eps, max_disp, centered, half, stream);
+                                 int th, int tw, const float* taps, const float* masks,
+                                 float det_eps, float max_disp, int centered, int half,
+                                 void* stream) {
+  return of2_lk_launch<true>(prev, nxt, flow_in, flow_out, B, H, W, row0, Hg, r, th, tw, taps,
+                             masks, det_eps, max_disp, centered, half, stream);
 }

@@ -19,26 +19,12 @@
 // for cells outside the band.
 #pragma once
 
-#include <cuda_runtime.h>
+#include "of2_common.cuh"
 
 #define OF2_EXT 64
 #define OF2_ROWS 4
 #define OF2_THREADS (OF2_EXT * OF2_EXT / OF2_ROWS)
 #define OF2_PLANE (OF2_EXT * OF2_EXT)
-
-// dst[0] = *src if valid, else 0.  src must be a valid address either way.
-__device__ __forceinline__ void of2_cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-// Wait for this thread's cp.async copies; a __syncthreads() must follow
-// before another thread reads them.
-__device__ __forceinline__ void of2_cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // The output tile's side for a ring of `ring` cells (2 * ring < OF2_EXT).
 __host__ __device__ __forceinline__ int of2_tile_out(int ring) { return OF2_EXT - 2 * ring; }

@@ -41,8 +41,10 @@ NVCC_FLAGS = [
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # name -> argtypes; every function returns a cudaError_t as int.
 _SIGNATURES = {
-    "of2_lk_residual": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _I, _P],
-    "of2_lk_level_step": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _F, _I, _I, _P],
+    "of2_lk_residual": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _I, _P],
+    "of2_lk_level_step": [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _F, _I, _I, _P,
+    ],
     "of2_warp_select": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "of2_pyr_down": [_P, _P, _I, _I, _I, _L, _L, _L, _P],
     "of2_bilateral": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _F, _P],
@@ -52,7 +54,8 @@ _SIGNATURES = {
     "of2_poly_exp": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "of2_window_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "of2_fb_step": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _F, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _F, _I,
+        _P,
     ],
     "of2_tvl1_relax": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _F, _F, _F, _P,

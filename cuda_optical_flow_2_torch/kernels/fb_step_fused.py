@@ -22,13 +22,16 @@ against about 190 operations of expansion, 40 of products, 150 of window
 and 30 of warp and solve per pixel at the defaults.  The TPU kernel warped
 with select-loops over a bounded displacement range; here each pixel
 gathers its four taps directly (``of2_warp_pixel_band``).  The design keeps every
-intermediate in shared memory: a block warps its 32 x 32 tile plus an
+intermediate in shared memory: a block warps its output tile plus an
 (r_win + r_poly) halo once, expands it and forms the products over the tile
 plus an r_win halo, then windows and solves, so only the flow goes back to
-device memory.  The halos cost recomputation (the products over 46 x 46
-pixels for a 32 x 32 tile at the defaults) and shared memory: 81,840 bytes
-per block at the defaults, 189,456 at ``winsize = 33, poly_n = 31`` (a
-block may have 232,448).
+device memory.  Every pass is register-blocked (a thread owns a run of 4
+cells and loads each input of the run's span once), the warp takes eight
+cells a thread at once with every load unconditional, and ``FBConfig()``'s
+radii run a kernel compiled for them.  The tile is picked per radius
+(:func:`kernels.tile_geometry.fb_tile`): 16 x 32 at the defaults, 54,768
+bytes of shared memory, so four blocks share an SM; the halos cost
+recomputation (the products over 30 x 46 pixels for 16 x 32 outputs).
 
 The band entry passes the band's global row ``row0`` and the image height
 ``h_global``: the warp floors and clamps the sample row in global rows, and
@@ -51,6 +54,7 @@ import torch
 
 from cuda_optical_flow_2_torch.kernels import _build
 from cuda_optical_flow_2_torch.kernels.lk_fused import planes
+from cuda_optical_flow_2_torch.kernels.tile_geometry import fb_tile
 from cuda_optical_flow_2_torch.kernels.poly_exp_fused import MAX_POLY_N, checked_taps
 from cuda_optical_flow_2_torch.kernels.win_solve import MAX_WINDOW, check_window
 from cuda_optical_flow_2_torch.ops.band import zero_outside_global
@@ -214,10 +218,12 @@ def _launch(nxt, exp1, flow, config, first, row0, h_global) -> torch.Tensor:
     n, *e = planes(nxt.reshape(-1, h, w), *(x.reshape(-1, h, w) for x in exp1))
     f = None if first else planes(flow.reshape(-1, h, w, 2))[0]
     out = torch.empty(n.shape + (2,), dtype=torch.float32, device=dev)
+    rp = config.poly_n // 2
+    tile = fb_tile(rw, rp)
     _build.launch(
         dev, "of2_fb_step", n.data_ptr(), *(x.data_ptr() for x in e),
         None if f is None else f.data_ptr(), out.data_ptr(), n.shape[0], h, w, int(row0),
-        int(h_global), rw, config.poly_n // 2, taps.ctypes.data, mix.ctypes.data,
+        int(h_global), rw, rp, tile.tile_h, tile.tile_w, taps.ctypes.data, mix.ctypes.data,
         float(config.det_eps), float(config.max_displacement), int(first),
     )
     return out.reshape(lead + (h, w, 2))

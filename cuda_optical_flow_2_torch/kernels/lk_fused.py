@@ -10,11 +10,19 @@ What bounds it on an H100: bytes.  Per pixel it reads two f32 planes and
 writes one (u, v) pair, against a few hundred flops of stencil and window
 arithmetic, far below the card's flop/byte ratio.  The design keeps every
 intermediate (Ix, Iy, It, the five or nine row-pass sums) in shared memory:
-one block per 16 x 32 output tile loads its tile plus an (r + 1)-pixel halo
-once, zero outside the image, and runs the window as a row pass then a
-column pass with the taps of ``ops.window.window_weight_taps`` (box, tri and
-gauss alike).  The centered mode needs 184,320 bytes of shared memory at
-r = 32, under the 227 KB opt-in limit.
+one block of 256 threads per output tile loads its tile plus an
+(r + 1)-pixel halo once (``prev`` with ``cp.async``), zero outside the
+image, and runs the window as a row pass then a column pass with the taps
+of ``ops.window.window_weight_taps`` (box, tri and gauss alike).  Every pass
+is register-blocked: a thread owns a run of 4 cells, loads each input of
+the run's span once into a ring of registers, and forms the products once
+per gradient cell; the radii of the main paths (r = 4, 7, 9) run a kernel
+compiled for their tap count.  The tile is picked per radius
+(:func:`kernels.tile_geometry.lk_tile`: 48 x 32 at r = 7, 32 x 32 centered
+at r = 4) so that three blocks share an SM where they can; r = 32 centered
+takes 225,792 bytes of shared memory, under the 232,448 a block may have.
+Each window sum keeps one order per pixel (taps 0..2r, rows then columns),
+whatever the tile, so a band and the whole image give the same bits.
 What the TPU kernel did about its own limits (rolls on 128-lane padded rows,
 the O(log r) run-doubling box sum) has no counterpart here.
 
@@ -32,6 +40,7 @@ import torch
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.constants import MASKS
 from cuda_optical_flow_2_torch.kernels import _build
+from cuda_optical_flow_2_torch.kernels.tile_geometry import lk_tile
 from cuda_optical_flow_2_torch.ops.band import rows_in_image, zero_outside_global
 from cuda_optical_flow_2_torch.ops.gradients import (
     sobel_scale,
@@ -130,9 +139,11 @@ def lk_residual(
     p, n = planes(prev.reshape(-1, h, w), nxt.reshape(-1, h, w))
     out = torch.empty(p.shape + (2,), dtype=torch.float32, device=dev)
     r, taps, masks = kernel_constants(config)
+    tile = lk_tile(r, centered)
     _build.launch(
         dev, "of2_lk_residual", p.data_ptr(), n.data_ptr(), out.data_ptr(), p.shape[0], h, w,
-        r, taps.ctypes.data, masks.ctypes.data, float(config.det_eps), int(centered),
+        r, tile.tile_h, tile.tile_w, taps.ctypes.data, masks.ctypes.data, float(config.det_eps),
+        int(centered),
     )
     lk_residual.launches += 1
     lk_residual.launches_centered += int(centered)

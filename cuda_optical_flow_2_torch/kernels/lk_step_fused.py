@@ -48,6 +48,7 @@ import torch
 
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.kernels import _build
+from cuda_optical_flow_2_torch.kernels.tile_geometry import lk_tile
 from cuda_optical_flow_2_torch.kernels.lk_fused import (
     kernel_constants,
     lk_residual_plain,
@@ -133,10 +134,12 @@ def _launch(prev, nxt, flow, config, centered, row0, h_global, flow_half=False) 
     (f,) = planes(flow.reshape(-1, fh, fw, 2))
     out = torch.empty(p.shape + (2,), dtype=torch.float32, device=dev)
     r, taps, masks = kernel_constants(config)
+    tile = lk_tile(r, centered)
     _build.launch(
         dev, "of2_lk_level_step", p.data_ptr(), n.data_ptr(), f.data_ptr(), out.data_ptr(),
-        p.shape[0], h, w, int(row0), int(h_global), r, taps.ctypes.data, masks.ctypes.data,
-        float(config.det_eps), float(config.max_displacement), int(centered), int(flow_half),
+        p.shape[0], h, w, int(row0), int(h_global), r, tile.tile_h, tile.tile_w,
+        taps.ctypes.data, masks.ctypes.data, float(config.det_eps),
+        float(config.max_displacement), int(centered), int(flow_half),
     )
     return out.reshape(lead + (h, w, 2))
 

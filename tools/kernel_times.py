@@ -6,17 +6,26 @@ ROOT is the root of a checkout of this repo (its ``chip_smoke.py`` and
 ``cuda_optical_flow_2_torch`` are imported from there).  It builds that
 checkout's kernels and times, at 1080x1920 with CUDA events and the shapes
 of ``chip_smoke.py``'s phase 9: the kernels of the shared LK tile body,
-``lk_residual`` (``PAPER_1080P``), ``lk_level_step`` (``PAPER_1080P`` and
-the 9x9 box centered mode, and ``flow_half`` where the checkout has it) and
-``lk_band_step`` (``PAPER_1080P``, the frames as the band of rows 497-1577
-of a 2160-row image); ``warp_bilinear_select``,
+``lk_residual`` (``PAPER_1080P`` and the DIS 9x9 box centered mode),
+``lk_level_step`` (both, and ``flow_half`` of both where the checkout has
+it) and ``lk_band_step`` (``PAPER_1080P``, the frames as the band of rows
+497-1577 of a 2160-row image); ``warp_bilinear_select``,
 ``bilateral_kernel`` (9x9, the stacked pair), ``hs_relax`` (100 sweeps,
 quadratic and Charbonnier), ``tvl1_relax`` (14 iterations, warm) and
-``fb_level_step`` (``FBConfig()``, warm); and the relaxations' band entries
-at phase 9's interior 4K band (rows 720-1440 of 2160x3840 and the TP halo
-of 10 rows): ``hs_relax_band`` (8 quadratic sweeps; 8 Charbonnier sweeps
-with ``it_offset``) and ``tvl1_relax_band`` (8 iterations, carried
-duals).  To compare two checkouts, run it
+``fb_level_step`` (``FBConfig()``, warm), ``poly_expansion_kernel``
+(``poly_n = 7``) and ``window_solve`` (15x15); and the band entries at
+phase 9's interior 4K band (rows 720-1440 of 2160x3840 and the TP path's
+halo): ``lk_band_step`` (halo 43, ``PAPER_1080P`` and the DIS 9x9 box
+centered mode), ``fb_band_step`` (halo 46, ``FBConfig()``, warm),
+``hs_relax_band`` (halo 10, 8 quadratic sweeps; 8 Charbonnier sweeps with
+``it_offset``) and ``tvl1_relax_band`` (halo 10, 8 iterations, carried
+duals).
+
+Each time is the device's: median over runs of the ms per call of
+``inner`` back-to-back calls between two CUDA events, recorded while the
+card waits in a sleep kernel until the host has enqueued them all, so the
+host's launch time (a wrapper call costs tens of microseconds, more than
+some of these kernels) is not in it.  To compare two checkouts, run it
 on both on one card, one after the other in one command, in the order
 parent, change, change, parent.
 """
@@ -27,6 +36,30 @@ import sys
 from pathlib import Path
 
 import numpy as np
+
+
+SLEEP_CYCLES = 5_000_000  # about 3 ms of SM clock: longer than 10 calls take to enqueue
+
+
+def device_ms(fn, reps: int, inner: int = 1, warmup: int = 3) -> float:
+    """Median over ``reps`` of the device ms per call of ``inner`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
 
 
 def main() -> int:
@@ -46,7 +79,10 @@ def main() -> int:
         poly_exp_fused,
         tvl1_sweep,
         warp_select,
+        win_solve,
     )
+    from cuda_optical_flow_2_torch.models.dis import _lk_like
+    from cuda_optical_flow_2_torch.models.farneback import fb_normal_eq_products
 
     dev = torch.device("cuda", 0)
     _build.library()
@@ -56,10 +92,14 @@ def main() -> int:
     exp0 = poly_exp_fused.poly_expansion_plain(p0, 7, 1.5)
     tv = of.TVL1Config()
     tvl1_kw = dict(iterations=14, lambda_=tv.lambda_, theta=tv.theta, tau=tv.tau, eps=tv.epsilon)
-    dis_lk = of.LKConfig(levels=5, window=9, iterations=1, window_weights="box")
+    dis_lk = _lk_like(of.DISConfig())
+    prods0 = fb_normal_eq_products(exp0, poly_exp_fused.poly_expansion_plain(n0, 7, 1.5),
+                                   f0[..., 0], f0[..., 1])
     cfg = of.PAPER_1080P
     cases = [
         ("lk_residual", lambda: lk_fused.lk_residual(p0, n0, cfg), 30, 10),
+        ("lk_residual centered", lambda: lk_fused.lk_residual(p0, n0, dis_lk, centered=True),
+         30, 10),
         ("lk_level_step", lambda: lk_step_fused.lk_level_step(p0, n0, f0, cfg), 30, 10),
         ("lk_level_step centered", lambda: lk_step_fused.lk_level_step(
             p0, n0, f0, dis_lk, centered=True), 30, 10),
@@ -73,6 +113,9 @@ def main() -> int:
             robust=(3.0, 0.1)), 10, 1),
         ("tvl1_relax", lambda: tvl1_sweep.tvl1_relax(p0, w0, f0, f0, **tvl1_kw), 10, 1),
         ("fb_level_step", lambda: fb_step_fused.fb_level_step(n0, exp0, f0, of.FBConfig()), 30, 10),
+        ("poly_expansion_kernel", lambda: poly_exp_fused.poly_expansion_kernel(p0, 7, 1.5), 30,
+         10),
+        ("window_solve", lambda: win_solve.window_solve(*prods0, 15, 1e-6), 30, 10),
     ]
     # the band entries at the interior 4K band, with its TP halo of 10 rows
     rng = np.random.default_rng(3)
@@ -81,8 +124,8 @@ def main() -> int:
     off8, *duals8 = (torch.as_tensor(rng.normal(0, s, (2160, 3840)).astype(np.float32), device=dev)
                      for s in (5.0, 0.05, 0.05, 0.05, 0.05))
 
-    def band(x):
-        return x[710:1450].contiguous()
+    def band(x, halo=10):
+        return x[720 - halo:1440 + halo].contiguous()
 
     state8 = tuple(band(x) for x in (f8[..., 0] * 0.5, f8[..., 1] * 0.5, *duals8))
     hs_band = (band(p8), band(n8), band(f8) * 0.1, 710, 2160)
@@ -90,7 +133,15 @@ def main() -> int:
     hs_charb_kw = dict(hs_band_kw, robust=(3.0, 0.1), it_offset=band(off8))
     tvl1_band = (band(p8), band(w8), band(f8), state8, 710, 2160)
     tvl1_band_kw = dict(tvl1_kw, iterations=8)
+    lk_band = (band(p8, 43), band(n8, 43), band(f8, 43), 720 - 43)
+    exp8 = poly_exp_fused.poly_expansion_plain(p8, 7, 1.5)
+    fb_band = (band(n8, 46), tuple(band(e, 46) for e in exp8), band(f8, 46), 720 - 46,
+               of.FBConfig(), 2160)
     cases += [
+        ("lk_band_step 4K", lambda: lk_step_fused.lk_band_step(*lk_band, cfg, 2160), 30, 10),
+        ("lk_band_step 4K centered", lambda: lk_step_fused.lk_band_step(
+            *lk_band, dis_lk, 2160, centered=True), 30, 10),
+        ("fb_band_step", lambda: fb_step_fused.fb_band_step(*fb_band), 30, 10),
         ("hs_relax_band", lambda: hs_sweep.hs_relax_band(*hs_band, **hs_band_kw), 30, 10),
         ("hs_relax_band charbonnier", lambda: hs_sweep.hs_relax_band(*hs_band, **hs_charb_kw),
          30, 10),
@@ -101,7 +152,9 @@ def main() -> int:
         half = f0[::2, ::2].contiguous()
         cases.append(("lk_level_step flow_half", lambda: lk_step_fused.lk_level_step(
             p0, n0, half, cfg, flow_half=True), 30, 10))
-    out = {name: cs.cuda_ms(fn, reps, inner=inner) for name, fn, reps, inner in cases}
+        cases.append(("lk_level_step flow_half centered", lambda: lk_step_fused.lk_level_step(
+            p0, n0, half, dis_lk, centered=True, flow_half=True), 30, 10))
+    out = {name: device_ms(fn, reps, inner=inner) for name, fn, reps, inner in cases}
     print(json.dumps({"tree": root.name, **out}))
     return 0
 
