@@ -17,7 +17,10 @@ then, in order:
    on ``upsample_flow`` of the coarser flow; the window kernels' tile edges
    (LK windows 65 and 1, FB windows 15 and 1 on the ragged batch, a band
    bit-equal to the whole image at the 1x1 windows, ``flow_half`` at
-   2x478x642);
+   2x478x642); the bilateral (windows 9 and 31, whole and on bands past the
+   top and the bottom of the global image) and the expansion (``poly_n`` 5,
+   7 and 31) on the ragged batch, each case naming the instance it took
+   (compiled in or generic);
 4. path ``PAPER_1080P``: ``pyramidal_lk`` on a 1080x1920 pair translating at
    (2, 1) px, against the plain path (``use_pallas=False``, the same plain
    ops without the budget clamp, which (2, 1) never reaches);
@@ -386,10 +389,24 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
         h, w = img.shape[-2:]
         r = window // 2
         planes = img.numel() // (h * w)
-        taps = planes * _taps_in_image(h, r, row0, hg) * _taps_in_image(w, r)
+        cols = _taps_in_image(w, r)
+        # the outputs inside the global image, and the in-image taps they
+        # take (centres included): all of them, and those on another output
+        rows = max(0, min(row0 + h, h if hg is None else hg) - max(row0, 0))
+        px = planes * rows * w
+        taps = planes * _taps_in_image(h, r, row0, hg) * cols
+        inner = planes * _taps_in_image(rows, r) * cols
+        # a range weight is symmetric in its pair (k^2 and the spatial taps
+        # are), so one exp for each unordered pair of distinct pixels:
+        # output-output pairs once, output-halo pairs once; none for a centre
+        pairs = (inner - px) // 2 + (taps - inner)
         read = img.element_size() * img.numel() + (0 if guide is None else 4 * guide.numel())
-        # per tap: difference, square, scale, two weight products, FMA (2), add; one divide
-        return float(read + 4 * img.numel()), 8.0 * taps + img.numel(), float(taps)
+        # per pair: difference, square (the guide pre-scaled once per pixel);
+        # per tap but the centre: spatial product, FMA (2), add; per centre:
+        # FMA (2), add; per output: the pre-scale; special functions: the
+        # pairs' exps and one divide per output
+        ops = 2 * pairs + 4 * (taps - px) + 3 * px + px
+        return float(read + 4 * img.numel()), float(ops), float(pairs + px)
     if name == "poly_expansion_kernel":
         f, n = args[0], args[1]
         # 3 vertical and 6 horizontal multiply-adds per tap, 30 of mixing
@@ -733,6 +750,32 @@ def main() -> int:
                            f"batch 2, bit-equal to upsample_flow + step"))
     print("phase 3 kernels tile edges (ragged batch 2x479x641: LK window 65 and 1, FB 15 and 1; "
           "flow_half 2x478x642): " + "; ".join(parts))
+    # the bilateral's 32 x 32 and the expansion's 20 x 128 tiles on the
+    # ragged batch (no tile divides it): the bilateral at window 9 (compiled
+    # in) and 31 (generic) on the whole image and on bands past the top
+    # (row0 < 0) and past the bottom (row0 + H > Hg), where taps outside the
+    # global image must weigh nothing; the expansion at poly_n 5, 7 (compiled
+    # in) and 31
+    parts = []
+    for window in (9, 31):
+        inst = "compiled in" if bilateral_tap.compiled_in(window) else "generic"
+        parts.append(check("bilateral_kernel", bilateral_tap.bilateral_kernel(rp, window),
+                           bilateral_tap.bilateral_kernel_plain(rp, window), 479, 641,
+                           f"batch 2 {window}x{window} ({inst})"))
+        for row0, hg in ((-7, 600), (150, 500)):
+            parts.append(check(
+                "bilateral_kernel_band", bilateral_tap.bilateral_kernel_band(rp, row0, hg, window),
+                bilateral_tap.bilateral_kernel_band_plain(rp, row0, hg, window), 479, 641,
+                f"batch 2 rows {row0}-{row0 + 479} of {hg} {window}x{window} ({inst})"))
+    for n_poly, sigma in ((5, 1.1), (7, 1.5), (31, 5.0)):
+        inst = "compiled in" if poly_exp_fused.compiled_in(n_poly) else "generic"
+        parts.append(check(
+            "poly_expansion_kernel",
+            torch.stack(poly_exp_fused.poly_expansion_kernel(rp, n_poly, sigma)),
+            torch.stack(poly_exp_fused.poly_expansion_plain(rp, n_poly, sigma)), 479, 641,
+            f"batch 2 poly_n={n_poly} ({inst})"))
+    print("phase 3 kernels tile edges of the bilateral and the expansion (ragged batch "
+          "2x479x641): " + "; ".join(parts))
     rng = np.random.default_rng(3)
     for h, w in ((1080, 1920), (480, 640)):
         p, n, f = (cuda(a) for a in textured_pair(h, w, seed=h + 1))

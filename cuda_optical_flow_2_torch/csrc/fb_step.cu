@@ -80,7 +80,7 @@ of2_fb_step_kernel(const float* __restrict__ nxt, const float* __restrict__ bx1,
                    const float* __restrict__ flow_in, float* __restrict__ flow_out,
                    const Of2FBParams p, int row0, int Hg, int ylo, int yhi) {
   extern __shared__ float smem[];
-  constexpr int WTAPS = RW >= 0 ? 2 * RW + 1 : 0, PTAPS = RP >= 0 ? 2 * RP + 1 : 0;
+  constexpr int WTAPS = RW >= 0 ? 2 * RW + 1 : 0;
   const int rw = RW >= 0 ? RW : p.rw, rp = RP >= 0 ? RP : p.poly.r;
   const int H = p.H, W = p.W, th = p.th, tw = p.tw;
   const int ph = th + 2 * rw, pw = tw + 2 * rw;  // products: ph x pw
@@ -129,15 +129,8 @@ of2_fb_step_kernel(const float* __restrict__ nxt, const float* __restrict__ bx1,
   for (int i = threadIdx.x; i < sw * of2_runs(ph); i += blockDim.x) {
     const int x = i % sw, y0 = of2_run_start(i / sw, ph);
     float a[3][OF2_RUN];
-#pragma unroll
-    for (int k = 0; k < OF2_RUN; ++k) a[0][k] = a[1][k] = a[2][k] = 0.f;
-    of2_run_sum<1, 3, PTAPS>(
-        2 * rp + 1, [&](int j, float (&v)[1]) { v[0] = S[(y0 + j) * sw + x]; },
-        [&](int t, const float (&v)[1], float (&acc)[3][OF2_RUN], int k) {
-#pragma unroll
-          for (int g = 0; g < 3; ++g) acc[g][k] += p.poly.g[g][t] * v[0];
-        },
-        a);
+    of2_poly_vertical_run<RP>([&](int j, float (&v)[1]) { v[0] = S[(y0 + j) * sw + x]; },
+                              p.poly, a);
 #pragma unroll
     for (int c = 0; c < 3; ++c)
 #pragma unroll
@@ -153,37 +146,13 @@ of2_fb_step_kernel(const float* __restrict__ nxt, const float* __restrict__ bx1,
     const float* t0 = T + py * ldt + px0;
     const float* t1 = t0 + tplane;
     const float* t2 = t1 + tplane;
-    float m[6][OF2_RUN];
-#pragma unroll
-    for (int l = 0; l < 6; ++l)
-#pragma unroll
-      for (int k = 0; k < OF2_RUN; ++k) m[l][k] = 0.f;
-    of2_run_sum<3, 6, PTAPS>(
-        2 * rp + 1,
+    of2_poly_moments_run<RP>(
         [&](int j, float (&v)[3]) {
           v[0] = t0[j];
           v[1] = t1[j];
           v[2] = t2[j];
         },
-        [&](int t, const float (&v)[3], float (&acc)[6][OF2_RUN], int k) {
-          const float g0 = p.poly.g[0][t], g1 = p.poly.g[1][t], g2 = p.poly.g[2][t];
-          acc[0][k] += g0 * v[0];  // m00: 1
-          acc[1][k] += g1 * v[0];  // m10: x
-          acc[2][k] += g0 * v[1];  // m01: y
-          acc[3][k] += g2 * v[0];  // m20: x^2
-          acc[4][k] += g0 * v[2];  // m02: y^2
-          acc[5][k] += g1 * v[1];  // m11: xy
-        },
-        m);
-#pragma unroll
-    for (int k = 0; k < OF2_RUN; ++k)
-#pragma unroll
-      for (int q = 0; q < 5; ++q) {
-        float acc = 0.f;
-#pragma unroll
-        for (int l = 0; l < 6; ++l) acc += p.poly.mix[q][l] * m[l][k];
-        P[q * pplane + py * ldp + px0 + k] = acc;
-      }
+        p.poly, [&](int q, int k, float e) { P[q * pplane + py * ldp + px0 + k] = e; });
   }
   __syncthreads();
 

@@ -1,15 +1,20 @@
-// Farnebaeck quadratic polynomial expansion, per pixel, from shared memory.
+// Farnebaeck quadratic polynomial expansion: the two register-blocked passes
+// shared by poly_exp.cu (the expansion alone) and fb_step.cu (the fused
+// iteration, which re-expands the warped frame).
 //
 // The counterpart of kernels/fb_step_fused.band_expansion in the JAX
-// package, shared by poly_exp.cu (the expansion alone) and fb_step.cu (the
-// fused iteration, which re-expands the warped frame).  Two steps over a
-// zero-padded source tile S in shared memory:
-//   vertical:   T_k[i][j] = sum_t g_k[t] S[i + t][j],  g_k = {g, g*o, g*o^2};
-//   horizontal: the six moments at (i, j) from T_k[i][j .. j + 2r], then the
+// package.  Two steps over a zero-padded source tile S in shared memory:
+//   vertical:   T_c[i][j] = sum_t g_c[t] S[i + t][j],  g_c = {g, g*o, g*o^2};
+//   horizontal: the six moments at (i, j) from T_c[i][j .. j + 2r], then the
 //               constant rows of G^-1 (ops/poly_exp.mixing_matrix, the axy row
 //               halved on the host) give (bx, by, axx, ayy, axy).
-// The taps and the mixing rows are computed in float64 on the host and come
-// in as float32 kernel parameters, in the order the plain version sums.
+// Each pass works on a run of OF2_RUN cells (of2_run_sum, of2_common.cuh):
+// a thread loads each input of the run's span once and sums every cell of
+// the run from registers, each sum over the taps 0 .. 2r in order, as the
+// plain version sums.  The callers choose which cells a thread takes and
+// where the results go.  The taps and the mixing rows are computed in
+// float64 on the host and come in as float32 kernel parameters; with the
+// radius RP >= 0 compiled in, each tap is an immediate operand.
 #pragma once
 
 #include "of2_common.cuh"
@@ -35,55 +40,59 @@ static inline bool of2_poly_fill(Of2PolyTaps* p, int r, const float* taps, const
   return true;
 }
 
-// Vertical pass: t holds three planes of th x tw (one after another); row i
-// of each reads source rows i .. i + 2r of s (leading dimension lds).
-__device__ __forceinline__ void of2_poly_vertical(const float* __restrict__ s, int lds,
-                                                  float* __restrict__ t, int th, int tw,
-                                                  const Of2PolyTaps& p) {
-  const int n = 2 * p.r + 1, plane = th * tw;
-  for (int i = threadIdx.x; i < plane; i += blockDim.x) {
-    const int y = i / tw, x = i % tw;
-    const float* col = s + y * lds + x;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-    for (int k = 0; k < n; ++k) {
-      const float v = col[k * lds];
-      a0 += p.g[0][k] * v;
-      a1 += p.g[1][k] * v;
-      a2 += p.g[2][k] * v;
-    }
-    t[i] = a0;
-    t[plane + i] = a1;
-    t[2 * plane + i] = a2;
-  }
+// Vertical sums of a run of OF2_RUN cells down one column: load(j, v) sets
+// v[0] to the source cell j rows below the run's first cell and tap 0 (j = 0
+// .. OF2_RUN + 2r - 1); a[c][k] = sum_t g_c[t] (cell k + t) (RP >= 0: RP ==
+// p.r, compiled in).
+template <int RP, class Load>
+__device__ __forceinline__ void of2_poly_vertical_run(Load load, const Of2PolyTaps& p,
+                                                      float (&a)[3][OF2_RUN]) {
+  constexpr int PTAPS = RP >= 0 ? 2 * RP + 1 : 0;
+#pragma unroll
+  for (int k = 0; k < OF2_RUN; ++k) a[0][k] = a[1][k] = a[2][k] = 0.f;
+  of2_run_sum<1, 3, PTAPS>(
+      2 * (RP >= 0 ? RP : p.r) + 1, load,
+      [&](int t, const float (&v)[1], float (&acc)[3][OF2_RUN], int k) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) acc[c][k] += p.g[c][t] * v[0];
+      },
+      a);
 }
 
-// Horizontal moments and mixing for the pixel whose vertical sums start at
-// t[i * ldt + j] (columns j .. j + 2r); plane is the size of one t plane.
-__device__ __forceinline__ void of2_poly_pixel(const float* __restrict__ t, int plane, int ldt,
-                                               int i, int j, const Of2PolyTaps& p,
-                                               float out[5]) {
-  const int n = 2 * p.r + 1;
-  const float* t0 = t + i * ldt + j;
-  const float* t1 = t0 + plane;
-  const float* t2 = t1 + plane;
-  float m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < n; ++k) {
-    const float g0 = p.g[0][k], g1 = p.g[1][k], g2 = p.g[2][k];
-    const float v0 = t0[k], v1 = t1[k], v2 = t2[k];
-    m[0] += g0 * v0;  // m00: 1
-    m[1] += g1 * v0;  // m10: x
-    m[2] += g0 * v1;  // m01: y
-    m[3] += g2 * v0;  // m20: x^2
-    m[4] += g0 * v2;  // m02: y^2
-    m[5] += g1 * v1;  // m11: xy
-  }
+// Horizontal moments and the mixing of a run of OF2_RUN cells along one
+// row: load(j, v) fills v with the three vertical sums at span cell j (j = 0
+// .. OF2_RUN + 2r - 1; cell k's taps are span cells k .. k + 2r);
+// store(q, k, e) takes coefficient q of (bx, by, axx, ayy, axy) of cell k.
+template <int RP, class Load, class Store>
+__device__ __forceinline__ void of2_poly_moments_run(Load load, const Of2PolyTaps& p,
+                                                     Store store) {
+  constexpr int PTAPS = RP >= 0 ? 2 * RP + 1 : 0;
+  float m[6][OF2_RUN];
 #pragma unroll
-  for (int c = 0; c < 5; ++c) {
-    float acc = 0.f;
+  for (int l = 0; l < 6; ++l)
 #pragma unroll
-    for (int l = 0; l < 6; ++l) acc += p.mix[c][l] * m[l];
-    out[c] = acc;
-  }
+    for (int k = 0; k < OF2_RUN; ++k) m[l][k] = 0.f;
+  of2_run_sum<3, 6, PTAPS>(
+      2 * (RP >= 0 ? RP : p.r) + 1, load,
+      [&](int t, const float (&v)[3], float (&acc)[6][OF2_RUN], int k) {
+        const float g0 = p.g[0][t], g1 = p.g[1][t], g2 = p.g[2][t];
+        acc[0][k] += g0 * v[0];  // m00: 1
+        acc[1][k] += g1 * v[0];  // m10: x
+        acc[2][k] += g0 * v[1];  // m01: y
+        acc[3][k] += g2 * v[0];  // m20: x^2
+        acc[4][k] += g0 * v[2];  // m02: y^2
+        acc[5][k] += g1 * v[1];  // m11: xy
+      },
+      m);
+#pragma unroll
+  for (int k = 0; k < OF2_RUN; ++k)
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+      float acc = 0.f;
+#pragma unroll
+      for (int l = 0; l < 6; ++l) acc += p.mix[q][l] * m[l][k];
+      store(q, k, acc);
+    }
 }
 
 // The five normal-equation products of one Farnebaeck iteration

@@ -9,18 +9,37 @@ image, ``wgt = range_norm * exp(-(k*k) * inv_2s2) * spatial[m, n]`` with
 
 What bounds it on an H100: operations, not bytes.  Each pixel reads one
 image and one guide value and writes one, but takes ``window**2`` range
-weights, each an accurate ``expf`` (one special-function-unit instruction
-plus FP32 range reduction) and about eight FP32 operations: 81 taps at the
-reference's 9x9.  The design stages a 16 x 32 tile plus its ``r``-pixel halo
-of image and guide in shared memory once, so the taps read shared memory
-only, and takes the spatial taps precomputed on the host in the kernel
-parameters.  A tap is masked by testing its position against the image
-bounds; the TPU kernel's trick of a ``+inf`` guide outside the image (NaN at
-out-of-image centres, cropped there) has no counterpart.  The band entry
-passes the band's global row ``row0`` and the image height ``h_global``:
-taps are masked on global rows, and pixels outside the global image are
-written as zero (the plain version is ``ops.bilateral.bilateral_filter_band``);
-the whole-image entry is the band ``(0, H)``.
+weights: 81 at the reference's 9x9.  Each weight takes one exponential,
+and the card's special-function units issue those 16 per clock per SM, an
+eighth of the FP32 rate, so the design leaves each tap little more than
+its exponential:
+
+- the weight is one ``ex2.approx`` (about 2 ulp) of a pre-scaled argument,
+  ``2^(k*k * nc + lw[m, n])`` with ``nc = -inv_2s2 * log2(e)`` and ``lw =
+  log2(range_norm * spatial)`` computed on the host in float64.  The
+  accurate ``expf`` would add a range reduction per tap; folding the
+  constants into the exponent changes only rounding (``range_norm`` cancels
+  in ``num / den``), which the card holds within ``chip_smoke.py``'s
+  ``BILATERAL_MAX_ERR``;
+- a thread owns four outputs along a row and reads each (guide, image) pair
+  of a tap row once from shared memory, where a 32 x 32 tile and its
+  ``r``-pixel halo are staged;
+- no tap is tested against the image bounds: a position outside the global
+  image is staged with a ``+inf`` guide, whose weight ``2^-inf`` is exactly
+  ``+0`` and adds exactly nothing to ``num`` and ``den``, as the plain
+  version's masked weight does.  Unlike the TPU kernel's ``+inf`` trick no
+  centre is ever out of the image: such pixels are written as zero;
+- the reference's window 9 runs a kernel compiled for its taps, any other
+  window up to ``MAX_WINDOW`` a generic one (:func:`compiled_in` asks the
+  C dispatch which).
+
+The band entry passes the band's global row ``row0`` and the image height
+``h_global``: positions are staged on global rows, a tap inside the image
+but outside the band reads zero, and pixels outside the global image are
+written as zero (the plain version is
+``ops.bilateral.bilateral_filter_band``); the whole-image entry is the band
+``(0, H)``.  Every tile runs the same loop, so band rows are bit-equal to
+the whole image's rows.
 
 :func:`bilateral_kernel` and :func:`bilateral_kernel_band` launch the
 kernel for CUDA tensors and take their plain versions for CPU tensors;
@@ -45,6 +64,7 @@ __all__ = [
     "bilateral_kernel_band",
     "bilateral_kernel_band_plain",
     "bilateral_kernel_plain",
+    "compiled_in",
     "supported",
     "MAX_WINDOW",
 ]
@@ -58,6 +78,12 @@ def supported(window: int) -> bool:
     ``supported``; past the limit the callers take the plain filter, and
     the wrappers raise when called directly."""
     return window <= MAX_WINDOW
+
+
+def compiled_in(window: int) -> bool:
+    """Whether the C entry launches ``window`` on the kernel compiled for its
+    taps (else the generic one); builds the kernel library."""
+    return bool(_build.library().of2_bilateral_compiled(window // 2))
 
 
 def bilateral_kernel_plain(

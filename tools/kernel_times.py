@@ -16,7 +16,8 @@ quadratic and Charbonnier), ``tvl1_relax`` (14 iterations, warm) and
 (``poly_n = 7``) and ``window_solve`` (15x15); and the band entries at
 phase 9's interior 4K band (rows 720-1440 of 2160x3840 and the TP path's
 halo): ``lk_band_step`` (halo 43, ``PAPER_1080P`` and the DIS 9x9 box
-centered mode), ``fb_band_step`` (halo 46, ``FBConfig()``, warm),
+centered mode), ``bilateral_kernel_band`` (halo 4, 9x9, the stacked
+pair), ``fb_band_step`` (halo 46, ``FBConfig()``, warm),
 ``hs_relax_band`` (halo 10, 8 quadratic sweeps; 8 Charbonnier sweeps with
 ``it_offset``) and ``tvl1_relax_band`` (halo 10, 8 iterations, carried
 duals).
@@ -137,7 +138,9 @@ def main() -> int:
     exp8 = poly_exp_fused.poly_expansion_plain(p8, 7, 1.5)
     fb_band = (band(n8, 46), tuple(band(e, 46) for e in exp8), band(f8, 46), 720 - 46,
                of.FBConfig(), 2160)
+    bil_band = (torch.stack([band(p8, 4), band(n8, 4)]), 720 - 4, 2160, 9)
     cases += [
+        ("bilateral_kernel_band", lambda: bilateral_tap.bilateral_kernel_band(*bil_band), 30, 10),
         ("lk_band_step 4K", lambda: lk_step_fused.lk_band_step(*lk_band, cfg, 2160), 30, 10),
         ("lk_band_step 4K centered", lambda: lk_step_fused.lk_band_step(
             *lk_band, dis_lk, 2160, centered=True), 30, 10),
