@@ -20,7 +20,13 @@ then, in order:
    2x478x642); the bilateral (windows 9 and 31, whole and on bands past the
    top and the bottom of the global image) and the expansion (``poly_n`` 5,
    7 and 31) on the ragged batch, each case naming the instance it took
-   (compiled in or generic);
+   (compiled in or generic); ``median_filter_kernel`` ``torch.equal`` to
+   the plain median at sizes 3 and 5 on the flow view and planes at
+   1080x1920, the ragged batch and TP bands with their edge halos, and NaN
+   where the plain median gives NaN; ``window_solve`` bit-equal at windows
+   1, 15 and 33 (also on the ragged batch); ``fb_level_step`` at winsize 33,
+   ``poly_n`` 31 on the ragged batch no farther from a float64 run of the
+   plain version than the float32 plain version is;
 4. path ``PAPER_1080P``: ``pyramidal_lk`` on a 1080x1920 pair translating at
    (2, 1) px, against the plain path (``use_pallas=False``, the same plain
    ops without the budget clamp, which (2, 1) never reaches);
@@ -46,7 +52,8 @@ then, in order:
    against its plain run;
 8d. paths TV-L1 at 1080x1920: ``TVL1_REALTIME`` and ``TVL1Config()``, each
    against the plain path with a (2, 1) translation check and its launch
-   counts checked against the predicted ones;
+   counts checked against the predicted ones (one median launch per warp;
+   none on the plain path);
 8e. paths DIS at 1080x1920: ``DISConfig()``, ``DIS_REALTIME`` and the
    Charbonnier refinement, likewise;
 8f. spatial TP at 2160x3840 (4K UHD, period 48, a (2, 1) translation): each
@@ -85,8 +92,7 @@ then, in order:
    runs at 4K; host time included), each kernel, its plain version and,
    where one PyTorch call computes the same function, that call, in device
    time (the card waits in a sleep kernel while the host enqueues the
-   calls, so a wrapper's launch cost does not hide a faster kernel); the
-   median filter (plain PyTorch, no kernel);
+   calls, so a wrapper's launch cost does not hide a faster kernel);
 10. profile: ``torch.profiler`` over a few pairs of each path (device busy
     share, kernels per pair, the kernels that lead).
 
@@ -150,6 +156,10 @@ KERNELS = [
     ("tvl1_relax", "tvl1_sweep", "tvl1_relax_plain",
      "cuda_optical_flow_2_torch/csrc/tvl1_sweep.cu",
      "cuda_optical_flow_2_tpu/kernels/tvl1_sweep.py:202"),
+    # TV-L1's per-warp median: its TPU counterpart has no pallas_call
+    ("median_filter_kernel", "median_select", "median_filter_plain",
+     "cuda_optical_flow_2_torch/csrc/median_select.cu",
+     "cuda_optical_flow_2_tpu/ops/median.py:27"),
     # the spatial-TP band entries: the same sources with the band's global rows
     ("lk_band_step", "lk_step_fused", "lk_band_step_plain",
      "cuda_optical_flow_2_torch/csrc/lk_step_fused.cu",
@@ -193,7 +203,8 @@ POLY_RTOL, POLY_ATOL = 1e-4, 2e-4
 # px, kernel vs plain, per pixel: 1/det amplifies summation order, as for LK.
 # Tightened from 1e-4 / 1e-2 to what the card shows with margin (same card):
 # fb_level_step median 1.4e-6, p99.9 7.2e-4 (a flow of up to 20 px);
-# window_solve bit-equal to its plain version (same sums in the same order)
+# window_solve bit-equal to its plain version (same sums in the same order),
+# which phase 3 requires besides these limits
 FB_STEP_MEDIAN_ERR, FB_STEP_P999_ERR = 1e-5, 5e-3
 WIN_SOLVE_MEDIAN_ERR, WIN_SOLVE_P999_ERR = 1e-6, 1e-5
 # px, 14-30 iterations, kernel vs plain, per pixel: the threshold step's
@@ -415,6 +426,10 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
         px, window = args[0].numel(), args[5]
         # two box passes over five planes, then det, numerators, one divide
         return 28.0 * px, float((10 * (window - 1) + 12) * px), 0.0
+    if name == "median_filter_kernel":
+        # a selection: each plane element read once and written once; the
+        # network's exchanges depend on the algorithm and are not counted
+        return 8.0 * args[0].numel(), 0.0, 0.0
     if name in ("fb_level_step", "fb_band_step"):
         nxt = args[0]
         cfg, i_first = (args[3], 4) if name == "fb_level_step" else (args[4], 6)
@@ -509,12 +524,11 @@ def main() -> int:
     import cuda_optical_flow_2_torch as of
     from cuda_optical_flow_2_torch.constants import BINOMIAL_1D
     from cuda_optical_flow_2_torch.kernels import (
-        _build, bilateral_tap, fb_step_fused, hs_sweep, lk_fused, lk_step_fused, poly_exp_fused,
-        pyr_down, tvl1_sweep, warp_select, win_solve,
+        _build, bilateral_tap, fb_step_fused, hs_sweep, lk_fused, lk_step_fused, median_select,
+        poly_exp_fused, pyr_down, tvl1_sweep, warp_select, win_solve,
     )
     from cuda_optical_flow_2_torch.models.dis import _lk_like as dis_lk_like
     from cuda_optical_flow_2_torch.models.farneback import fb_normal_eq_products
-    from cuda_optical_flow_2_torch.ops.median import median_filter
     from cuda_optical_flow_2_torch.ops.poly_exp import gaussian_1d, mixing_matrix
     from cuda_optical_flow_2_torch.ops.resize import upsample_flow
     from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
@@ -522,7 +536,8 @@ def main() -> int:
     mods = {"lk_fused": lk_fused, "lk_step_fused": lk_step_fused, "warp_select": warp_select,
             "pyr_down": pyr_down, "bilateral_tap": bilateral_tap, "hs_sweep": hs_sweep,
             "poly_exp_fused": poly_exp_fused, "win_solve": win_solve,
-            "fb_step_fused": fb_step_fused, "tvl1_sweep": tvl1_sweep}
+            "fb_step_fused": fb_step_fused, "tvl1_sweep": tvl1_sweep,
+            "median_select": median_select}
     wrappers = {name: getattr(mods[m], name) for name, m, *_ in KERNELS}
     plains = {name: getattr(mods[m], plain) for name, m, plain, *_ in KERNELS}
 
@@ -551,9 +566,17 @@ def main() -> int:
 
     def check(name, got, want, h, w, label=""):
         torch.cuda.synchronize()
+        what = f"{name} {h}x{w} {label}".strip()
+        if name == "median_filter_kernel":
+            # a selection returns one of its inputs: bit-equal, NaN where the
+            # plain median is NaN (torch.equal treats -0.0 and +0.0 as equal)
+            nan = want.isnan()
+            require(torch.equal(got.isnan(), nan), f"{what}: NaN at other positions")
+            require(torch.equal(got[~nan], want[~nan]), f"{what}: not torch.equal to the plain "
+                                                       f"median, max |d| {float((got - want).abs().max())}")
+            return f"{name} {label} torch.equal"
         e = err_stats(got, want)
         max_err[name] = max(max_err[name], e["max"])
-        what = f"{name} {h}x{w} {label}".strip()
         if name == "poly_expansion_kernel":
             d = (got - want).abs() - POLY_RTOL * want.abs()
             torch.cuda.synchronize()
@@ -776,6 +799,74 @@ def main() -> int:
             f"batch 2 poly_n={n_poly} ({inst})"))
     print("phase 3 kernels tile edges of the bilateral and the expansion (ragged batch "
           "2x479x641): " + "; ".join(parts))
+    # TV-L1's median, a selection, torch.equal to the plain median at sizes 3
+    # and 5: on the 1080x1920 flow view TV-L1 hands it (flow.movedim(-1, 0),
+    # strides (1, 2W, 2); the output keeps the flow's layout), on contiguous
+    # planes, on the ragged batch (no tile divides it), on the bands of a
+    # 3-shard TP split with their edge-replicated halos (the TP path's
+    # shard-local median), and with NaN and +-inf in some windows
+    from cuda_optical_flow_2_torch.parallel.spatial import halo_exchange
+
+    fm = cuda(textured_pair(1080, 1920, seed=9)[2])
+    odd = fm.clone()
+    odd[500, 700, 0], odd[3, 3, 1], odd[1079, 0, 0] = float("nan"), float("inf"), -float("inf")
+    parts = []
+    for size in median_select.SIZES:
+        view = fm.movedim(-1, 0)
+        got = median_select.median_filter_kernel(view, size)
+        require(got.movedim(0, -1).is_contiguous(), "median of the flow view lost the flow layout")
+        cases = [("1080x1920 flow view", view, got),
+                 ("1080x1920 planes", view.contiguous(), None),
+                 ("1080x1920 flow view NaN +-inf", odd.movedim(-1, 0), None),
+                 ("ragged batch 2x479x641 images", rp, None),
+                 ("ragged batch 2x2x479x641 flow planes", rf.movedim(-1, 1), None)]
+        rm = size // 2
+        for i, b in enumerate(halo_exchange(list(view.chunk(3, dim=-2)), rm, rm, boundary="edge")):
+            cases.append((f"TP band {i} of 3 with {rm} edge rows", b, None))
+        for label, x, out in cases:
+            out = median_select.median_filter_kernel(x, size) if out is None else out
+            parts.append(check("median_filter_kernel", out,
+                               median_select.median_filter_plain(x, size), *x.shape[-2:],
+                               f"{size}x{size} {label}"))
+    print("phase 3 kernels median_filter_kernel: " + "; ".join(parts))
+    # the window solve bit-equal on the ragged batch (no tile divides it) at
+    # windows 1, 15 (compiled in) and 33; FB at winsize 33, poly_n 31 there
+    # is off its float32 plain version by the expansion's conditioning
+    # (median 3.7e-4 px, past FB_STEP_MEDIAN_ERR): in place of that median
+    # limit both float32 versions are held against a float64 run of the
+    # plain version, and the kernel's median distance from it may be no
+    # larger than the float32 plain version's; FB_STEP_P999_ERR holds the
+    # kernel against the float32 plain version as everywhere
+    rprods = fb_normal_eq_products(poly_exp_fused.poly_expansion_plain(rp, 7, 1.5),
+                                   poly_exp_fused.poly_expansion_plain(rn, 7, 1.5),
+                                   rf[..., 0], rf[..., 1])
+    parts = []
+    for window in (1, 15, 33):
+        got = win_solve.window_solve(*rprods, window=window)
+        want = win_solve.window_solve_plain(*rprods, window=window)
+        parts.append(check("window_solve", got, want, 479, 641, f"batch 2 {window}x{window}"))
+        require(torch.equal(got, want), f"window_solve 2x479x641 {window}x{window}: not bit-equal")
+    cfg = of.FBConfig(winsize=33, poly_n=31, poly_sigma=5.0)
+    exp32 = poly_exp_fused.poly_expansion_plain(rp, cfg.poly_n, cfg.poly_sigma)
+    exp64 = poly_exp_fused.poly_expansion_plain(rp.double(), cfg.poly_n, cfg.poly_sigma)
+    for first in (True, False):
+        ref = fb_step_fused.fb_level_step_plain(rn.double(), exp64, rf.double(), cfg, first,
+                                                dtype=torch.float64)
+        got = fb_step_fused.fb_level_step(rn, exp32, rf, cfg, first)
+        plain = fb_step_fused.fb_level_step_plain(rn, exp32, rf, cfg, first)
+        e_k, e_p, e_kp = err_stats(got, ref), err_stats(plain, ref), err_stats(got, plain)
+        mode = "first" if first else "warm"
+        require(e_k["median"] <= e_p["median"],
+                f"fb_level_step 2x479x641 33x33 poly_n=31 {mode}: kernel {e_k} farther from the "
+                f"float64 plain run than the float32 plain version {e_p}")
+        require(e_kp["p999"] <= FB_STEP_P999_ERR,
+                f"fb_level_step 2x479x641 33x33 poly_n=31 {mode}: kernel vs plain {e_kp}")
+        max_err["fb_level_step"] = max(max_err["fb_level_step"], e_kp["max"])
+        parts.append(f"fb_level_step batch 2 33x33 poly_n=31 {mode} from float64: kernel median "
+                     f"{e_k['median']:.3g} p99.9 {e_k['p999']:.3g}, float32 plain median "
+                     f"{e_p['median']:.3g} p99.9 {e_p['p999']:.3g}; kernel vs plain median "
+                     f"{e_kp['median']:.3g} p99.9 {e_kp['p999']:.3g}")
+    print("phase 3 kernels ragged 2x479x641 window solve and FB 33/31: " + "; ".join(parts))
     rng = np.random.default_rng(3)
     for h, w in ((1080, 1920), (480, 640)):
         p, n, f = (cuda(a) for a in textured_pair(h, w, seed=h + 1))
@@ -814,7 +905,7 @@ def main() -> int:
         exp1 = poly_exp_fused.poly_expansion_plain(p, 7, 1.5)
         exp2 = poly_exp_fused.poly_expansion_plain(n, 7, 1.5)
         prods = fb_normal_eq_products(exp1, exp2, f[..., 0], f[..., 1])
-        for window, det_eps in ((15, 1e-6), (33, 1e-6), (9, 0.0)):
+        for window, det_eps in ((1, 1e-6), (15, 1e-6), (33, 1e-6), (9, 0.0)):
             if det_eps <= 0:
                 # the unguarded division's inf/NaN pixels agree by position
                 got = win_solve.window_solve(*prods, window=window, det_eps=det_eps)
@@ -823,10 +914,12 @@ def main() -> int:
                         f"window_solve {h}x{w} det_eps=0: non-finite pixels differ")
                 if not bool(torch.isfinite(want).all()):
                     continue
-            parts.append(check(
-                "window_solve", win_solve.window_solve(*prods, window=window, det_eps=det_eps),
-                win_solve.window_solve_plain(*prods, window=window, det_eps=det_eps), h, w,
-                f"{window}x{window} det_eps={det_eps}"))
+            got = win_solve.window_solve(*prods, window=window, det_eps=det_eps)
+            want = win_solve.window_solve_plain(*prods, window=window, det_eps=det_eps)
+            parts.append(check("window_solve", got, want, h, w,
+                               f"{window}x{window} det_eps={det_eps}"))
+            require(torch.equal(got, want), f"window_solve {h}x{w} {window}x{window}: not "
+                                            "bit-equal to its plain version")
         for cfg in (of.FBConfig(), of.FBConfig(winsize=33, poly_n=31, poly_sigma=5.0),
                     of.FBConfig(winsize=9, poly_n=5, poly_sigma=1.1, max_displacement=8)):
             for first in (True, False):
@@ -1040,7 +1133,8 @@ def main() -> int:
                        ("poly_expansion_kernel", "fb_level_step", "pyr_down")),
         # four levels: five alias this period-24 texture (3.13 px in JAX too)
         "TVL1_REALTIME": (of.TVL1_REALTIME, of.pyramidal_tvl1,
-                          ("tvl1_relax", "warp_bilinear_select", "pyr_down")),
+                          ("tvl1_relax", "warp_bilinear_select", "pyr_down",
+                           "median_filter_kernel")),
         "DISConfig()": (of.DISConfig(), of.pyramidal_dis,
                         ("lk_residual centered", "lk_level_step centered", "hs_relax",
                          "warp_bilinear_select", "pyr_down")),
@@ -1071,7 +1165,8 @@ def main() -> int:
     # warm TV-L1 and DIS streaming over the same frames, one tracking level
     streams = {
         "TV-L1 TVL1_REALTIME levels=1": (dataclasses.replace(of.TVL1_REALTIME, levels=1),
-                                         ("tvl1_relax", "warp_bilinear_select", "pyr_down")),
+                                         ("tvl1_relax", "warp_bilinear_select", "pyr_down",
+                                          "median_filter_kernel")),
         "DIS DISConfig(levels=1)": (of.DISConfig(levels=1),
                                     ("lk_level_step centered", "hs_relax", "warp_bilinear_select",
                                      "pyr_down")),
@@ -1096,8 +1191,10 @@ def main() -> int:
     tp, tn = cuda(fr[0]).float(), cuda(fr[1]).float()
     tvl1_cfgs = {"TVL1_REALTIME": of.TVL1_REALTIME, "TVL1Config()": of.TVL1Config()}
     tvl1_expect = {
-        "TVL1_REALTIME": {"warp_bilinear_select": 16, "pyr_down": 3, "tvl1_relax": 16},
-        "TVL1Config()": {"warp_bilinear_select": 25, "pyr_down": 4, "tvl1_relax": 25},
+        "TVL1_REALTIME": {"warp_bilinear_select": 16, "pyr_down": 3, "tvl1_relax": 16,
+                          "median_filter_kernel": 16},
+        "TVL1Config()": {"warp_bilinear_select": 25, "pyr_down": 4, "tvl1_relax": 25,
+                         "median_filter_kernel": 25},
     }
     for label, cfg in tvl1_cfgs.items():
         flow, counts = run_path(f"TV-L1 {label}", lambda: of.pyramidal_tvl1(tp, tn, cfg),
@@ -1105,7 +1202,11 @@ def main() -> int:
         require(counts == tvl1_expect[label],
                 f"TV-L1 {label} launches {counts}, predicted {tvl1_expect[label]}")
         require(tuple(flow.shape) == (1080, 1920, 2), f"TV-L1 {label} flow shape {tuple(flow.shape)}")
-        e = err_stats(flow, of.pyramidal_tvl1(tp, tn, dataclasses.replace(cfg, use_pallas=False)))
+        # the plain path launches no kernel, the median's neither
+        plain, plain_counts = run_path(f"TV-L1 {label} plain", lambda: of.pyramidal_tvl1(
+            tp, tn, dataclasses.replace(cfg, use_pallas=False)), ())
+        require(not plain_counts, f"TV-L1 {label} plain path launched {plain_counts}")
+        e = err_stats(flow, plain)
         require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
                 f"pyramidal_tvl1 {label} kernel path vs plain path: {e}")
         m = inner_median(flow)
@@ -1116,7 +1217,8 @@ def main() -> int:
                 f"pyramidal_tvl1 {label} inner median flow {m}, expected (2, 1)")
         print(f"phase 8d pyramidal_tvl1 {label} 1080x1920 period 48: inner EPE {epe:.4f}, median "
               f"flow ({m[0]:.4f}, {m[1]:.4f}); vs plain path median {e['median']:.3g} p99 "
-              f"{e['p99']:.3g} max {e['max']:.3g}; launches {counts} (as predicted)")
+              f"{e['p99']:.3g} max {e['max']:.3g}; launches {counts} (as predicted), plain path "
+              "none")
 
     # 8e. paths DIS at 1080x1920, with the launch counts predicted in PERF.md
     dis_cfgs = {"DISConfig()": of.DISConfig(), "DIS_REALTIME": of.DIS_REALTIME,
@@ -1306,7 +1408,8 @@ def main() -> int:
     tp_paths_8g = {
         "TVL1_REALTIME": (of.TVL1_REALTIME, parallel.spatial_pyramidal_tvl1, of.pyramidal_tvl1,
                           PRESET_TRANSLATION_TOL, (TVL1_MEDIAN_ERR, TVL1_P999_ERR),
-                          {"tvl1_relax_band": 96, "warp_bilinear_select_band": 48, "pyr_down": 9}),
+                          {"tvl1_relax_band": 96, "warp_bilinear_select_band": 48, "pyr_down": 9,
+                           "median_filter_kernel": 48}),
         "FBConfig()": (of.FBConfig(), parallel.spatial_pyramidal_fb, of.pyramidal_farneback,
                        TRANSLATION_TOL, (FB_STEP_MEDIAN_ERR, FB_STEP_P999_ERR),
                        {"fb_band_step": 27, "poly_expansion_kernel": 9, "pyr_down": 6}),
@@ -1323,7 +1426,8 @@ def main() -> int:
             {"warp_bilinear_select_band": 24, "poly_expansion_kernel": 36, "pyr_down": 6}),
         "TVL1Config()": (
             of.TVL1Config(), parallel.spatial_pyramidal_tvl1, of.pyramidal_tvl1,
-            {"tvl1_relax_band": 300, "warp_bilinear_select_band": 75, "pyr_down": 12}),
+            {"tvl1_relax_band": 300, "warp_bilinear_select_band": 75, "pyr_down": 12,
+             "median_filter_kernel": 75}),
     }
     for label, (cfg, tp_fn, whole, expect) in tp_more.items():
         flow, counts = run_path(f"TP {label} 3 shards", lambda: tp_fn(up, un, cfg, mesh3),
@@ -1552,6 +1656,7 @@ def main() -> int:
         ("window_solve", "15x15", (*prods0, 15, 1e-6), {}),
         ("fb_level_step", "15x15 poly_n=7 warm", (n0, exp0, f0, of.FBConfig()), {}),
         ("tvl1_relax", "14 iterations warm", (p0, w0, f0, f0), tvl1_kw),
+        ("median_filter_kernel", "5x5 flow view", (f0.movedim(-1, 0), 5), {}),
         ("lk_residual", "9x9 box centered", (p0, n0, dis_lk), {"centered": True}),
         ("lk_level_step", "9x9 box centered", (p0, n0, f0, dis_lk), {"centered": True}),
         ("lk_level_step", "15x15 tri flow_half", (p0, n0, half0, of.PAPER_1080P),
@@ -1596,8 +1701,18 @@ def main() -> int:
     d = (conv_poly(p0) - torch.stack(poly_exp_fused.poly_expansion_kernel(p0, 7, 1.5))).abs()
     excess = float((d - POLY_RTOL * conv_poly(p0).abs()).max())
     require(excess <= POLY_ATOL, f"F.conv2d is not poly_expansion_kernel's function: {excess}")
+    # and torch.median over the 25 shifted slices of the edge-padded flow
+    # planes (the plain version's last call) computes median_filter_kernel's
+    fpad = F.pad(f0.movedim(-1, 0)[None], (2, 2, 2, 2), mode="replicate")[0]
+    stacked = torch.stack([fpad[:, dy:dy + 1080, dx:dx + 1920]
+                           for dy in range(5) for dx in range(5)])
+    require(torch.equal(stacked.median(dim=0).values,
+                        median_select.median_filter_kernel(f0.movedim(-1, 0), 5)),
+            "torch.median is not median_filter_kernel's function")
     library = {"pyr_down": ("F.conv2d(stride=2)", lambda: conv_pyr_down(pair0)),
-               "poly_expansion_kernel": ("F.conv2d 5x1x7x7", lambda: conv_poly(p0))}
+               "poly_expansion_kernel": ("F.conv2d 5x1x7x7", lambda: conv_poly(p0)),
+               "median_filter_kernel": ("torch.median of 25 stacked slices",
+                                        lambda: stacked.median(dim=0))}
     timing = {}
     for name, label, args, kw in timed:
         slow = name in ("hs_relax", "tvl1_relax")
@@ -1615,11 +1730,6 @@ def main() -> int:
         print(f"phase 9 timing [{card}] {name} {shape} {label}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms" + ("" if lib_ms is None else f", {lib_name} {lib_ms:.4f} ms")
               + f", bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / k_ms:.1f} % of the kernel's time)")
-
-    # the median filter of TV-L1's warps: plain PyTorch, no kernel
-    med_ms = cuda_ms(lambda: median_filter(f0.movedim(-1, 0), 5), 10, warmup=2, device=True)
-    print(f"phase 9 timing [{card}] median_filter 5x5 of a 2x1080x1920 flow (plain PyTorch "
-          f"torch.median over 25 stacked slices, no kernel): {med_ms:.4f} ms")
 
     # 10. profile: device busy share and device operations per pair
     for label, (fn, _plain, _r) in paths.items():

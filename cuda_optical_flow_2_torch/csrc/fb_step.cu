@@ -7,8 +7,8 @@
 //   P       = the five normal-equation products against the previous frame's
 //             expansion, with the clipped flow (zero on the first iteration),
 //             zero outside the image;
-//   flow    = box window of P and the guarded 2x2 solve (of2_win_tile.cuh):
-//             the total flow, not a residual.
+//   flow    = box window of P and the guarded 2x2 solve (of2_win_tile.cuh,
+//             shared with win_solve.cu): the total flow, not a residual.
 //
 // A block owns a TH x TW output tile (the wrapper picks it for the radii,
 // kernels/tile_geometry.fb_tile; TH and TW multiples of OF2_RUN).  With
@@ -36,19 +36,6 @@
 
 #define OF2_FB_THREADS 256
 #define OF2_FB_BATCH 8  // cells a thread warps at once
-
-// The guarded solve of one pixel's five window sums s = (g11, g12, g22, h1,
-// h2), as of2_win_tile.cuh's of2_window_solve_tile solves: rounded products
-// (no FMA contraction) keep the solve's float steps those of the plain
-// version, since 1/det amplifies any difference.
-__device__ __forceinline__ float2 of2_fb_solve(const float s[5], float det_eps) {
-  const float det = __fsub_rn(__fmul_rn(s[0], s[2]), __fmul_rn(s[1], s[1]));
-  const bool safe = fabsf(det) >= det_eps;
-  const float inv = 1.f / (safe ? det : 1.f);
-  const float u = __fmul_rn(__fsub_rn(__fmul_rn(s[2], s[3]), __fmul_rn(s[1], s[4])), inv);
-  const float v = __fmul_rn(__fsub_rn(__fmul_rn(s[0], s[4]), __fmul_rn(s[1], s[3])), inv);
-  return make_float2(safe ? u : 0.f, safe ? v : 0.f);
-}
 
 struct Of2FBParams {
   Of2PolyTaps poly;
@@ -80,7 +67,6 @@ of2_fb_step_kernel(const float* __restrict__ nxt, const float* __restrict__ bx1,
                    const float* __restrict__ flow_in, float* __restrict__ flow_out,
                    const Of2FBParams p, int row0, int Hg, int ylo, int yhi) {
   extern __shared__ float smem[];
-  constexpr int WTAPS = RW >= 0 ? 2 * RW + 1 : 0;
   const int rw = RW >= 0 ? RW : p.rw, rp = RP >= 0 ? RP : p.poly.r;
   const int H = p.H, W = p.W, th = p.th, tw = p.tw;
   const int ph = th + 2 * rw, pw = tw + 2 * rw;  // products: ph x pw
@@ -193,21 +179,10 @@ of2_fb_step_kernel(const float* __restrict__ nxt, const float* __restrict__ bx1,
   for (int i = threadIdx.x; i < pw * (th / OF2_RUN); i += blockDim.x) {
     const int x = i % pw, y0 = (i / pw) * OF2_RUN;
     float a[5][OF2_RUN];
+    of2_win_sum_run<RW>(rw, [&](int j, float (&v)[5]) {
 #pragma unroll
-    for (int c = 0; c < 5; ++c)
-#pragma unroll
-      for (int k = 0; k < OF2_RUN; ++k) a[c][k] = 0.f;
-    of2_run_sum<5, 5, WTAPS>(
-        2 * rw + 1,
-        [&](int j, float (&v)[5]) {
-#pragma unroll
-          for (int c = 0; c < 5; ++c) v[c] = P[c * pplane + (y0 + j) * ldp + x];
-        },
-        [&](int, const float (&v)[5], float (&acc)[5][OF2_RUN], int k) {
-#pragma unroll
-          for (int c = 0; c < 5; ++c) acc[c][k] += v[c];
-        },
-        a);
+      for (int c = 0; c < 5; ++c) v[c] = P[c * pplane + (y0 + j) * ldp + x];
+    }, a);
 #pragma unroll
     for (int c = 0; c < 5; ++c)
 #pragma unroll
@@ -221,21 +196,10 @@ of2_fb_step_kernel(const float* __restrict__ nxt, const float* __restrict__ bx1,
   for (int i = threadIdx.x; i < th * (tw / OF2_RUN); i += blockDim.x) {
     const int ty = i % th, tx0 = (i / th) * OF2_RUN;
     float s[5][OF2_RUN];
+    of2_win_sum_run<RW>(rw, [&](int j, float (&v)[5]) {
 #pragma unroll
-    for (int c = 0; c < 5; ++c)
-#pragma unroll
-      for (int k = 0; k < OF2_RUN; ++k) s[c][k] = 0.f;
-    of2_run_sum<5, 5, WTAPS>(
-        2 * rw + 1,
-        [&](int j, float (&v)[5]) {
-#pragma unroll
-          for (int c = 0; c < 5; ++c) v[c] = V[c * vplane + ty * ldp + tx0 + j];
-        },
-        [&](int, const float (&v)[5], float (&acc)[5][OF2_RUN], int k) {
-#pragma unroll
-          for (int c = 0; c < 5; ++c) acc[c][k] += v[c];
-        },
-        s);
+      for (int c = 0; c < 5; ++c) v[c] = V[c * vplane + ty * ldp + tx0 + j];
+    }, s);
     const int y = oy + ty;
     if (y >= H) continue;
 #pragma unroll
@@ -243,7 +207,7 @@ of2_fb_step_kernel(const float* __restrict__ nxt, const float* __restrict__ bx1,
       const int x = ox + tx0 + k;
       if (x >= W) continue;
       const float sk[5] = {s[0][k], s[1][k], s[2][k], s[3][k], s[4][k]};
-      const float2 f = of2_fb_solve(sk, p.det_eps);
+      const float2 f = of2_win_solve(sk, p.det_eps);
       const size_t o = (size_t)y * W + x;
       Fout[2 * o] = f.x;
       Fout[2 * o + 1] = f.y;

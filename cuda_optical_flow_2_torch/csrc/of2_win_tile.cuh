@@ -1,14 +1,15 @@
-// Box window of five normal-equation planes and the guarded 2x2 solve, for
-// one output tile, from shared memory.  Shared by win_solve.cu (the planes
-// come from device memory) and fb_step.cu (the planes are computed in the
-// block).
+// Box window of five normal-equation planes and the guarded 2x2 solve: the
+// register-blocked window pass and the solve shared by win_solve.cu (the
+// planes come from device memory) and fb_step.cu (the planes are computed
+// in the block).
 //
-// A block owns an OF2_WT_TILE x OF2_WT_TILE output tile.  With window radius
-// rw the caller fills P: five planes (g11, g12, g22, h1, h2) of
-// (TILE + 2 rw) x (TILE + 2 rw), zero outside the image, so the sums see
-// zero padding at the border (ops/window.window_sum).  The column pass goes
-// into V (five planes of TILE x (TILE + 2 rw)), then the row pass and
-// the solve write (u, v) per in-image pixel:
+// The window is two passes of of2_win_sum_run over planes that are zero
+// outside the image (ops/window.window_sum's zero padding): the column pass
+// sums each cell's 2 rw + 1 rows, the row pass its 2 rw + 1 columns of the
+// column sums, each sum over the taps 0 .. 2 rw in order, as the plain
+// version sums (rows, then columns).  The callers choose which cells a
+// thread takes and where its loads come from, through the load functor, so
+// each keeps its own address expressions.  The solve, per pixel:
 //   det = g11 g22 - g12^2,  safe = |det| >= det_eps  (false for a NaN det),
 //   (u, v) = safe ? ((g22 h1 - g12 h2), (g11 h2 - g12 h1)) / det : 0.
 // det_eps <= 0 keeps every det but NaN, so 1/det divides unguarded, as in
@@ -17,58 +18,37 @@
 
 #include "of2_common.cuh"
 
-#define OF2_WT_TILE 32
-#define OF2_WT_THREADS 256
 #define OF2_WT_MAX_R 16  // window <= 33
 
-// Floats of P and V for window radius rw.
-static inline size_t of2_wt_p_floats(int rw) {
-  const size_t pw = OF2_WT_TILE + 2 * rw;
-  return 5 * pw * pw;
-}
-static inline size_t of2_wt_v_floats(int rw) {
-  return 5 * (size_t)OF2_WT_TILE * (OF2_WT_TILE + 2 * rw);
+// The window sums of the five planes for a run of OF2_RUN cells: load(j, v)
+// fills v with the five planes at span cell j (j = 0 .. OF2_RUN + 2 rw - 1;
+// cell k's taps are span cells k .. k + 2 rw); a[c][k] = sum over the taps
+// of plane c, in tap order.  RW >= 0 fixes the radius at compile time (it
+// must equal rw).
+template <int RW, class Load>
+__device__ __forceinline__ void of2_win_sum_run(int rw, Load load, float (&a)[5][OF2_RUN]) {
+  constexpr int WTAPS = RW >= 0 ? 2 * RW + 1 : 0;
+#pragma unroll
+  for (int c = 0; c < 5; ++c)
+#pragma unroll
+    for (int k = 0; k < OF2_RUN; ++k) a[c][k] = 0.f;
+  of2_run_sum<5, 5, WTAPS>(
+      2 * (RW >= 0 ? RW : rw) + 1, load,
+      [&](int, const float (&v)[5], float (&acc)[5][OF2_RUN], int k) {
+#pragma unroll
+        for (int c = 0; c < 5; ++c) acc[c][k] += v[c];
+      },
+      a);
 }
 
-__device__ __forceinline__ void of2_window_solve_tile(const float* __restrict__ P,
-                                                      float* __restrict__ V, int rw, int oy,
-                                                      int ox, int H, int W, float det_eps,
-                                                      float* __restrict__ flow_out) {
-  const int pw = OF2_WT_TILE + 2 * rw;
-  const int pplane = pw * pw, vplane = OF2_WT_TILE * pw, side = 2 * rw + 1;
-  // Column pass, in the plain version's order (rows first, then columns).
-  for (int i = threadIdx.x; i < vplane; i += blockDim.x) {
-    const int y = i / pw, x = i % pw;
-    float a[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int d = 0; d < side; ++d) {
-      const int k = (y + d) * pw + x;
-#pragma unroll
-      for (int c = 0; c < 5; ++c) a[c] += P[c * pplane + k];
-    }
-#pragma unroll
-    for (int c = 0; c < 5; ++c) V[c * vplane + i] = a[c];
-  }
-  __syncthreads();
-  // Row pass and solve.
-  for (int i = threadIdx.x; i < OF2_WT_TILE * OF2_WT_TILE; i += blockDim.x) {
-    const int ty = i / OF2_WT_TILE, tx = i % OF2_WT_TILE;
-    const int y = oy + ty, x = ox + tx;
-    if (y >= H || x >= W) continue;
-    float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int d = 0; d < side; ++d) {
-      const int k = ty * pw + tx + d;
-#pragma unroll
-      for (int c = 0; c < 5; ++c) s[c] += V[c * vplane + k];
-    }
-    // Rounded products (no FMA contraction) keep the solve's float steps
-    // those of the plain version: 1/det amplifies any difference.
-    const float det = __fsub_rn(__fmul_rn(s[0], s[2]), __fmul_rn(s[1], s[1]));
-    const bool safe = fabsf(det) >= det_eps;
-    const float inv = 1.f / (safe ? det : 1.f);
-    const float u = __fmul_rn(__fsub_rn(__fmul_rn(s[2], s[3]), __fmul_rn(s[1], s[4])), inv);
-    const float v = __fmul_rn(__fsub_rn(__fmul_rn(s[0], s[4]), __fmul_rn(s[1], s[3])), inv);
-    const size_t k = (size_t)y * W + x;
-    flow_out[2 * k] = safe ? u : 0.f;
-    flow_out[2 * k + 1] = safe ? v : 0.f;
-  }
+// The guarded solve of one pixel's five window sums s = (g11, g12, g22, h1,
+// h2).  Rounded products (no FMA contraction) keep the solve's float steps
+// those of the plain version: 1/det amplifies any difference.
+__device__ __forceinline__ float2 of2_win_solve(const float s[5], float det_eps) {
+  const float det = __fsub_rn(__fmul_rn(s[0], s[2]), __fmul_rn(s[1], s[1]));
+  const bool safe = fabsf(det) >= det_eps;
+  const float inv = 1.f / (safe ? det : 1.f);
+  const float u = __fmul_rn(__fsub_rn(__fmul_rn(s[2], s[3]), __fmul_rn(s[1], s[4])), inv);
+  const float v = __fmul_rn(__fsub_rn(__fmul_rn(s[0], s[4]), __fmul_rn(s[1], s[3])), inv);
+  return make_float2(safe ? u : 0.f, safe ? v : 0.f);
 }

@@ -55,11 +55,12 @@ _SIGNATURES = {
     ],
     "of2_poly_exp": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "of2_poly_exp_compiled": [_I],
-    "of2_window_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "of2_window_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     "of2_fb_step": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _F, _I,
         _P,
     ],
+    "of2_median": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _P],
     "of2_tvl1_relax": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _F, _F, _F, _P,
     ],

@@ -97,16 +97,19 @@ def fb_level_step_plain(
     flow: torch.Tensor | None,
     config,
     first: bool = False,
+    dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The plain PyTorch version: one iteration of the plain image path of
-    ``models.farneback.fb_level_image``."""
+    ``models.farneback.fb_level_image``, in ``dtype`` (float64 with float64
+    ``exp1`` and ``flow``: the reference that shows float32's conditioning,
+    ``chip_smoke.py`` phase 3)."""
     from cuda_optical_flow_2_torch.models.farneback import (
         _window,
         fb_normal_eq_products,
         solve_normal_eqs,
     )
 
-    nxt = nxt.to(torch.float32)
+    nxt = nxt.to(dtype)
     if first:
         warped = poly_expansion(nxt, config.poly_n, config.poly_sigma)
         u = v = torch.zeros_like(exp1[0])

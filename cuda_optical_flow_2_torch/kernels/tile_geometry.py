@@ -1,20 +1,22 @@
-"""Output-tile geometry of the two fused window kernels.
+"""Output-tile geometry of the window kernels.
 
 The LK tile (``csrc/of2_lk_tile.cuh``: ``lk_residual``, ``lk_level_step``,
-``lk_band_step``) and the Farnebäck step (``csrc/fb_step.cu``:
-``fb_level_step``, ``fb_band_step``) stage an output tile plus its window
-halo in shared memory.  The halo grows with the window radius, so the tile
-that fits the shared memory shrinks: the wrapper picks the tile here, from
-the radii alone, and passes it to the C entry, which checks it and refuses
-a tile it cannot launch.  The choice depends on nothing but the radii, so a
-spatial-TP band and the whole image tile alike.
+``lk_band_step``), the Farnebäck step (``csrc/fb_step.cu``:
+``fb_level_step``, ``fb_band_step``) and the window solve
+(``csrc/win_solve.cu``: ``window_solve``) stage an output tile plus its
+window halo in shared memory.  The halo grows with the window radius, so
+the tile that fits the shared memory shrinks: the wrapper picks the tile
+here, from the radii alone, and passes it to the C entry, which checks it
+and refuses a tile it cannot launch.  The choice depends on nothing but the
+radii, so a spatial-TP band and the whole image tile alike.
 
 Each thread of a block owns ``RUN`` consecutive cells of a pass (a run)
 and sums them from registers.  A pass over an extent that ``RUN`` does not
 divide moves its last run back to end at the extent: the cells it shares
 with the run before it are computed twice, with the same arithmetic, and
 written with the same value.  The formulas below are the C sources'
-(``of2_lk_smem_floats``, ``of2_fb_smem_floats``, ``of2_run_start``).
+(``of2_lk_smem_floats``, ``of2_fb_smem_floats``, ``of2_ws_smem_floats``,
+``of2_run_start``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-__all__ = ["RUN", "SMEM_MAX", "Tile", "blocks_per_sm", "fb_tile", "lk_tile", "run_starts"]
+__all__ = [
+    "RUN", "SMEM_MAX", "Tile", "blocks_per_sm", "fb_tile", "lk_tile", "run_starts", "win_tile",
+    "win_tile_candidate",
+]
 
 RUN = 4  # OF2_RUN: cells per thread in each register-blocked pass
 SMEM_MAX = 232_448  # bytes of shared memory one block may opt in to (H100)
@@ -37,6 +42,11 @@ TILE_WIDTHS = (16, 32, 64)
 # rule below picks.
 LK_BLOCKS_PER_SM = 3
 FB_BLOCKS_PER_SM = 4
+# The window solve's tile: 64 columns, 16 rows where two blocks fit an SM,
+# else 8.  ``python3 tools/kernel_times.py ROOT --win-tiles`` sweeps heights
+# 8-64 and widths 16-64 at rw = 0, 4, 7 and 16 on the card (PERF.md).
+WIN_TILE_W = 64
+WIN_TILE_HEIGHTS = (16, 8)
 
 
 def blocks_per_sm(smem_bytes: int) -> int:
@@ -80,6 +90,16 @@ def _fb(rw: int, rp: int, th: int, tw: int) -> Tile:
     return Tile(th, tw, 4 * floats, passes, (sh * sw + ph * pw) / (th * tw))
 
 
+def win_tile_candidate(rw: int, th: int, tw: int) -> Tile:
+    """A th x tw tile of the window solve (its shared memory and passes)."""
+    ph, pw = th + 2 * rw, tw + 2 * rw
+    lead = -rw % 4  # the staged rows start on a multiple of 4 image columns
+    ldp, ldv = (lead + pw + 3) // 4 * 4, ((pw + 3) // 4 | 1) * 4
+    floats = 5 * ph * ldp + 5 * th * ldv
+    passes = (("column-pass rows", th), ("row-pass columns", tw))
+    return Tile(th, tw, 4 * floats, passes, (ph * pw + th * pw) / (th * tw))
+
+
 def _pick(tiles: list[Tile], blocks: int) -> Tile:
     """The tile with the least halo work per resident block (halo cells per
     output over the blocks per SM it leaves room for, at most ``blocks``);
@@ -105,3 +125,12 @@ def fb_tile(rw: int, rp: int) -> Tile:
     radius ``rp``."""
     return _pick([_fb(rw, rp, th, tw) for th in TILE_HEIGHTS for tw in TILE_WIDTHS],
                  FB_BLOCKS_PER_SM)
+
+
+@functools.cache
+def win_tile(rw: int) -> Tile:
+    """The window solve's tile for window radius ``rw``: the first of
+    ``WIN_TILE_HEIGHTS`` x ``WIN_TILE_W`` that leaves room for two blocks per
+    SM, else the last."""
+    tiles = [win_tile_candidate(rw, th, WIN_TILE_W) for th in WIN_TILE_HEIGHTS]
+    return next((t for t in tiles if blocks_per_sm(t.smem_bytes) >= 2), tiles[-1])

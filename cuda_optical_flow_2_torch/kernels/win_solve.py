@@ -1,7 +1,7 @@
 """Fused windowed sums + guarded 2x2 solve: the normal-equation tail.
 
 Replaces ``cuda_optical_flow_2_tpu/kernels/win_solve.py::window_solve``.
-CUDA source: ``csrc/win_solve.cu`` with the window and solve in
+CUDA source: ``csrc/win_solve.cu`` with the window pass and the solve in
 ``csrc/of2_win_tile.cuh``, which the fused FB step (``fb_step_fused``)
 shares.  Given five per-pixel planes (g11, g12, g22, h1, h2) it box-sums each
 over ``window x window`` (zero outside the image, ``ops.window.window_sum``)
@@ -13,10 +13,14 @@ It is the Farnebäck ``warp_planes="coeff"`` iteration's last stage.
 What bounds it on an H100: bytes.  Per pixel it reads five floats and
 writes two (28 bytes) against 2 x window adds for each of the five planes
 (150 at a 15x15 window) and about 10 operations of solve, under the card's
-20 operations per byte up to a 33x33 window.  The design stages a 32 x 32 tile plus its
-window halo of all five planes in shared memory, runs the column pass then
-the row pass there (the plain version's order), and writes only (u, v); the
-plain version makes a device-memory pass per tap and plane.
+20 operations per byte up to a 33x33 window.  A block stages an output tile
+(``tile_geometry.win_tile``, picked for the radius) plus its window halo of
+all five planes in shared memory with ``cp.async``, runs the register-blocked
+column pass then row pass there (a thread sums four cells from registers,
+each in the plain version's order, so the flow is bit-equal to the plain
+version), and writes only (u, v); the plain version makes a device-memory
+pass per tap and plane.  The radius of ``FBConfig()`` (winsize 15) runs a
+kernel compiled for its taps.
 
 :func:`window_solve` launches the kernel for CUDA tensors and takes
 :func:`window_solve_plain` for CPU tensors; ``window_solve.launches`` counts
@@ -28,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from cuda_optical_flow_2_torch.kernels import _build
+from cuda_optical_flow_2_torch.kernels.tile_geometry import win_tile
 from cuda_optical_flow_2_torch.kernels.lk_fused import planes
 from cuda_optical_flow_2_torch.ops.window import window_sum
 
@@ -82,9 +87,10 @@ def window_solve(
         raise ValueError(f"plane shapes differ: {[tuple(t.shape) for t in tensors]}")
     xs = planes(*(t.reshape(-1, h, w) for t in tensors))
     out = torch.empty(xs[0].shape + (2,), dtype=torch.float32, device=dev)
+    tile = win_tile(rw)
     _build.launch(
         dev, "of2_window_solve", *(x.data_ptr() for x in xs), out.data_ptr(), xs[0].shape[0],
-        h, w, rw, float(det_eps),
+        h, w, rw, tile.tile_h, tile.tile_w, float(det_eps),
     )
     window_solve.launches += 1
     return out.reshape(lead + (h, w, 2))

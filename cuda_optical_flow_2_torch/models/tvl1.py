@@ -17,11 +17,12 @@ with forward-difference gradients and the backward-difference divergence
 ``config.use_pallas`` (default True) routes each warp's iterations through
 the hand-written kernel ``kernels.tvl1_sweep.tvl1_relax`` and each warp
 through ``kernels.warp_select`` (flow clipped to ``max_displacement``
-first); for CPU tensors those wrappers take their plain versions.
-``use_pallas=False`` is the plain composition (:func:`primal_dual` and
-``ops.warp.warp_bilinear``), the JAX package's XLA twin.  The pyramid and the
-optional prefilter are the LK pipeline's.  Images (..., H, W), flows
-(..., H, W, 2).
+first), and the per-warp median through ``kernels.median_select`` (sizes
+3 and 5); for CPU tensors those wrappers take their plain versions.
+``use_pallas=False`` is the plain composition (:func:`primal_dual`,
+``ops.warp.warp_bilinear`` and ``ops.median.median_filter``), the JAX
+package's XLA twin.  The pyramid and the optional prefilter are the LK
+pipeline's.  Images (..., H, W), flows (..., H, W, 2).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from typing import Optional
 import torch
 
 from cuda_optical_flow_2_torch.config import BilateralConfig
-from cuda_optical_flow_2_torch.kernels import tvl1_sweep, warp_select
+from cuda_optical_flow_2_torch.kernels import median_select, tvl1_sweep, warp_select
 from cuda_optical_flow_2_torch.models.horn_schunck import lk_preproc_config
 from cuda_optical_flow_2_torch.models.lucas_kanade import preprocess
 from cuda_optical_flow_2_torch.ops.gradients import spatial_gradients
@@ -46,6 +47,7 @@ __all__ = [
     "primal_dual",
     "tvl1_level",
     "tvl1_coarse_to_fine",
+    "tvl1_median",
     "tvl1_preprocess",
     "pyramidal_tvl1",
 ]
@@ -184,6 +186,14 @@ def tvl1_preprocess(frame: torch.Tensor, config: TVL1Config) -> list[torch.Tenso
     return preprocess(frame, lk_preproc_config(config))
 
 
+def tvl1_median(planes: torch.Tensor, config: TVL1Config) -> torch.Tensor:
+    """The per-warp median of (..., H, W) flow planes: the CUDA kernel on the
+    kernel path for a size it compiles, else the plain filter."""
+    if config.use_pallas and median_select.supported(config.median_filtering):
+        return median_select.median_filter_kernel(planes, config.median_filtering)
+    return median_filter(planes, config.median_filtering)
+
+
 def tvl1_coarse_to_fine(
     prev_pyr: list[torch.Tensor],
     next_pyr: list[torch.Tensor],
@@ -215,7 +225,7 @@ def tvl1_coarse_to_fine(
                 warped = warp_bilinear(n, flow)
             flow = tvl1_level(p, warped, flow, flow, config)
             if config.median_filtering > 1:
-                flow = median_filter(flow.movedim(-1, 0), config.median_filtering).movedim(0, -1)
+                flow = tvl1_median(flow.movedim(-1, 0), config).movedim(0, -1)
     return flow
 
 

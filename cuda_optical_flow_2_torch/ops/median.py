@@ -5,8 +5,9 @@ neighbourhood is the k^2 shifted slices of an edge-replicated copy (OpenCV's
 BORDER_REPLICATE, what ``medianBlur`` uses), stacked on a new leading axis,
 and ``torch.median`` selects over that axis.  For the odd count the median is
 one of the inputs, so the result is bit-equal to the JAX package's min/max
-selection network.  Plain PyTorch on every device: no hand kernel (its time
-on the card is in PERF.md).
+selection network.  This is the plain version of the hand-written CUDA
+kernel ``kernels.median_select.median_filter_kernel``, which TV-L1's kernel
+path launches for sizes 3 and 5 and holds bit-equal to it.
 """
 
 from __future__ import annotations

@@ -56,11 +56,10 @@ from cuda_optical_flow_2_torch.models.dis import _lk_like as dis_lk_like
 from cuda_optical_flow_2_torch.models.farneback import FBConfig
 from cuda_optical_flow_2_torch.models.horn_schunck import HSConfig
 from cuda_optical_flow_2_torch.models.streaming import not_ported
-from cuda_optical_flow_2_torch.models.tvl1 import TVL1Config
+from cuda_optical_flow_2_torch.models.tvl1 import TVL1Config, tvl1_median
 from cuda_optical_flow_2_torch.ops.band import rows_in_image, zero_outside_global
 from cuda_optical_flow_2_torch.ops.conv import stencil2d
 from cuda_optical_flow_2_torch.ops.gradients import SOBEL_GAIN, spatial_gradients, temporal_gradient
-from cuda_optical_flow_2_torch.ops.median import median_filter
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear_band
 from cuda_optical_flow_2_torch.ops.window import window_sum
 from cuda_optical_flow_2_torch.parallel.batching import Mesh
@@ -454,9 +453,9 @@ def _local_tvl1_level(
     between chunks.  Without it the constants are built once per warp on
     the widest band and cropped, and the state is exchanged with
     ``iter_tile`` rows (the JAX package's XLA twin).  After each warp the
-    shard-local median takes an edge-replicated halo: OpenCV's
-    BORDER_REPLICATE at the global top and bottom, true neighbour rows
-    elsewhere.
+    shard-local median (``models.tvl1.tvl1_median``) takes an
+    edge-replicated halo: OpenCV's BORDER_REPLICATE at the global top and
+    bottom, true neighbour rows elsewhere.
     """
     kernel = config.use_pallas
     k = min(iter_tile, config.iterations)
@@ -514,7 +513,7 @@ def _local_tvl1_level(
         planes = [st[:2] for st in state]
         if config.median_filtering > 1:
             rm = config.median_filtering // 2
-            planes = [_crop_rows(median_filter(pl, config.median_filtering), rm)
+            planes = [_crop_rows(tvl1_median(pl, config), rm)
                       for pl in halo_exchange(planes, rm, rm, boundary="edge")]
         flow = [pl.movedim(0, -1) for pl in planes]
     return flow

@@ -231,6 +231,30 @@ def test_fb_level_step_plain_is_one_xla_iteration(first):
     _close_flow(got, want, FLOW_TOL)
 
 
+@pytest.mark.parametrize("first", [True, False], ids=["first", "warm"])
+def test_fb_level_step_plain_in_float64_is_the_same_iteration(first):
+    """``dtype=torch.float64`` (the reference chip_smoke.py holds the FB
+    33/31 case against) keeps float64 throughout and computes the JAX
+    iteration of the test above, within the same tolerance.  Warm, the
+    float32 sample coordinate 55 + 5e-7 of the last column rounds to 55,
+    inside the image, and float64's is outside (the source pixel is kept):
+    the pixels that reach it through the window and the expansion (radii 7
+    and 3), 11 columns on each side, are left out."""
+    p, n = _pair(40, 56, velocity=(1.0, 0.5))
+    jcfg = jfb.FBConfig(levels=1, iterations=1, max_displacement=3, use_pallas=False)
+    flow = None if first else _smooth_flow(40, 56, 6.0)
+    exp1 = jpoly.poly_expansion(_j(p), jcfg.poly_n, jcfg.poly_sigma)
+    want = jfb.fb_level_image(_j(n), exp1, None if first else _j(flow), jcfg)
+    exp64 = tpoly.poly_expansion(_t(p).double(), jcfg.poly_n, jcfg.poly_sigma)
+    got = fb_step_fused.fb_level_step_plain(
+        _t(n).double(), exp64, None if first else _t(flow).double(), fb_config_from_jax(jcfg),
+        first=first, dtype=torch.float64,
+    )
+    assert got.dtype == torch.float64 and all(e.dtype == torch.float64 for e in exp64)
+    cols = slice(0, None) if first else slice(11, -11)
+    _close_flow(got.float()[:, cols], np.asarray(want)[:, cols], FLOW_TOL)
+
+
 @pytest.mark.parametrize(
     "kw,fused",
     [({}, True), ({"winsize": 33, "poly_n": 31}, True), ({"gaussian_window": True}, False),

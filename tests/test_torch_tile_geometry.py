@@ -1,6 +1,6 @@
-"""The output tiles of the two fused window kernels (the LK tile and the
-Farnebäck step), as the wrappers pick them from the radii: over the whole
-range each ``supported`` accepts, the tile fits a block's shared memory,
+"""The output tiles of the window kernels (the LK tile, the Farnebäck step
+and the window solve), as the wrappers pick them from the radii: over the
+whole range each kernel accepts, the tile fits a block's shared memory,
 covers the image, keeps every thread's run inside its pass, and is the same
 for a band and the whole image."""
 
@@ -15,6 +15,7 @@ from cuda_optical_flow_2_torch.kernels.poly_exp_fused import MAX_POLY_N
 from cuda_optical_flow_2_torch.kernels.win_solve import MAX_WINDOW as FB_MAX_WINDOW
 
 LK_RADII = range(lk_fused.MAX_WINDOW // 2 + 1)  # windows 1 .. 65
+WIN_RADII = range(FB_MAX_WINDOW // 2 + 1)  # windows 1 .. 33
 FB_RADII = [
     (rw, rp) for rw in range(FB_MAX_WINDOW // 2 + 1) for rp in range(1, MAX_POLY_N // 2 + 1)
 ]
@@ -27,6 +28,8 @@ def all_tiles():
             yield f"lk r={r} centered={centered}", tg.lk_tile(r, centered)
     for rw, rp in FB_RADII:
         yield f"fb rw={rw} rp={rp}", tg.fb_tile(rw, rp)
+    for rw in WIN_RADII:
+        yield f"win rw={rw}", tg.win_tile(rw)
 
 
 def test_the_ranges_are_the_kernels_limits():
@@ -37,7 +40,7 @@ def test_the_ranges_are_the_kernels_limits():
     assert not fb_step_fused.supported(FBConfig(poly_n=33))
 
 
-@pytest.mark.parametrize("kernel", ["lk", "fb"])
+@pytest.mark.parametrize("kernel", ["lk", "fb", "win"])
 def test_shared_memory_fits_a_block(kernel):
     for label, tile in all_tiles():
         if label.startswith(kernel):
@@ -55,7 +58,7 @@ def test_the_grid_covers_the_image(shape):
         assert (gy - 1) * tile.tile_h < h and (gx - 1) * tile.tile_w < w, (label, shape)
 
 
-@pytest.mark.parametrize("kernel", ["lk", "fb"])
+@pytest.mark.parametrize("kernel", ["lk", "fb", "win"])
 def test_every_run_lies_inside_its_pass(kernel):
     for label, tile in all_tiles():
         if not label.startswith(kernel):
@@ -81,6 +84,7 @@ def test_the_tile_depends_on_the_radii_alone():
     first = [tile for _, tile in all_tiles()]
     tg.lk_tile.cache_clear()
     tg.fb_tile.cache_clear()
+    tg.win_tile.cache_clear()
     assert [tile for _, tile in all_tiles()] == first
 
 
@@ -98,6 +102,24 @@ def test_main_path_fb_tile():
     tile = tg.fb_tile(7, 3)
     assert (tile.tile_h, tile.tile_w) == (16, 32)
     assert tg.blocks_per_sm(tile.smem_bytes) >= tg.FB_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("rw", WIN_RADII)
+def test_win_tile_is_the_widest_that_leaves_two_blocks(rw):
+    """16 x 64 where two blocks fit an SM (up to rw = 14), else 8 x 64."""
+    tile = tg.win_tile(rw)
+    assert tile.tile_w == tg.WIN_TILE_W == 64
+    assert tile.tile_h == (16 if rw <= 14 else 8)
+    assert tg.blocks_per_sm(tile.smem_bytes) >= 2
+    taller = tg.win_tile_candidate(rw, 16, 64)
+    assert tile.tile_h == 16 or tg.blocks_per_sm(taller.smem_bytes) < 2
+
+
+def test_main_path_win_tile():
+    """FBConfig()'s winsize 15: the fastest tile of the sweep on the card."""
+    tile = tg.win_tile(7)
+    assert (tile.tile_h, tile.tile_w) == (16, 64)
+    assert tg.blocks_per_sm(tile.smem_bytes) == 3
 
 
 def _spy_launches(monkeypatch):

@@ -1,6 +1,7 @@
 """Time whole-image CUDA kernels of one checkout; print one JSON line.
 
     python3 tools/kernel_times.py ROOT
+    python3 tools/kernel_times.py ROOT --win-tiles
 
 ROOT is the root of a checkout of this repo (its ``chip_smoke.py`` and
 ``cuda_optical_flow_2_torch`` are imported from there).  It builds that
@@ -13,7 +14,10 @@ it) and ``lk_band_step`` (``PAPER_1080P``, the frames as the band of rows
 ``bilateral_kernel`` (9x9, the stacked pair), ``hs_relax`` (100 sweeps,
 quadratic and Charbonnier), ``tvl1_relax`` (14 iterations, warm) and
 ``fb_level_step`` (``FBConfig()``, warm), ``poly_expansion_kernel``
-(``poly_n = 7``) and ``window_solve`` (15x15); and the band entries at
+(``poly_n = 7``), ``window_solve`` (15x15) and TV-L1's per-warp 5x5
+median of the (2, H, W) flow view (``median_filter_kernel``; a checkout
+without it times the plain ``ops.median.median_filter`` that its TV-L1
+path runs); and the band entries at
 phase 9's interior 4K band (rows 720-1440 of 2160x3840 and the TP path's
 halo): ``lk_band_step`` (halo 43, ``PAPER_1080P`` and the DIS 9x9 box
 centered mode), ``bilateral_kernel_band`` (halo 4, 9x9, the stacked
@@ -29,6 +33,13 @@ host's launch time (a wrapper call costs tens of microseconds, more than
 some of these kernels) is not in it.  To compare two checkouts, run it
 on both on one card, one after the other in one command, in the order
 parent, change, change, parent.
+
+``--win-tiles`` instead sweeps the window solve's output tile
+(``tile_geometry.win_tile_candidate``: heights 8-64, widths 16, 32, 64,
+those that fit a block's shared memory) at 1080x1920 and window radii 0, 4,
+7 and 16, each launch checked bit-equal to ``window_solve_plain``, and
+prints one JSON line per radius: the tile ``win_tile`` picks and every
+tile's device ms.
 """
 
 import inspect
@@ -63,6 +74,40 @@ def device_ms(fn, reps: int, inner: int = 1, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def sweep_win_tiles(p0, n0, f0) -> int:
+    """Device ms of the window solve at each tile that fits, per radius."""
+    import torch
+
+    from cuda_optical_flow_2_torch.kernels import _build, poly_exp_fused, tile_geometry, win_solve
+    from cuda_optical_flow_2_torch.models.farneback import fb_normal_eq_products
+
+    dev = p0.device
+    xs = [t.contiguous() for t in fb_normal_eq_products(
+        poly_exp_fused.poly_expansion_plain(p0, 7, 1.5),
+        poly_exp_fused.poly_expansion_plain(n0, 7, 1.5), f0[..., 0], f0[..., 1])]
+    (h, w), out = xs[0].shape, torch.empty(xs[0].shape + (2,), device=dev)
+    for rw in (0, 4, 7, 16):
+        want = win_solve.window_solve_plain(*xs, window=2 * rw + 1)
+        times = {}
+        for th in (8, 16, 24, 32, 40, 48, 64):
+            for tw in (16, 32, 64):
+                if tile_geometry.win_tile_candidate(rw, th, tw).smem_bytes > tile_geometry.SMEM_MAX:
+                    continue
+
+                def launch(th=th, tw=tw):
+                    _build.launch(dev, "of2_window_solve", *(x.data_ptr() for x in xs),
+                                  out.data_ptr(), 1, h, w, rw, th, tw, 1e-6)
+
+                times[f"{th}x{tw}"] = device_ms(launch, 20, inner=10)
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise SystemExit(f"window solve rw={rw} tile {th}x{tw}: not bit-equal")
+        pick = tile_geometry.win_tile(rw)
+        print(json.dumps({"rw": rw, "win_tile": f"{pick.tile_h}x{pick.tile_w}",
+                          "ms": dict(sorted(times.items(), key=lambda kv: kv[1]))}))
+    return 0
+
+
 def main() -> int:
     root = Path(sys.argv[1]).resolve()
     sys.path.insert(0, str(root))
@@ -83,11 +128,19 @@ def main() -> int:
         win_solve,
     )
     from cuda_optical_flow_2_torch.models.dis import _lk_like
+    from cuda_optical_flow_2_torch.ops.median import median_filter
+
+    try:
+        from cuda_optical_flow_2_torch.kernels.median_select import median_filter_kernel
+    except ImportError:  # before the kernel: TV-L1 ran the plain median
+        median_filter_kernel = median_filter
     from cuda_optical_flow_2_torch.models.farneback import fb_normal_eq_products
 
     dev = torch.device("cuda", 0)
     _build.library()
     p0, n0, f0 = (torch.as_tensor(a, device=dev) for a in cs.textured_pair(1080, 1920, seed=7))
+    if "--win-tiles" in sys.argv[2:]:
+        return sweep_win_tiles(p0, n0, f0)
     pair = torch.stack([p0, n0])
     w0 = warp_select.warp_bilinear_select_plain(n0, f0)
     exp0 = poly_exp_fused.poly_expansion_plain(p0, 7, 1.5)
@@ -117,6 +170,7 @@ def main() -> int:
         ("poly_expansion_kernel", lambda: poly_exp_fused.poly_expansion_kernel(p0, 7, 1.5), 30,
          10),
         ("window_solve", lambda: win_solve.window_solve(*prods0, 15, 1e-6), 30, 10),
+        ("median_filter_kernel", lambda: median_filter_kernel(f0.movedim(-1, 0), 5), 30, 10),
     ]
     # the band entries at the interior 4K band, with its TP halo of 10 rows
     rng = np.random.default_rng(3)
