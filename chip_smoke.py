@@ -88,17 +88,37 @@ then, in order:
    ``DISConfig()`` and ``DIS_REALTIME`` on 1 shard, each against the
    unsharded kernel path and the translation, launch counts checked against
    the predicted ones;
+8k. paths quality signals: ``consistent_flow`` with ``TVL1Config(levels=3)``
+   on the layered scenes of tests/test_layered_motion.py (192x256: the disk,
+   seed 3, and the bar, seed 7), held to that file's detection bounds (disk
+   precision > 0.45 and recall > 0.50 at beta 0.5, bar average precision >
+   0.55) with the port's ``utils.layered`` and ``utils.metrics``; the disk
+   scene at 1080x1920 (centre (540, 960), radius 45 * 1080 / 192 = 253.125,
+   the motion kept: background (-2, 1), disk (3, 1) px) through
+   ``consistent_flow(..., TVL1_REALTIME)`` with and without the fill
+   (matched and unmatched EPE before and after it), each against the plain
+   path; ``fb_consistency``'s cycle warp (#3 on both planes, budget
+   max(H, W)) against the plain warp; ``good_features`` (500 points,
+   ``LKConfig(window=15)``) on a period-48 frame equal to a CPU run of it;
+   ``track_sequence`` at ``PAPER_1080P``, warm, over 8 frames translating at
+   (2, 1) seeded by those points (points 64 px or more inside within 0.35 px
+   of p0 + t (2, 1)), and ``track_points`` within 1e-5 px of it; launch
+   counts checked against the predicted ones (``consistent_flow``: twice a
+   pair's and one cycle warp; the fill, ``good_features`` and the plain
+   paths none);
 9. timing with CUDA events: each path (the TP paths beside their unsharded
-   runs at 4K; host time included), each kernel, its plain version and,
+   runs at 4K; host time included; ``consistent_flow`` with the fill off
+   and on, the fill alone, ``good_features`` and ``track_sequence`` per
+   frame), each kernel, its plain version and,
    where one PyTorch call computes the same function, that call, in device
    time (the card waits in a sleep kernel while the host enqueues the
    calls, so a wrapper's launch cost does not hide a faster kernel);
-10. profile: ``torch.profiler`` over a few pairs of each path (device busy
-    share, kernels per pair, the kernels that lead).
+10. profile: ``torch.profiler`` over a few pairs (or calls) of each path of
+    phase 9 (device busy share, kernels per pair, the kernels that lead).
 
 Each phase prints one line per check; any failed check raises and the
 script exits non-zero.  The launch counters are zeroed just before each path
-(phases 4-8f) and read just after it: every kernel must launch on the paths
+(phases 4-8k) and read just after it: every kernel must launch on the paths
 that use it.  The line before the last is a JSON object with each kernel's
 numbers, the centered (DIS) modes of ``lk_residual``, ``lk_level_step`` and
 ``lk_band_step`` and the ``flow_half`` mode of ``lk_level_step`` as entries
@@ -225,6 +245,16 @@ HS_TRANSLATION_TOL = 0.15  # px, HS inner median flow (tests/test_horn_schunck.p
 TVL1_EPE_TOL = 0.1         # px, TVL1Config() inner EPE (tests/test_tvl1.py)
 DIS_EPE_TOL = 0.15         # px, DISConfig() inner EPE (tests/test_dis.py)
 PRESET_TRANSLATION_TOL = 0.3  # px, TVL1_REALTIME / DIS_REALTIME inner median
+LAYERED_MARGIN = 16  # px cropped per side in layered scoring (tests/test_layered_motion.py)
+# good_features on the card vs the CPU: the same float32 ops in the same
+# order, but torch's CPU sqrt is 1 ulp off (not correctly rounded), so the
+# scores may differ by a few ulp; the points must be equal
+GF_SCORE_RTOL = 1e-6
+TRACK_TOL = 0.35           # px, tracked point vs p0 + t (2, 1) (tests/test_tracking.py)
+# px from the border: LK's zero-padded windows (a 15x15 window at the fifth
+# level spans 240 px of level 0) bias the flow near the edges, in the JAX
+# package alike, so the translation check is held on points this far inside
+TRACK_MARGIN = 64
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, 700 W): HBM bytes/s and
 # FP32 operations/s outside the tensor cores.  Special-function results
@@ -1560,6 +1590,174 @@ def main() -> int:
               f"{e['median']:.3g} p99 {e['p99']:.3g} p99.9 {e['p999']:.3g} max {e['max']:.3g}; "
               f"launches {counts} (as predicted)")
 
+    # 8k. quality signals: forward-backward consistency on TV-L1, the
+    # occlusion fill, good features and point tracking
+    from cuda_optical_flow_2_torch.models import consistency
+    from cuda_optical_flow_2_torch.utils import layered, metrics
+
+    def detection(score, occ, truth):
+        """tests/test_layered_motion.py's scoring over the interior: precision
+        and recall of the mask, average precision of the swept score."""
+        inner = np.zeros(truth.shape, bool)
+        inner[LAYERED_MARGIN:-LAYERED_MARGIN, LAYERED_MARGIN:-LAYERED_MARGIN] = True
+        s, t = score[inner], truth[inner]
+
+        def pr(pred):
+            tp = (pred & t).sum()
+            return tp / max(pred.sum(), 1), tp / max(t.sum(), 1)
+
+        prec, rec = np.array([pr(s > b) for b in np.concatenate(
+            [np.linspace(-2, 0, 20), np.geomspace(0.01, 50, 50)])]).T
+        o = np.argsort(rec)
+        ap = float(np.sum(np.diff(rec[o]) * (prec[o][1:] + prec[o][:-1]) / 2))
+        return (*pr(occ[inner]), ap)
+
+    # consistent_flow runs the pair twice (forward, backward) and the cycle
+    # warp once: #3 on both planes of the backward flow
+    tv3 = of.TVL1Config(levels=3)
+    cf_expect = {
+        "TVL1Config(levels=3)": {"pyr_down": 4, "warp_bilinear_select": 31, "tvl1_relax": 30,
+                                 "median_filter_kernel": 30},
+        "TVL1_REALTIME": {"pyr_down": 6, "warp_bilinear_select": 33, "tvl1_relax": 32,
+                          "median_filter_kernel": 32},
+    }
+    scenes = {
+        "disk": layered.layered_scene(192, 256, bg_flow=(-2.0, 1.0), seed=3, layers=[
+            layered.Layer("disk", (96.0, 128.0), 45.0, (3.0, 1.0))]),
+        "bar": layered.layered_scene(192, 256, bg_flow=(-3.0, 0.0), seed=7, layers=[
+            layered.Layer("rect", (96.0, 128.0), (120.0, 22.0), (4.0, 0.0))]),
+    }
+    # Kernel path vs plain path is held at the pixels the truth marks matched:
+    # at occluded pixels TV-L1 has no data term, and the float-order
+    # differences of the pyramid and warp kernels flip near-tied threshold
+    # and median decisions there (the bar scene: p99 over all pixels 0.0114
+    # px, max 0.55 px on an H100 80GB HBM3, 700 W); the all-pixel numbers
+    # are printed beside
+    for name, sc in scenes.items():
+        sp, sn = cuda(sc.prev), cuda(sc.nxt)
+        expect = cf_expect["TVL1Config(levels=3)"]
+        (fw, occ), counts = run_path(f"consistent_flow {name} 192x256",
+                                     lambda: of.consistent_flow(sp, sn, tv3), tuple(expect))
+        require(counts == expect, f"consistent_flow {name} launches {counts}, predicted {expect}")
+        (fw_p, occ_p), plain_counts = run_path(f"consistent_flow {name} 192x256 plain", lambda: (
+            of.consistent_flow(sp, sn, dataclasses.replace(tv3, use_pallas=False))), ())
+        require(not plain_counts, f"consistent_flow {name} plain path launched {plain_counts}")
+        e_all = err_stats(fw, fw_p)
+        matched = torch.as_tensor(~sc.occ, device=dev)
+        e = err_stats(fw[matched], fw_p[matched])
+        require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
+                f"consistent_flow {name} kernel path vs plain path at matched pixels: {e}")
+        differ = float((occ != occ_p).float().mean())
+        score = consistency.occlusion_score(fw, of.pyramidal_tvl1(sn, sp, tv3)).cpu().numpy()
+        prec, rec, ap = detection(score, occ.cpu().numpy(), sc.occ)
+        if name == "disk":
+            require(prec > 0.45 and rec > 0.50, f"disk detection P {prec} R {rec}")
+        else:
+            require(ap > 0.55, f"bar detection AP {ap}")
+        ev = metrics.evaluate_flow(fw, sc.flow, margin=LAYERED_MARGIN, occ=sc.occ)
+        print(f"phase 8k consistent_flow TVL1Config(levels=3) layered {name} 192x256: P {prec:.4f} "
+              f"R {rec:.4f} AP {ap:.4f} (tests/test_layered_motion.py: disk P > 0.45, R > 0.50; "
+              f"bar AP > 0.55); EPE matched {ev['epe_matched']:.4f} unmatched "
+              f"{ev['epe_unmatched']:.4f}; vs plain path at matched pixels median "
+              f"{e['median']:.3g} p99 {e['p99']:.3g} max {e['max']:.3g} (all pixels: median "
+              f"{e_all['median']:.3g} p99 {e_all['p99']:.3g} p99.9 {e_all['p999']:.3g} max "
+              f"{e_all['max']:.3g}), mask differs at {100 * differ:.4f} % of pixels; launches "
+              f"{counts} (as predicted), plain path none")
+
+    # the disk scene at 1080x1920: centre and radius scaled by 1080/192, the
+    # motion (px per frame) kept
+    big = layered.layered_scene(1080, 1920, bg_flow=(-2.0, 1.0), seed=3, layers=[
+        layered.Layer("disk", (540.0, 960.0), 45.0 * 1080 / 192, (3.0, 1.0))])
+    bp, bn = cuda(big.prev), cuda(big.nxt)
+    rt_plain = dataclasses.replace(of.TVL1_REALTIME, use_pallas=False)
+    expect = cf_expect["TVL1_REALTIME"]
+    (fraw, occ_b), counts_raw = run_path("consistent_flow TVL1_REALTIME 1080x1920",
+                                         lambda: of.consistent_flow(bp, bn, of.TVL1_REALTIME),
+                                         tuple(expect))
+    (ffill, occ_f), counts_fill = run_path("consistent_flow TVL1_REALTIME fill 1080x1920", lambda: (
+        of.consistent_flow(bp, bn, of.TVL1_REALTIME, fill=True)), tuple(expect))
+    require(counts_raw == expect and counts_fill == expect,
+            f"consistent_flow TVL1_REALTIME launches {counts_raw}, with the fill {counts_fill}, "
+            f"predicted {expect}")
+    require(torch.equal(occ_f, occ_b) and torch.equal(ffill[~occ_b], fraw[~occ_b]),
+            "fill=True changed the mask or a matched pixel")
+    filled, counts = run_path("fill_occluded_flow 1080x1920",
+                              lambda: consistency.fill_occluded_flow(fraw, occ_b), ())
+    require(not counts and torch.equal(filled, ffill), f"the fill alone: launches {counts}")
+    (fplain, occ_p), plain_counts = run_path("consistent_flow TVL1_REALTIME fill 1080x1920 plain",
+                                             lambda: of.consistent_flow(bp, bn, rt_plain, fill=True),
+                                             ())
+    require(not plain_counts, f"consistent_flow plain path launched {plain_counts}")
+    e_all = err_stats(ffill, fplain)
+    matched = torch.as_tensor(~big.occ, device=dev)
+    e = err_stats(ffill[matched], fplain[matched])
+    require(e["median"] <= PATH_MEDIAN_ERR and e["p99"] <= PATH_P99_ERR,
+            f"consistent_flow TVL1_REALTIME fill kernel path vs plain path at matched pixels: {e}")
+    differ = float((occ_b != occ_p).float().mean())
+    before = metrics.evaluate_flow(fraw, big.flow, margin=LAYERED_MARGIN, occ=big.occ)
+    after = metrics.evaluate_flow(ffill, big.flow, margin=LAYERED_MARGIN, occ=big.occ)
+    print(f"phase 8k consistent_flow TVL1_REALTIME layered disk 1080x1920 (radius 253.125): EPE "
+          f"matched {before['epe_matched']:.4f} unmatched {before['epe_unmatched']:.4f}, with the "
+          f"fill {after['epe_matched']:.4f} / {after['epe_unmatched']:.4f} (true occlusion "
+          f"{100 * big.occ.mean():.3f} %, detected {100 * float(occ_b.float().mean()):.3f} %); "
+          f"fill vs plain path at matched pixels median {e['median']:.3g} p99 {e['p99']:.3g} max "
+          f"{e['max']:.3g} (all pixels: median {e_all['median']:.3g} p99 {e_all['p99']:.3g} "
+          f"p99.9 {e_all['p999']:.3g} max {e_all['max']:.3g}), mask differs at "
+          f"{100 * differ:.4f} % of pixels; launches {counts_fill} (as predicted, "
+          "fill and plain path none; matched pixels unchanged by the fill)")
+    # the cycle warp: #3 on both planes against the plain warp, and the residual
+    bw_b = of.pyramidal_tvl1(bn, bp, of.TVL1_REALTIME)
+    planes = bw_b.movedim(-1, -3)
+    line = check("warp_bilinear_select", consistency._warp_by(planes, fraw, True),
+                 consistency._warp_by(planes, fraw, False), 1080, 1920, "cycle warp 2 planes")
+    e = err_stats(consistency.fb_consistency(fraw, bw_b),
+                  consistency.fb_consistency(fraw, bw_b, use_pallas=False))
+    require(e["max"] <= WARP_MAX_ERR, f"fb_consistency kernel vs plain warp: {e}")
+    print(f"phase 8k fb_consistency 1080x1920: {line}; residual vs plain warp max {e['max']:.3g}")
+
+    # good features and tracking: 8 frames of a period-48 texture at (2, 1)
+    tr_frames = cuda(synthetic_sequence(8, 1080, 1920, velocity=(2.0, 1.0), period=48, noise=0.0))
+    gf_frame = tr_frames[0].float()
+    gf_cfg = of.LKConfig(window=15)
+    (pts, scores), counts = run_path("good_features 1080x1920",
+                                     lambda: of.good_features(gf_frame, gf_cfg, 500), ())
+    require(not counts, f"good_features launched {counts}")
+    cpu_pts, cpu_scores = of.good_features(gf_frame.cpu(), gf_cfg, 500)
+    require(torch.equal(pts.cpu(), cpu_pts), "good_features points differ from the CPU run")
+    rel = float(((scores.cpu() - cpu_scores).abs() / cpu_scores.abs()).max())
+    require(rel <= GF_SCORE_RTOL, f"good_features scores vs the CPU run: max rel {rel}")
+    require(bool((scores > 0).all()), "good_features found fewer than 500 points")
+    track_expect = {"pyr_down": 88, "lk_level_step": 35}
+    (pos, alive), counts = run_path("track_sequence PAPER_1080P 8 frames 1080x1920", lambda: (
+        of.track_sequence(tr_frames, pts, of.PAPER_1080P)), tuple(track_expect))
+    require(counts == track_expect, f"track_sequence launches {counts}, predicted {track_expect}")
+    truth = pts[None] + torch.arange(1, 8, device=dev)[:, None, None] * pts.new_tensor([2.0, 1.0])
+    err = (pos - truth).norm(dim=-1)
+    m = TRACK_MARGIN
+    inner = ((truth[..., 0] >= m) & (truth[..., 0] <= 1919 - m) & (truth[..., 1] >= m)
+             & (truth[..., 1] <= 1079 - m)).all(0)
+    require(bool(alive[:, inner].all()), "an interior point died")
+    inner_err = float(err[:, inner].max())
+    require(inner_err <= TRACK_TOL, f"track_sequence interior points: max error {inner_err} px")
+    edge = err[:, ~inner][alive[:, ~inner]]
+    edge_err = float(edge.max()) if edge.numel() else 0.0
+    tp_expect = {"pyr_down": 80, "lk_residual": 1, "lk_level_step": 34}
+    gen, counts_tp = run_path("track_points PAPER_1080P 8 frames 1080x1920", lambda: list(
+        of.track_points(tr_frames, pts, of.PAPER_1080P)), tuple(tp_expect))
+    require(counts_tp == tp_expect, f"track_points launches {counts_tp}, predicted {tp_expect}")
+    require([i for i, _, _ in gen] == list(range(1, 8)), f"track_points yielded {[g[0] for g in gen]}")
+    d_gen = max(float((gp - pos[t]).abs().max()) for t, (_, gp, _) in enumerate(gen))
+    require(d_gen <= 1e-5 and all(torch.equal(ga, alive[t]) for t, (_, _, ga) in enumerate(gen)),
+            f"track_points vs track_sequence: max |d| {d_gen}")
+    print(f"phase 8k good_features 500 LKConfig(window=15) 1080x1920 period 48: points equal to "
+          f"the CPU run, scores max rel {rel:.3g} (limit {GF_SCORE_RTOL}); track_sequence "
+          f"PAPER_1080P warm over 8 frames at (2, 1): {int(inner.sum())} points {m} px or more "
+          f"inside, max error {inner_err:.4f} px (limit {TRACK_TOL}), all alive; "
+          f"{int((~inner).sum())} nearer the border: max error {edge_err:.4f} px, "
+          f"{int((~alive[-1]).sum())} dead at the end; track_points max |d| {d_gen:.3g} and "
+          f"liveness equal; launches {counts} and {counts_tp} (as predicted), good_features "
+          "none")
+
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
     for name, n_launch in launches.items():
@@ -1600,6 +1798,19 @@ def main() -> int:
             30 if entry is of.pyramidal_lk else 10)
            for label, (c, entry, a, _e) in half_paths.items()},
     }
+    # the quality signals of phase 8k: one call is two flows and the cycle
+    # test (and the fill); tracking is 7 pairs
+    paths |= {
+        "consistent_flow TVL1_REALTIME 1080x1920": (
+            lambda: of.consistent_flow(bp, bn, of.TVL1_REALTIME),
+            lambda: of.consistent_flow(bp, bn, rt_plain), 5),
+        "consistent_flow TVL1_REALTIME fill 1080x1920": (
+            lambda: of.consistent_flow(bp, bn, of.TVL1_REALTIME, fill=True),
+            lambda: of.consistent_flow(bp, bn, rt_plain, fill=True), 5),
+        "track_sequence PAPER_1080P 8 frames 1080x1920": (
+            lambda: of.track_sequence(tr_frames, pts, of.PAPER_1080P),
+            lambda: of.track_sequence(tr_frames, pts, plain_cfg), 10),
+    }
     # the TP paths at 4K, each beside its unsharded run
     for label, (c, tp_fn, whole, *_rest) in (tp_paths | tp_paths_8g).items():
         r = 5 if label == "TVL1_REALTIME" else 10
@@ -1631,6 +1842,18 @@ def main() -> int:
         p_ms = cuda_ms(plain_fn, r_plain, warmup=1)
         print(f"phase 9 timing [{card}] {label}: kernel path {path_ms[label]:.3f} ms/pair, plain "
               f"path {p_ms:.3f} ms/pair (median of {r} and {r_plain})")
+    label = "track_sequence PAPER_1080P 8 frames 1080x1920"
+    print(f"phase 9 timing [{card}] {label}: {path_ms[label] / 7:.3f} ms per tracked frame")
+    # no kernel runs in these (plain torch on the card)
+    singles = {
+        "fill_occluded_flow 1080x1920": lambda: consistency.fill_occluded_flow(fraw, occ_b),
+        "good_features 500 LKConfig(window=15) 1080x1920": (
+            lambda: of.good_features(gf_frame, gf_cfg, 500)),
+    }
+    for label, fn in singles.items():
+        path_ms[label] = cuda_ms(fn, 10)
+        print(f"phase 9 timing [{card}] {label}: {path_ms[label]:.3f} ms/call (median of 10; no "
+              "kernel)")
 
     p0, n0, f0 = (cuda(a) for a in textured_pair(1080, 1920, seed=7))
     pair0 = torch.stack([p0, n0])
@@ -1732,7 +1955,8 @@ def main() -> int:
               + f", bound {b_ms:.4f} ms by {b_by} ({100 * b_ms / k_ms:.1f} % of the kernel's time)")
 
     # 10. profile: device busy share and device operations per pair
-    for label, (fn, _plain, _r) in paths.items():
+    profiled = {label: fn for label, (fn, _plain, _r) in paths.items()} | singles
+    for label, fn in profiled.items():
         prof = profile_path(fn, 5)
         if not prof["ops_per_pair"]:
             print(f"phase 10 profile {label}: no device events in the trace; busy share not "

@@ -22,6 +22,16 @@ plain PyTorch versions.
 families, warm or cold, with scene-cut recovery.  ``parallel`` shards batches
 of pairs, or one pair's rows (any of the five families), over a mesh of
 devices.
+
+The quality signals ride on any family:
+
+    flow, occluded = of.consistent_flow(prev_gray, next_gray, config, fill=True)
+    trusted = of.confidence_mask(prev_gray, of.LKConfig(window=15))
+    points, scores = of.good_features(prev_gray, of.LKConfig(window=15), 500)
+    positions, alive = of.track_sequence(frames, points, config)  # (T-1, N, 2)
+
+``utils`` holds numpy copies of the JAX package's scoring and I/O
+(``metrics``, ``layered``, ``io``) and the visualization (``viz``).
 """
 
 from cuda_optical_flow_2_torch.config import (
@@ -32,6 +42,16 @@ from cuda_optical_flow_2_torch.config import (
     LKConfig,
 )
 from cuda_optical_flow_2_torch.models import pyramidal_flow
+from cuda_optical_flow_2_torch.models.confidence import (
+    confidence_mask,
+    good_features,
+    min_eigenvalue,
+)
+from cuda_optical_flow_2_torch.models.consistency import (
+    consistent_flow,
+    fb_consistency,
+    occlusion_mask,
+)
 from cuda_optical_flow_2_torch.models.dis import DIS_REALTIME, DISConfig, pyramidal_dis
 from cuda_optical_flow_2_torch.models.farneback import (
     FBConfig,
@@ -62,6 +82,12 @@ from cuda_optical_flow_2_torch.models.streaming import (
     process_sequence,
     step,
 )
+from cuda_optical_flow_2_torch.models.tracking import (
+    advect_points,
+    sample_flow,
+    track_points,
+    track_sequence,
+)
 from cuda_optical_flow_2_torch.models.tvl1 import TVL1_REALTIME, TVL1Config, pyramidal_tvl1
 from cuda_optical_flow_2_torch import parallel
 
@@ -81,15 +107,22 @@ __all__ = [
     "TVL1_REALTIME",
     "FlowState",
     "RecoveryConfig",
+    "advect_points",
     "coarse_to_fine",
+    "confidence_mask",
+    "consistent_flow",
     "compose_flow_pyramid",
     "fb_coarse_to_fine",
+    "fb_consistency",
     "fb_preprocess",
+    "good_features",
     "horn_schunck",
     "hs_coarse_to_fine",
     "hs_preprocess",
     "init_state",
     "lk_level",
+    "min_eigenvalue",
+    "occlusion_mask",
     "parallel",
     "preprocess",
     "process_sequence",
@@ -100,7 +133,10 @@ __all__ = [
     "pyramidal_lk",
     "pyramidal_lk_pyramid",
     "pyramidal_tvl1",
+    "sample_flow",
     "solve_flow",
     "step",
+    "track_points",
+    "track_sequence",
     "__version__",
 ]

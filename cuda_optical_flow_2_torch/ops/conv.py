@@ -41,9 +41,12 @@ def conv2d(x: torch.Tensor, mask) -> torch.Tensor:
     return out
 
 
-# The JAX package's shift-form twin of its conv2d; here conv2d already has
-# that form, so the two names are one function.
-stencil2d = conv2d
+def stencil2d(x: torch.Tensor, mask, *, dtype=None) -> torch.Tensor:
+    """The JAX package's shift-form twin of its ``conv2d``: the same zero-padded
+    correlation, a sum of shifted slices that skips zero taps, in row-major
+    tap order.  Here :func:`conv2d` already has that form.  ``dtype`` (default:
+    ``x``'s floating dtype, else float32) is the dtype of the sum."""
+    return conv2d(x if dtype is None else x.to(dtype), mask)
 
 
 def _correlate1d(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:

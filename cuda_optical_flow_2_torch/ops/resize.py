@@ -13,7 +13,7 @@ import torch.nn.functional as F
 
 from cuda_optical_flow_2_torch.ops.pyramid import pyr_down
 
-__all__ = ["downsample_flow", "upsample_flow"]
+__all__ = ["downsample_flow", "upsample_flow", "upscale_nn"]
 
 
 def _up2x_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -69,3 +69,10 @@ def downsample_flow(
             [pyr_down(flow[..., 0], use_pallas), pyr_down(flow[..., 1], use_pallas)], dim=-1
         ) * 0.5
     return flow
+
+
+def upscale_nn(img: torch.Tensor, n: int) -> torch.Tensor:
+    """Replicate each pixel of (..., H, W) planes into a 2^n x 2^n block (debug
+    visualization)."""
+    f = 1 << n
+    return img.repeat_interleave(f, dim=-2).repeat_interleave(f, dim=-1)

@@ -1,1 +1,2 @@
-"""Numpy-only helpers."""
+"""Scoring, scenes, frame and flow I/O, visualization: numpy copies of the JAX
+package's modules, and the torch colorizer ``viz.flow_to_color_device``."""
