@@ -106,6 +106,27 @@ then, in order:
    counts checked against the predicted ones (``consistent_flow``: twice a
    pair's and one cycle warp; the fill, ``good_features`` and the plain
    paths none);
+8l. the reference-exact profiles and the four command-line tools:
+   ``models.compat.pyramidal_lk_exact`` (both profiles) on the golden 64x64
+   pair against ``tests/golden/`` and at 480x640 and 1080x1920 against a
+   CPU run of the port (uint8 pyramids and int32 sums ``torch.equal``, the
+   CPU profile within 1e-9, the GPU profile within 2e-3), no kernel
+   launched; ``cli.benchmark`` configs 1-5 on LK and config 4 on HS, FB,
+   TV-L1 and DIS, each EPE within 1e-3 px of its ``--no-pallas`` run and
+   its launches those of its calls of a direct call; ``cli.evaluate`` on a
+   Sintel tree at 1080x1920 (two ``synthetic_sequence`` sequences of five
+   frames and phase 8k's disk scene with its ``occ/`` truth): the
+   ``paper_1080p`` preset, ``tvl1_realtime`` on the disk with and without
+   ``--fill-occlusions`` (tests/test_evaluate.py's bounds), warm streaming
+   with recovery and DIS, each summary within 1e-3 px of ``--no-pallas``;
+   ``utils.debug.stage_report`` of every family at 1080x1920 (kernel,
+   banded and oracle against plain; each kernel row within its kernel's
+   limits above) and ``sharded`` over 3 shards of the card bit-equal to the
+   kernel path for LK, HS, TV-L1 and FB, and ``cli.diff``; ``cli.demo`` on
+   8 synthetic frames for the five models (LK at 1080x1920 with the
+   bilateral, warm with recovery over the native stream, and plain; the
+   others at 480x640), each with its EPE lines and artifacts, and
+   ``utils.native`` built;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K; host time included; ``consistent_flow`` with the fill off
    and on, the fill alone, ``good_features`` and ``track_sequence`` per
@@ -118,7 +139,7 @@ then, in order:
 
 Each phase prints one line per check; any failed check raises and the
 script exits non-zero.  The launch counters are zeroed just before each path
-(phases 4-8k) and read just after it: every kernel must launch on the paths
+(phases 4-8l) and read just after it: every kernel must launch on the paths
 that use it.  The line before the last is a JSON object with each kernel's
 numbers, the centered (DIS) modes of ``lk_residual``, ``lk_level_step`` and
 ``lk_band_step`` and the ``flow_half`` mode of ``lk_level_step`` as entries
@@ -135,6 +156,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -535,6 +557,391 @@ def profile_path(fn, pairs: int) -> dict:
         "ops_per_pair": len(dev) / pairs,
         "top": [(name[:60], ms / 1e3 / pairs) for name, ms in top],
     }
+
+
+# --- phase 8l: the reference-exact profiles and the four command-line tools --
+
+# compat: the CPU profile's sums are exact integers and its solve float64, so
+# the card and the CPU agree to float64 rounding; the GPU profile's float32
+# window sums are held at tests/test_compat.py's 2e-3 (rtol and atol)
+COMPAT_CPU_TOL = 1e-9
+COMPAT_GOLDEN_CPU_TOL = 1e-6  # tests/test_golden.py
+COMPAT_GPU_TOL = 2e-3
+CLI_EPE_TOL = 1e-3  # px, a tool's EPE on the kernel path vs the same run with --no-pallas
+# A benchmark run has found the motion when its plain path's EPE is under
+# this share of it. FB and TV-L1 at config 4 do not: five levels alias its
+# period-24 texture (plain path EPE: FB 28.40 px on the card and the CPU,
+# TV-L1 33.96 on the card and 26.56 on the CPU; the JAX package's XLA twin
+# on the CPU 28.25 and 33.97). Float-order differences move a diverged flow
+# by whole pixels, so those runs' kernel-vs-plain EPE is printed, not held.
+CONVERGED = 0.5
+BENCH_KEYS = {"config", "name", "fps", "ms_per_frame", "epe_vs_truth"}
+FILL_EPE_MOVE = 0.05  # px, tests/test_evaluate.py:757-763
+BENCH_ITERS = 10
+# The kernel each stage of a stage report runs once, for the rows of its
+# "kernel" and "banded" backends: ("max", limit) or ("median/p99.9", (m, p)).
+# The "level", DIS "search" and "refine" and end-to-end "flow" rows compose
+# several launches (iterations, a warp and a relaxation, levels) and are held
+# to the path limits.
+STAGE_KERNEL = {
+    "residual": "lk_residual", "warp": "warp_bilinear_select", "expand": "poly_expansion_kernel",
+    "window_solve": "window_solve",
+}
+
+
+def stage_limits(family: str, stage: str):
+    if stage in ("level", "search", "refine", "flow"):
+        return "median/p99", (PATH_MEDIAN_ERR, PATH_P99_ERR)
+    if stage == "sweeps":
+        name = "tvl1_relax" if family == "TVL1Config" else "hs_relax"
+    else:
+        name = STAGE_KERNEL.get(stage)
+    if name is None:
+        return None, None  # gradients, window sums, solve: no kernel runs them
+    if name == "warp_bilinear_select":
+        return "max", WARP_MAX_ERR
+    if name == "poly_expansion_kernel":
+        # |d| <= POLY_ATOL implies |d| <= POLY_ATOL + POLY_RTOL |plain|
+        return "max", POLY_ATOL
+    return "median/p99.9", {
+        "lk_residual": (LK_MEDIAN_ERR, LK_P999_ERR),
+        "window_solve": (WIN_SOLVE_MEDIAN_ERR, WIN_SOLVE_P999_ERR),
+        "hs_relax": (HS_MEDIAN_ERR, HS_P999_ERR),
+        "tvl1_relax": (TVL1_MEDIAN_ERR, TVL1_P999_ERR),
+    }[name]
+
+
+def run_cli(main_fn, argv: list) -> tuple[str, float]:
+    """A tool's ``main(argv)`` with its standard output captured: (output,
+    wall seconds, the card synchronized at the end)."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def json_records(text: str) -> list:
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def phase_8l(of, dev, run_path, big, card: str) -> dict:
+    """Drive the compat profiles, the benchmark, evaluate, diff and demo
+    tools on the card; print one line per check; return the numbers phase
+    9 prints beside its own."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cuda_optical_flow_2_torch.cli import benchmark as cli_bench
+    from cuda_optical_flow_2_torch.cli import demo as cli_demo
+    from cuda_optical_flow_2_torch.cli import diff as cli_diff
+    from cuda_optical_flow_2_torch.cli import evaluate as cli_eval
+    from cuda_optical_flow_2_torch.constants import DX_3X3, DY_3X3, GAUS_KERNEL_3X3
+    from cuda_optical_flow_2_torch.models import compat
+    from cuda_optical_flow_2_torch.utils import debug, native, profiling
+    from cuda_optical_flow_2_torch.utils import io as uio
+    from cuda_optical_flow_2_torch.utils import viz
+
+    out: dict = {}
+
+    def cuda(a):
+        return torch.as_tensor(a, device=dev)
+
+    def close(got, want, tol, what):
+        """NaN/inf patterns equal, the rest within tol (rtol and atol)."""
+        g, w = got.double().cpu(), want.double().cpu()
+        fg, fw = torch.isfinite(g), torch.isfinite(w)
+        require(torch.equal(fg, fw) and torch.equal(g[~fg].nan_to_num(7.0), w[~fw].nan_to_num(7.0)),
+                f"{what}: NaN/inf patterns differ")
+        d = (g[fg] - w[fw]).abs()
+        excess = float((d - tol * w[fw].abs()).max()) if d.numel() else 0.0
+        require(excess <= tol, f"{what}: |d| - tol |want| {excess} > {tol}")
+        return float(d.max()) if d.numel() else 0.0
+
+    # -- compat: the golden pair, then 480x640 and 1080x1920 against the CPU
+    golden = ROOT / "tests" / "golden"
+    gp, gn = (np.load(golden / f"pair_{s}.npy") for s in ("prev", "next"))
+    parts = []
+    for profile in ("cpu", "gpu"):
+        flows, counts = run_path(f"compat {profile} golden 64x64", lambda: compat.pyramidal_lk_exact(
+            cuda(gp), cuda(gn), levels=4, profile=profile), ())
+        require(not counts, f"compat launched {counts}")
+        worst = 0.0
+        for k, f in enumerate(flows):
+            want = np.load(golden / f"{profile}_flow_L{k}.npy")
+            got = f.cpu().numpy()
+            finite = np.isfinite(want).all(axis=-1)
+            require(np.array_equal(finite, np.isfinite(got).all(axis=-1)),
+                    f"compat {profile} golden level {k}: finite patterns differ")
+            tol = COMPAT_GOLDEN_CPU_TOL if profile == "cpu" else COMPAT_GPU_TOL
+            d = np.abs(got[finite] - want[finite])
+            require(bool((d <= tol + tol * np.abs(want[finite])).all()),
+                    f"compat {profile} golden level {k}: max |d| {d.max()}")
+            worst = max(worst, float(d.max()) if d.size else 0.0)
+        parts.append(f"{profile} profile max |d| {worst:.3g}")
+    print("phase 8l compat pyramidal_lk_exact vs tests/golden (4 levels, 64x64): "
+          + "; ".join(parts) + "; no kernel launched")
+
+    for h, w in ((480, 640), (1080, 1920)):
+        fr = synthetic_sequence_rgb(h, w)
+        (pc, nc), (pcpu, ncpu) = [cuda(f) for f in fr], [torch.as_tensor(f) for f in fr]
+        pyr_g, pyr_c = compat.build_pyramid_u8(pc, 4), compat.build_pyramid_u8(pcpu, 4)
+        require(all(torch.equal(a.cpu(), b) for a, b in zip(pyr_g, pyr_c)),
+                f"compat {h}x{w}: uint8 pyramids differ from the CPU run")
+        npyr_g, npyr_c = compat.build_pyramid_u8(nc, 4), compat.build_pyramid_u8(ncpu, 4)
+        for k in range(4):
+            sums = []
+            for pp, nn in ((pyr_g[k], npyr_g[k]), (pyr_c[k], npyr_c[k])):
+                ix = compat.conv_3ch_to_1ch_u8(pp, DX_3X3)
+                iy = compat.conv_3ch_to_1ch_u8(pp, DY_3X3)
+                it = compat.sub_arr_u8(compat.conv_3ch_to_1ch_u8(nn, GAUS_KERNEL_3X3),
+                                       compat.conv_3ch_to_1ch_u8(pp, GAUS_KERNEL_3X3))
+                sums.append([compat.srm_1ch_i32(a, b, 9).cpu()
+                             for a, b in ((ix, ix), (iy, iy), (ix, iy), (ix, it), (iy, it))])
+            require(all(torch.equal(a, b) for a, b in zip(*sums)),
+                    f"compat {h}x{w} level {k}: int32 window sums differ from the CPU run")
+        parts = []
+        for profile, tol in (("cpu", COMPAT_CPU_TOL), ("gpu", COMPAT_GPU_TOL)):
+            fg, counts = run_path(f"compat {profile} {h}x{w}", lambda: compat.pyramidal_lk_exact(
+                pc, nc, levels=4, profile=profile), ())
+            require(not counts, f"compat launched {counts}")
+            fc = compat.pyramidal_lk_exact(pcpu, ncpu, levels=4, profile=profile)
+            worst = max(close(a, b, tol, f"compat {profile} {h}x{w} level {k}")
+                        for k, (a, b) in enumerate(zip(fg, fc)))
+            nonfinite = int((~torch.isfinite(fc[0])).any(-1).sum())
+            ms = cuda_ms(lambda: compat.pyramidal_lk_exact(pc, nc, levels=4, profile=profile), 5)
+            out[f"compat {profile} {h}x{w}"] = ms
+            parts.append(f"{profile} profile max |d| {worst:.3g} (limit {tol:g}), "
+                         f"{nonfinite} non-finite pixels at level 0 as on the CPU, {ms:.3f} ms")
+        print(f"phase 8l compat {h}x{w} 4 levels vs a CPU run: uint8 pyramids and int32 sums "
+              f"torch.equal; " + "; ".join(parts) + f" [{card}]; no kernel launched")
+
+    # -- benchmark: every config on LK, config 4 on the other families
+    def bench(model: str, idx: int) -> None:
+        spec = cli_bench.CONFIGS[idx]
+        cfg = cli_bench._model_cfg(model, spec["cfg"], False)
+        label = f"benchmark config {idx} {model}"
+        (text, _secs), counts = run_path(label, lambda: run_cli(cli_bench.main, [
+            "--configs", str(idx), "--model", model, "--iters", str(BENCH_ITERS)]), ())
+        (rec,) = json_records(text)
+        (ptext, _), pcounts = run_path(label + " plain", lambda: run_cli(cli_bench.main, [
+            "--configs", str(idx), "--model", model, "--iters", "1", "--no-pallas"]), ())
+        require(not pcounts, f"{label} --no-pallas launched {pcounts}")
+        (prec,) = json_records(ptext)
+        # one direct call on the CLI's inputs: the CLI launches its calls' kernels and no more
+        fn, args, _frames = cli_bench.config_call(dict(spec, cfg=cfg), dev)
+        _, direct = run_path(label + " direct", lambda: fn(*args), ())
+        timed = max(BENCH_ITERS // 4, 2) if spec.get("batch") else BENCH_ITERS
+        calls = profiling.WARMUP + timed + 1
+        require(direct and counts == {k: v * calls for k, v in direct.items()},
+                f"{label}: launches {counts}, {calls} calls of a direct call's {direct}")
+        for r in (rec, prec):
+            require(math.isfinite(r["epe_vs_truth"]) and r.keys() == BENCH_KEYS,
+                    f"{label}: record {r}")
+        motion = math.hypot(*spec["velocity"])
+        converged = prec["epe_vs_truth"] < CONVERGED * motion
+        if converged:
+            d = abs(rec["epe_vs_truth"] - prec["epe_vs_truth"])
+            require(d <= CLI_EPE_TOL, f"{label}: EPE {rec} vs --no-pallas {prec}")
+            held = f"within {CLI_EPE_TOL} px"
+        else:
+            held = (f"not held: the estimate diverges on both paths (EPE over "
+                    f"{CONVERGED:g} of the {motion:.2f} px motion)")
+        out[label] = rec["ms_per_frame"]
+        print(f"phase 8l {label} ({rec['name']}): {rec['ms_per_frame']:.3f} ms/call, "
+              f"{rec['fps']:.2f} fps [{card}]; EPE {rec['epe_vs_truth']:.4f} px, --no-pallas "
+              f"{prec['epe_vs_truth']:.4f} ({prec['ms_per_frame']:.3f} ms/call), {held}; "
+              f"launches per call {direct} = a direct call's ({calls} calls)")
+
+    for idx in (1, 2, 3, 4, 5):
+        bench("lk", idx)
+    for model in ("hs", "fb", "tvl1", "dis"):
+        bench(model, 4)
+
+    tmp = Path(tempfile.mkdtemp(prefix="of2_chip_smoke_"))
+    try:
+        # -- evaluate: a Sintel tree of two synthetic sequences and the disk scene
+        full, disk = tmp / "sintel", tmp / "disk"
+        seqs = {
+            "seq_a": (uio.synthetic_sequence(5, 1080, 1920, velocity=(2.0, 1.0), period=48),
+                      (2.0, 1.0)),
+            "seq_b": (uio.synthetic_sequence(5, 1080, 1920, velocity=(-1.0, 1.5), period=48,
+                                             seed=1), (-1.0, 1.5)),
+        }
+        for seq, (frames, v) in seqs.items():
+            (full / "final" / seq).mkdir(parents=True)
+            (full / "flow" / seq).mkdir(parents=True)
+            truth = np.full((1080, 1920, 2), v, np.float32)
+            for t, f in enumerate(frames):
+                np.save(full / "final" / seq / f"frame_{t + 1:04d}.npy", f)
+                if t < len(frames) - 1:
+                    uio.write_flo(str(full / "flow" / seq / f"frame_{t + 1:04d}.flo"), truth)
+        for root in (full, disk):
+            for sub in ("final", "flow", "occ"):
+                (root / sub / "disk").mkdir(parents=True)
+            for t, f in enumerate((big.prev, big.nxt), start=1):
+                np.save(root / "final" / "disk" / f"frame_{t:04d}.npy", f.astype(np.float32))
+            uio.write_flo(str(root / "flow" / "disk" / "frame_0001.flo"), big.flow)
+            viz.write_png(str(root / "occ" / "disk" / "frame_0001.png"),
+                          (big.occ * 255).astype(np.uint8))
+
+        lk_needs = ("lk_residual", "lk_level_step", "pyr_down")
+        tvl1_needs = ("pyr_down", "warp_bilinear_select", "tvl1_relax", "median_filter_kernel")
+        runs = {
+            "lk preset paper_1080p": ([full, "--model", "lk", "--preset", "paper_1080p"], lk_needs),
+            "tvl1_realtime disk": ([disk, "--preset", "tvl1_realtime"], tvl1_needs),
+            "tvl1_realtime disk fill": ([disk, "--preset", "tvl1_realtime", "--fill-occlusions"],
+                                        tvl1_needs),
+            "streaming warm levels=1 recover 3": (
+                [full, "--streaming", "--warm-start", "--levels", "1", "--recover-levels", "3"],
+                ("lk_residual", "lk_level_step", "pyr_down", "warp_bilinear_select")),
+            "dis": ([full, "--model", "dis"], ("pyr_down", "lk_residual", "lk_level_step",
+                                               "warp_bilinear_select", "hs_relax")),
+        }
+        summaries = {}
+        for label, (argv, needs) in runs.items():
+            argv = ["--dataset", str(argv[0]), *argv[1:]]
+            (text, secs), counts = run_path(f"evaluate {label}", lambda: run_cli(
+                cli_eval.main, argv), needs)
+            (ptext, _), pcounts = run_path(f"evaluate {label} plain", lambda: run_cli(
+                cli_eval.main, [*argv, "--no-pallas"]), ())
+            require(not pcounts, f"evaluate {label} --no-pallas launched {pcounts}")
+            agg, pagg = json_records(text)[-1], json_records(ptext)[-1]
+            require(agg["pairs"] == agg["pairs_with_truth"] == pagg["pairs"] > 0,
+                    f"evaluate {label}: {agg}")
+            keys = [k for k in ("epe_mean", "epe_matched", "epe_unmatched") if k in agg]
+            # the summary's EPE and the matched split are held; at occluded
+            # pixels TV-L1 has no data term and float order flips near-tied
+            # decisions (phase 8k), so the unmatched split is printed
+            for key in ("epe_mean", "epe_matched"):
+                if key in agg:
+                    require(abs(agg[key] - pagg[key]) <= CLI_EPE_TOL,
+                            f"evaluate {label} {key}: {agg[key]} vs --no-pallas {pagg[key]}")
+            summaries[label] = agg
+            out[f"evaluate {label}"] = 1e3 * secs / agg["pairs"]
+            print(f"phase 8l evaluate {label} ({agg['layout']}, {agg['pairs']} pairs at "
+                  f"1080x1920): {1e3 * secs / agg['pairs']:.1f} ms/pair wall with the host's "
+                  f"decode and scoring [{card}]; " + ", ".join(
+                      f"{k} {agg[k]:.4f} (--no-pallas {pagg[k]:.4f})" for k in keys)
+                  + f"; launches {counts}")
+        raw, fill = summaries["tvl1_realtime disk"], summaries["tvl1_realtime disk fill"]
+        require(fill["epe_unmatched"] < raw["epe_unmatched"] - FILL_EPE_MOVE
+                and abs(fill["epe_matched"] - raw["epe_matched"]) < FILL_EPE_MOVE,
+                f"--fill-occlusions: unmatched {raw['epe_unmatched']} -> {fill['epe_unmatched']}, "
+                f"matched {raw['epe_matched']} -> {fill['epe_matched']}")
+        print(f"phase 8l evaluate --fill-occlusions on the disk: EPE unmatched "
+              f"{raw['epe_unmatched']:.4f} -> {fill['epe_unmatched']:.4f} (must fall by more than "
+              f"{FILL_EPE_MOVE}), matched {raw['epe_matched']:.4f} -> {fill['epe_matched']:.4f} "
+              f"(must move less than {FILL_EPE_MOVE}; tests/test_evaluate.py:757-763)")
+
+        # -- diff: the stage reports of every family at 1080x1920
+        fr = uio.synthetic_sequence(2, 1080, 1920, velocity=(2.0, 1.0), period=48, noise=0.0)
+        dp, dn = cuda(fr[0]).float(), cuda(fr[1]).float()
+        diff_cfgs = {
+            "LKConfig": (of.LKConfig(levels=3, window=9, window_weights="box"),
+                         ("lk_residual", "lk_level_step", "warp_bilinear_select")),
+            "HSConfig": (of.HSConfig(levels=3), ("hs_relax",)),
+            "TVL1Config": (of.TVL1Config(levels=3), ("tvl1_relax", "median_filter_kernel")),
+            "FBConfig": (of.FBConfig(levels=3), ("poly_expansion_kernel", "window_solve",
+                                                 "fb_level_step", "warp_bilinear_select")),
+            "DISConfig": (of.DISConfig(levels=3), ("lk_residual", "lk_level_step", "hs_relax")),
+        }
+        for family, (cfg, needs) in diff_cfgs.items():
+            rep, counts = run_path(f"stage_report {family}", lambda: debug.stage_report(
+                dp, dn, cfg, backends=("kernel", "banded", "oracle"), n_bands=3), needs)
+            held = []
+            for r in rep:
+                kind, lim = stage_limits(family, r.stage)
+                if kind is None or r.backend == "oracle":
+                    continue
+                if kind == "max":
+                    ok = r.max_abs <= lim
+                elif kind == "median/p99":
+                    ok = r.median_abs <= lim[0] and r.p99_abs <= lim[1]
+                else:
+                    ok = r.median_abs <= lim[0] and r.p999_abs <= lim[1]
+                require(ok, f"stage_report {family}: {r} median {r.median_abs} p99 {r.p99_abs} "
+                            f"p99.9 {r.p999_abs} past its {kind} limit {lim}")
+                held.append(r)
+            lines = "; ".join(
+                f"{'E2E' if r.level < 0 else f'L{r.level}'} {r.stage} {r.backend} max "
+                f"{r.max_abs:.3g} p99.9 {r.p999_abs:.3g}" for r in rep)
+            shard = ""
+            if family != "DISConfig":
+                srep, _ = run_path(f"stage_report {family} sharded", lambda: debug.stage_report(
+                    dp, dn, cfg, backends=("sharded",), baseline="kernel", stages=("flow",),
+                    n_bands=3), ())
+                require(len(srep) == 1 and srep[0].max_abs == 0.0,
+                        f"stage_report {family} sharded (3 shards) vs kernel: {srep}")
+                shard = "; sharded (3 shards) vs kernel max |d| 0"
+            print(f"phase 8l stage_report {family} 1080x1920 3 levels vs plain: {lines}{shard}; "
+                  f"{len(held)} rows within their kernels' limits; launches {counts}")
+        text, _ = run_cli(cli_diff.main, ["--model", "lk", "--size", "1080x1920", "--levels", "3",
+                                          "--n-bands", "3", "--backends", "kernel", "banded",
+                                          "oracle"])
+        rows = text.strip().splitlines()
+        require(len(rows) > 10 and all(" vs plain: max " in r for r in rows),
+                f"diff printed {text[:400]}")
+        print(f"phase 8l diff --model lk --size 1080x1920: {len(rows)} rows, e.g. "
+              f"{rows[0].strip()}")
+
+        # -- demo: all five models; native ingestion
+        require(native.available(), "native.available() is False on the card's machine")
+        demo_runs = {
+            "lk --bilateral 1080x1920": (["--size", "1080x1920", "--bilateral", "--out",
+                                          str(tmp / "demo_lk")],
+                                         ("bilateral_kernel", "lk_residual", "lk_level_step")),
+            "lk warm + recovery, native stream 1080x1920": (
+                ["--size", "1080x1920", "--warm-start", "--levels", "1", "--recover-levels", "3",
+                 "--native-stream", "--out-video", str(tmp / "demo_warm.y4m")],
+                ("lk_level_step", "warp_bilinear_select")),
+            "lk 1080x1920": (["--size", "1080x1920"], ("lk_residual", "lk_level_step")),
+            **{f"{m} 480x640": (["--size", "480x640", "--model", m, "--out", str(tmp / f"demo_{m}")],
+                                needs) for m, needs in (
+                ("hs", ("hs_relax",)), ("fb", ("fb_level_step",)),
+                ("tvl1", ("tvl1_relax", "median_filter_kernel")),
+                ("dis", ("lk_residual", "hs_relax")))},
+        }
+        for label, (argv, needs) in demo_runs.items():
+            (text, _), counts = run_path(f"demo {label}", lambda: run_cli(
+                cli_demo.main, ["--synthetic", "8", *argv]), needs)
+            epe = [float(line.rsplit(":", 1)[1]) for line in text.splitlines() if "EPE" in line]
+            require(len(epe) == 7 and all(math.isfinite(e) for e in epe),
+                    f"demo {label}: EPE lines {text[:400]}")
+            fps = float(text.strip().splitlines()[-1].split("(")[1].split()[0])
+            if "--out" in argv:
+                files = os.listdir(argv[argv.index("--out") + 1])
+                require(sum(f.startswith("flow") for f in files) == 7
+                        and sum(f.startswith("arrows") for f in files) == 7,
+                        f"demo {label} wrote {sorted(files)}")
+            if "--out-video" in argv:
+                require(len(list(uio.read_y4m(argv[argv.index("--out-video") + 1]))) == 7,
+                        f"demo {label}: the flow video does not hold 7 frames")
+            out[f"demo {label}"] = fps
+            print(f"phase 8l demo {label} (8 frames): EPE {min(epe):.3f}-{max(epe):.3f} px, "
+                  f"{fps:.1f} fps end to end with the host's I/O [{card}]; artifacts written; "
+                  f"launches {counts}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def synthetic_sequence_rgb(h: int, w: int) -> list:
+    """Two (H, W, 3) uint8 frames of a translating texture, a different
+    plane in each channel (the compat profiles read channel 0 and decimate
+    all three)."""
+    from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
+
+    fr = synthetic_sequence(2, h, w, velocity=(2.0, 1.0), period=24)
+    return [np.stack([f, 255 - f, f // 2], -1) for f in fr]
 
 
 def main() -> int:
@@ -1758,6 +2165,9 @@ def main() -> int:
           f"liveness equal; launches {counts} and {counts_tp} (as predicted), good_features "
           "none")
 
+    # 8l. the reference-exact profiles and the four command-line tools
+    tools_8l = phase_8l(of, dev, run_path, big, card)
+
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
     for name, n_launch in launches.items():
@@ -1854,6 +2264,16 @@ def main() -> int:
         path_ms[label] = cuda_ms(fn, 10)
         print(f"phase 9 timing [{card}] {label}: {path_ms[label]:.3f} ms/call (median of 10; no "
               "kernel)")
+    # the benchmark tool's configs (phase 8l) as direct calls on its inputs
+    from cuda_optical_flow_2_torch.cli import benchmark as cli_bench
+
+    for idx, spec in cli_bench.CONFIGS.items():
+        bench_fn, bench_args, frames_per_call = cli_bench.config_call(spec, dev)
+        r = 3 if spec.get("batch") else reps
+        ms = cuda_ms(lambda: bench_fn(*bench_args), r)
+        print(f"phase 9 timing [{card}] benchmark config {idx} ({spec['name']}): {ms:.3f} "
+              f"ms/call, {ms / frames_per_call:.3f} ms/frame (median of {r} calls); the tool's "
+              f"device_time read {tools_8l[f'benchmark config {idx} lk']:.3f} ms/call in phase 8l")
 
     p0, n0, f0 = (cuda(a) for a in textured_pair(1080, 1920, seed=7))
     pair0 = torch.stack([p0, n0])

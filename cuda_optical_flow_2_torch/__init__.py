@@ -31,7 +31,14 @@ The quality signals ride on any family:
     positions, alive = of.track_sequence(frames, points, config)  # (T-1, N, 2)
 
 ``utils`` holds numpy copies of the JAX package's scoring and I/O
-(``metrics``, ``layered``, ``io``) and the visualization (``viz``).
+(``metrics``, ``layered``, ``io``), the visualization (``viz``), the
+native frame ingestion (``native``), device timing and traces
+(``profiling``) and the per-stage A/B tool (``debug``).
+``models.compat`` runs the reference's bug-exact uint8/int32 profiles
+(``pyramidal_lk_exact``), held against the numpy ``oracle``.  ``cli`` holds
+the command-line tools (``of2-torch-benchmark``, ``of2-torch-eval``,
+``of2-torch-diff``, ``of2-torch-demo``), which run on ``--device cuda``
+unless told ``--device cpu``.
 """
 
 from cuda_optical_flow_2_torch.config import (

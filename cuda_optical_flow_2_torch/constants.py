@@ -1,8 +1,9 @@
 """Convolution masks and the Gaussian-mask generator (numpy only).
 
 Copies of the entries of ``cuda_optical_flow_2_tpu.constants`` that the
-port's pipeline reads; ``tests/test_torch_ops.py`` holds them equal to the
-originals.  Stencils are applied as correlations (no mask flip).
+port's pipeline, its bug-exact profiles and its oracle read;
+``tests/test_torch_ops.py`` and ``tests/test_torch_compat.py`` hold them
+equal to the originals.  Stencils are applied as correlations (no mask flip).
 """
 
 from __future__ import annotations
@@ -11,23 +12,41 @@ import math
 
 import numpy as np
 
-__all__ = ["BINOMIAL_1D", "MASKS", "generate_gaussian_kernel"]
+__all__ = [
+    "BINOMIAL_1D",
+    "DT_3X3",
+    "DT_3X3_N",
+    "DX_3X3",
+    "DY_3X3",
+    "GAUS_KERNEL_3X3",
+    "MASKS",
+    "generate_gaussian_kernel",
+]
 
 _f32 = np.float32
 
+# Sobel derivatives (gain 8 on a unit ramp).
+DX_3X3 = np.array([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], _f32)
+DY_3X3 = np.array([[-1.0, -2.0, -1.0], [0.0, 0.0, 0.0], [1.0, 2.0, 1.0]], _f32)
+# Temporal smoothing, unnormalized (sum 15).
+DT_3X3 = np.array([[1.0, 2.0, 1.0], [2.0, 3.0, 2.0], [1.0, 2.0, 1.0]], _f32)
+# The reference's normalized temporal mask of its gradient viewer (showTest).
+DT_3X3_N = np.array(
+    [[0.0666, 0.1333, 0.0666], [0.1333, 0.2, 0.1333], [0.0666, 0.1333, 0.0666]], _f32
+)
+# Binomial {1,2,1}/4 (x) {1,2,1}/4.
+GAUS_KERNEL_3X3 = np.array(
+    [[0.0625, 0.125, 0.0625], [0.125, 0.25, 0.125], [0.0625, 0.125, 0.0625]], _f32
+)
+
 # Name -> 3x3 mask, for the LKConfig string fields.
 MASKS = {
-    # Sobel derivatives (gain 8 on a unit ramp).
-    "sobel_x": np.array([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], _f32),
-    "sobel_y": np.array([[-1.0, -2.0, -1.0], [0.0, 0.0, 0.0], [1.0, 2.0, 1.0]], _f32),
-    # Temporal smoothing, unnormalized (sum 15).
-    "dt3": np.array([[1.0, 2.0, 1.0], [2.0, 3.0, 2.0], [1.0, 2.0, 1.0]], _f32),
+    "sobel_x": DX_3X3,
+    "sobel_y": DY_3X3,
+    "dt3": DT_3X3,
     # Direct frame difference.
     "delta": np.array([[0.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 0.0]], _f32),
-    # Binomial {1,2,1}/4 (x) {1,2,1}/4.
-    "gauss3": np.array(
-        [[0.0625, 0.125, 0.0625], [0.125, 0.25, 0.125], [0.0625, 0.125, 0.0625]], _f32
-    ),
+    "gauss3": GAUS_KERNEL_3X3,
 }
 
 # Separable factor of MASKS["gauss3"]; the pyramid's blur.
