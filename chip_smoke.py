@@ -127,6 +127,24 @@ then, in order:
    bilateral, warm with recovery over the native stream, and plain; the
    others at 480x640), each with its EPE lines and artifacts, and
    ``utils.native`` built;
+8m. the examples, gradients and multihost: each of the ten
+   ``cuda_optical_flow_2_torch.examples`` through ``main(device="cuda")``
+   with its own asserts and printed numbers, its launches those
+   ``example_launches`` predicts (none for ``gradient_alignment`` and
+   ``learned_refinement``, which train through the plain path); forward +
+   backward of the plain path (``use_pallas=False``) of ``PAPER_1080P``,
+   ``HSConfig()``, ``FBConfig()``, ``TVL1Config()`` and ``DISConfig()`` at
+   1080x1920 (ms, peak memory), no launch, the gradient within 1e-4 of
+   max |g| of a CPU run of the same code (at the max; ``TVL1Config()`` at
+   135x240 at the median and ``DISConfig()`` at the p99, with the JAX
+   test's TV-L1 config and DIS without mean normalization at the max:
+   ``GRAD_REL_ERR``), and the same call with ``use_pallas=True`` and an
+   input that requires grad raising;
+   ms per adam step of ``gradient_alignment`` and per train step of
+   ``learned_refinement``; two processes (``--multihost-worker``) in a
+   gloo group on the one card, each feeding its half of a 4-pair
+   ``PAPER_1080P`` batch through ``parallel.multihost``, bit-equal to the
+   single-process ``sharded_flow``;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K; host time included; ``consistent_flow`` with the fill off
    and on, the fill alone, ``good_features`` and ``track_sequence`` per
@@ -139,7 +157,7 @@ then, in order:
 
 Each phase prints one line per check; any failed check raises and the
 script exits non-zero.  The launch counters are zeroed just before each path
-(phases 4-8l) and read just after it: every kernel must launch on the paths
+(phases 4-8m) and read just after it: every kernel must launch on the paths
 that use it.  The line before the last is a JSON object with each kernel's
 numbers, the centered (DIS) modes of ``lk_residual``, ``lk_level_step`` and
 ``lk_band_step`` and the ``flow_half`` mode of ``lk_level_step`` as entries
@@ -942,6 +960,291 @@ def synthetic_sequence_rgb(h: int, w: int) -> list:
 
     fr = synthetic_sequence(2, h, w, velocity=(2.0, 1.0), period=24)
     return [np.stack([f, 255 - f, f // 2], -1) for f in fr]
+
+
+# --- phase 8m: the examples, gradients through the plain path, multihost -----
+
+# |d| / max |g|: the card's gradient against a CPU run of the same port code
+# (the index backward accumulates in another order on the card), held at
+# the max where the gradient is continuous in float order.  Two defaults
+# are not (an H100 80GB HBM3, 700 W, against this script's CPU run):
+# - TV-L1's gradient follows discrete choices (the threshold step's
+#   branch, which input of a median window's tie takes the gradient) that
+#   a float-order difference flips: TVL1Config() at 135x240 showed median
+#   3.1e-6, p99 2.6e-4, max 1.8e-2, so it is held at the median; the JAX
+#   test's config (tests/test_differentiability.py) at 1080x1920 showed
+#   max 1.4e-6 and is held at the max;
+# - DIS's mean-normalized data term sums its windows by cumsum down 1080
+#   rows, which the card and the CPU associate differently (the flow: max
+#   1.2e-4 px apart): DISConfig() showed median 2.2e-7, p99 5.1e-5, max
+#   2.1e-2 and is held at the p99; with mean_normalize=False the flows are
+#   equal and the gradient's max is 1.2e-7, held at the max
+GRAD_REL_ERR = 1e-4
+# TVL1Config()'s forward and backward take minutes on the CPU at 1080x1920
+GRAD_CPU_TVL1_SHAPE = (135, 240)
+MULTIHOST_PAIRS = 4
+MULTIHOST_TIMEOUT = 300  # s, for both worker processes
+
+
+def example_launches(n_cards: int) -> dict[str, dict[str, int]]:
+    """The launches of each example's ``main(device="cuda")``, from PERF.md's
+    launch rules: an LK pair of L levels is L - 1 ``pyr_down`` (the stacked
+    pair, or the new frame when streaming), one ``lk_residual`` at a cold
+    coarsest level and one ``lk_level_step`` per other level, each level
+    ``iterations`` passes; an FB image pair is L - 1 ``pyr_down``, L
+    expansions and L x iterations steps; a downsampled flow one
+    ``pyr_down`` per plane per level."""
+    return {
+        "basic": {"pyr_down": 3, "lk_residual": 1, "lk_level_step": 3},
+        # cold LKConfig(levels=3) over 10 frames: 2 pyr_down per frame, 9 pairs
+        "streaming_video": {"pyr_down": 20, "lk_residual": 9, "lk_level_step": 18},
+        # warm levels=1, 120 flows: the first pair cold, then one step each
+        "live_stream": {"lk_residual": 1, "lk_level_step": 119},
+        # 9 pairs twice, iterations=2.  Plain warm: residual + step, then 2
+        # steps per pair.  Recovery (levels=3): a cold 3-level solve (1
+        # residual + 5 steps) at the first pair and at the two pairs after
+        # the cut, 2 steps at the other six; one check warp per warm pair;
+        # pyr_down 4 at the first pair (both frames' 2 levels), 6 at each
+        # later pair (the frame's 2 levels, the seed's 2 levels x 2 planes)
+        "scene_cut_recovery": {"lk_residual": 4, "lk_level_step": 44, "pyr_down": 52,
+                               "warp_bilinear_select": 8},
+        # FBConfig(levels=3, iterations=2): 2 pyr_down, 3 expansions and 6
+        # steps per flow, two flows; one cycle warp per fb_consistency
+        "flow_quality": {"pyr_down": 4, "poly_expansion_kernel": 6, "fb_level_step": 12,
+                         "warp_bilinear_select": 1},
+        "frame_interpolation": {"pyr_down": 4, "poly_expansion_kernel": 6, "fb_level_step": 12,
+                                "warp_bilinear_select": 2},
+        # two pairs per card, one batched LKConfig(levels=3) call each
+        "sharded_batch": {"pyr_down": 2 * n_cards, "lk_residual": n_cards,
+                          "lk_level_step": 2 * n_cards},
+        # the FB part on 3 shards, FBConfig(levels=2, iterations=2): per
+        # shard 1 pyr_down, 2 expansions, 4 band steps; the LK part is plain
+        "spatial_tp": {"pyr_down": 3, "poly_expansion_kernel": 6, "fb_band_step": 12},
+        # the plain path only: the kernels carry no gradient
+        "gradient_alignment": {},
+        "learned_refinement": {},
+    }
+
+
+def grad_of(of, config, prev, nxt):
+    """d mean(u) / d next through ``pyramidal_flow`` at a fresh leaf."""
+    x = nxt.clone().requires_grad_(True)
+    of.pyramidal_flow(prev, x, config)[..., 0].mean().backward()
+    return x.grad
+
+
+def multihost_worker(rank: int, port: int, out_dir: str) -> int:
+    """One of the two processes of phase 8m's multihost run: join the gloo
+    group, feed this process's half of the 4-pair batch through
+    ``sharded_flow_from_local`` on the card, save the flow, print the ms
+    per pair."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    import cuda_optical_flow_2_torch as of
+    from cuda_optical_flow_2_torch.parallel import multihost
+    from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    multihost.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+    mesh = multihost.make_global_mesh()
+    per, off = multihost.host_local_batch(MULTIHOST_PAIRS, mesh)
+    fr = synthetic_sequence(MULTIHOST_PAIRS + 1, 1080, 1920, velocity=(2.0, 1.0), period=48)
+    prev = torch.from_numpy(np.stack(fr[off:off + per]).astype(np.float32)).to(dev)
+    nxt = torch.from_numpy(np.stack(fr[off + 1:off + per + 1]).astype(np.float32)).to(dev)
+
+    def run():
+        return multihost.sharded_flow_from_local(prev, nxt, of.PAPER_1080P, mesh)
+
+    flow = run()
+    ms = cuda_ms(run, reps=10) / per
+    torch.save(flow.cpu(), Path(out_dir) / f"flow{rank}.pt")
+    ok = torch.ones(())
+    dist.all_reduce(ok)  # both processes got here
+    dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "pairs": per, "offset": off, "ms_per_pair": ms,
+                      "processes": int(ok)}))
+    print("MULTIHOST_OK", flush=True)
+    return 0
+
+
+def phase_8m(of, dev, run_path, prev, nxt, card: str) -> dict:
+    """Run the ten examples on the card, gradients of every family at full
+    width, the training steps, and two multihost processes; print one line
+    per check; return the numbers."""
+    import contextlib
+    import importlib
+    import io
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+
+    from cuda_optical_flow_2_torch import parallel
+    from cuda_optical_flow_2_torch.examples import EXAMPLES
+    from cuda_optical_flow_2_torch.examples import gradient_alignment as align
+    from cuda_optical_flow_2_torch.examples import learned_refinement as refine
+    from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
+
+    out: dict = {}
+    tmp = tempfile.mkdtemp(prefix="of2_8m_")
+    try:
+        # the examples, each with its own asserts and printed numbers
+        expect = example_launches(torch.cuda.device_count())
+        for name in EXAMPLES:
+            mod = importlib.import_module(f"cuda_optical_flow_2_torch.examples.{name}")
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res, counts = run_path(f"example {name}",
+                                       lambda: mod.main(device="cuda", out_dir=tmp),
+                                       tuple(expect[name]))
+            wall = time.perf_counter() - t0
+            require(counts == expect[name],
+                    f"example {name} launches {counts}, predicted {expect[name]}")
+            printed = " | ".join(line.strip() for line in buf.getvalue().splitlines())
+            print(f"phase 8m example {name} [{card}]: {wall:.2f} s wall; launches {counts} "
+                  f"(as predicted); printed: {printed}")
+            out[name] = res
+
+        # gradients at full width: forward + backward of each family's plain
+        # path on the card, held against a CPU run of the same code
+        families = {"PAPER_1080P": of.PAPER_1080P, "HSConfig()": of.HSConfig(),
+                    "FBConfig()": of.FBConfig(), "TVL1Config()": of.TVL1Config(),
+                    "DISConfig()": of.DISConfig()}
+        sp, sn = (torch.from_numpy(f.astype(np.float32)) for f in synthetic_sequence(
+            2, *GRAD_CPU_TVL1_SHAPE, velocity=(2.0, 1.0), period=48))
+        for label, cfg in families.items():
+            t0 = time.perf_counter()
+            plain = dataclasses.replace(cfg, use_pallas=False)
+            g, counts = run_path(f"gradient {label}", lambda: grad_of(of, plain, prev, nxt), ())
+            require(not counts, f"gradient {label}: the plain path launched {counts}")
+            require(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+                    f"gradient {label}: not finite, or zero")
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            # TV-L1's call takes seconds: one timed call beside run_path's
+            ms = cuda_ms(lambda: grad_of(of, plain, prev, nxt), warmup=0,
+                         reps=1 if label == "TVL1Config()" else 3)
+            peak = torch.cuda.max_memory_allocated(dev)
+            # (config, its pair, the statistic held): GRAD_REL_ERR above
+            against = {label: (plain, prev, nxt, "max")}
+            if label == "TVL1Config()":
+                against = {"TVL1Config()": (plain, sp, sn, "median"),
+                           "TVL1Config(levels=2, warps=1, iterations=5)": (
+                               of.TVL1Config(levels=2, warps=1, iterations=5, use_pallas=False),
+                               prev, nxt, "max")}
+            if label == "DISConfig()":
+                against = {label: (plain, prev, nxt, "p99"),
+                           "DISConfig(mean_normalize=False)": (
+                               dataclasses.replace(plain, mean_normalize=False), prev, nxt, "max")}
+            stats, cpu_fail = [], []
+            for what, (c, a, b, stat) in against.items():
+                gd = (g if c is plain and a is prev else grad_of(of, c, a.to(dev), b.to(dev))).cpu()
+                gc = grad_of(of, c, a.cpu(), b.cpu())
+                require(float(gc.abs().max()) > 0, f"gradient {what}: zero on the CPU")
+                e = err_stats(gd / gc.abs().max(), gc / gc.abs().max())
+                stats.append(f"{what} at {a.shape[-2]}x{a.shape[-1]}: max {e['max']:.3g} median "
+                             f"{e['median']:.3g} p99 {e['p99']:.3g} p99.9 {e['p999']:.3g} "
+                             f"({stat} held at {GRAD_REL_ERR})")
+                if e[stat] > GRAD_REL_ERR:
+                    cpu_fail.append(f"{what}: {e}")
+            try:
+                of.pyramidal_flow(prev, nxt.clone().requires_grad_(True), cfg)
+                raised = "nothing"
+            except RuntimeError as err:
+                raised = str(err)
+            require("carry no gradient" in raised,
+                    f"gradient {label}: use_pallas=True with a grad input raised {raised}")
+            out[f"gradient {label}"] = {"ms": ms, "peak_gib": peak / 2**30,
+                                        "call_gib": (peak - before) / 2**30}
+            print(f"phase 8m gradient {label} 1080x1920 [{card}]: forward + backward "
+                  f"{ms:.3f} ms (use_pallas=False, no launch); peak {peak / 2**30:.3f} GiB "
+                  f"allocated ({(peak - before) / 2**30:.3f} GiB above the "
+                  f"{before / 2**30:.3f} GiB held before); max |g| {float(g.abs().max()):.4g}; "
+                  f"card vs CPU |d| / max |g|, " + "; ".join(stats)
+                  + f"; use_pallas=True with a grad input raised; "
+                  f"{time.perf_counter() - t0:.1f} s with the CPU runs")
+            require(not cpu_fail, f"gradient {label}: card vs CPU " + "; ".join(cpu_fail))
+        del g, gd, gc
+
+        # training steps
+        t0 = time.perf_counter()
+        ap, an = (torch.from_numpy(a).to(dev) for a in align.shifted_pair(160, 192, (3.6, -2.2)))
+        params = torch.tensor([0.0, 0.0, 0.0, 0.0, -3.5, 2.1], device=dev, requires_grad=True)
+        opt = torch.optim.Adam([params], lr=align.LR, betas=(0.9, 0.999), eps=1e-8)
+
+        def adam_step():
+            opt.zero_grad()
+            align.photometric_loss(params, ap, an).backward()
+            opt.step()
+
+        out["adam step ms"] = cuda_ms(adam_step, reps=10, inner=10)
+        rng = np.random.default_rng(3)
+        pairs = [refine.make_pair(rng) for _ in range(32)]
+        rp, rn, rt = (torch.from_numpy(np.stack(a)).to(dev) for a in zip(*pairs))
+        coarse = of.pyramidal_lk(rp, rn, refine.CFG)
+        feats = refine.features(rp, rn, coarse)
+        net = refine.RefineNet(generator=torch.Generator().manual_seed(0)).to(dev)
+        ropt = torch.optim.Adam(net.parameters(), lr=refine.LR, betas=(0.9, 0.999), eps=1e-8)
+
+        def train_step():
+            ropt.zero_grad()
+            refine.epe(refine.refine(net, feats, coarse), rt).backward()
+            ropt.step()
+
+        out["train step ms"] = cuda_ms(train_step, reps=10, inner=5)
+        lr_out = out["learned_refinement"]
+        print(f"phase 8m training [{card}]: gradient_alignment {out['adam step ms']:.3f} ms per "
+              f"adam step (160x192, translation error {out['gradient_alignment']['error']:.4f} px "
+              f"after 400); learned_refinement {out['train step ms']:.3f} ms per train step "
+              f"(32 pairs of 64x80), held-out EPE {lr_out['coarse_epe']:.4f} -> "
+              f"{lr_out['refined_epe']:.4f} px after 250); {time.perf_counter() - t0:.1f} s")
+
+        # multihost: two processes on the one card over gloo (NCCL refuses two
+        # ranks on one GPU; data-parallel flow needs no collective)
+        t0 = time.perf_counter()
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--multihost-worker", str(rank),
+             str(port), tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(2)]
+        try:
+            outs = [proc.communicate(timeout=MULTIHOST_TIMEOUT)[0] for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for rank, (proc, text) in enumerate(zip(procs, outs)):
+            require(proc.returncode == 0 and "MULTIHOST_OK" in text,
+                    f"multihost worker {rank} failed ({proc.returncode}):\n{text[-3000:]}")
+        fr = synthetic_sequence(MULTIHOST_PAIRS + 1, 1080, 1920, velocity=(2.0, 1.0), period=48)
+        gp = torch.from_numpy(np.stack(fr[:-1]).astype(np.float32)).to(dev)
+        gn = torch.from_numpy(np.stack(fr[1:]).astype(np.float32)).to(dev)
+        want = parallel.sharded_flow(gp, gn, of.PAPER_1080P, parallel.make_mesh(devices=[dev]))
+        per_proc = []
+        for rank, text in enumerate(outs):
+            rec = json_records(text)[-1]
+            got = torch.load(Path(tmp) / f"flow{rank}.pt").to(dev)
+            lo = rec["offset"]
+            require(torch.equal(got, want[lo:lo + rec["pairs"]]),
+                    f"multihost rank {rank}: flow not bit-equal to the single-process sharded_flow")
+            per_proc.append(rec["ms_per_pair"])
+        out["multihost ms per pair"] = per_proc
+        print(f"phase 8m multihost [{card}]: 2 processes (gloo) on the one card, "
+              f"{MULTIHOST_PAIRS} PAPER_1080P pairs at 1080x1920, each process its 2: "
+              f"bit-equal to the single-process sharded_flow; ms per pair per process "
+              + ", ".join(f"{ms:.3f}" for ms in per_proc) + f"; {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -2168,6 +2471,9 @@ def main() -> int:
     # 8l. the reference-exact profiles and the four command-line tools
     tools_8l = phase_8l(of, dev, run_path, big, card)
 
+    # 8m. the examples, gradients through the plain path, multihost
+    phase_8m(of, dev, run_path, prev, nxt, card)
+
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
     for name, n_launch in launches.items():
@@ -2410,4 +2716,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -162,7 +162,17 @@ def launch(device: torch.device, name: str, *args) -> None:
 
 
 def require_cuda(*tensors: torch.Tensor) -> torch.device:
-    """Raise unless all tensors lie on one CUDA device; return it."""
+    """Raise unless all tensors lie on one CUDA device; return it.
+
+    Raise too when autograd records and a tensor requires grad: a kernel's
+    output is written through a raw pointer and carries no gradient, so a
+    launch would hand back a detached result."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "the CUDA kernels carry no gradient, as the JAX package's Pallas kernels carry "
+            "none: differentiate the plain path (use_pallas=False), or run the kernels "
+            "under torch.no_grad()"
+        )
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"the kernels run on CUDA or CPU tensors, got {dev}")

@@ -64,7 +64,7 @@ from cuda_optical_flow_2_torch.constants import MASKS
 from cuda_optical_flow_2_torch.kernels import _build
 from cuda_optical_flow_2_torch.kernels.lk_fused import planes
 from cuda_optical_flow_2_torch.ops.band import rows_in_image
-from cuda_optical_flow_2_torch.ops.gradients import SOBEL_GAIN, spatial_gradients
+from cuda_optical_flow_2_torch.ops.gradients import SOBEL_GAIN, gradient_magnitude, spatial_gradients
 
 __all__ = [
     "tvl1_relax",
@@ -218,8 +218,8 @@ def primal_dual_band(
         v = torch.where(inside, v + dv + theta * div(p2x, p2y), 0.0)
         ux, uy = fd(u, fd_ok_x, -1), fd(u, fd_ok_y, -2)
         vx, vy = fd(v, fd_ok_x, -1), fd(v, fd_ok_y, -2)
-        nu = 1.0 + tt * torch.sqrt(ux * ux + uy * uy)
-        nv = 1.0 + tt * torch.sqrt(vx * vx + vy * vy)
+        nu = 1.0 + tt * gradient_magnitude(ux, uy)
+        nv = 1.0 + tt * gradient_magnitude(vx, vy)
         p1x, p1y = (p1x + tt * ux) / nu, (p1y + tt * uy) / nu
         p2x, p2y = (p2x + tt * vx) / nv, (p2y + tt * vy) / nv
     return u, v, p1x, p1y, p2x, p2y

@@ -15,18 +15,31 @@ from cuda_optical_flow_2_torch.models.consistency import (
     fb_consistency,
     occlusion_mask,
 )
-from cuda_optical_flow_2_torch.models.dis import DISConfig, pyramidal_dis
+from cuda_optical_flow_2_torch.models.dis import DIS_REALTIME, DISConfig, pyramidal_dis
 from cuda_optical_flow_2_torch.models.farneback import FBConfig, pyramidal_farneback
 from cuda_optical_flow_2_torch.models.horn_schunck import HSConfig, pyramidal_hs
-from cuda_optical_flow_2_torch.models.lucas_kanade import pyramidal_lk
-from cuda_optical_flow_2_torch.models.streaming import not_ported
+from cuda_optical_flow_2_torch.models.lucas_kanade import (
+    coarse_to_fine,
+    compose_flow_pyramid,
+    lk_level,
+    preprocess,
+    pyramidal_lk,
+    pyramidal_lk_pyramid,
+)
+from cuda_optical_flow_2_torch.models.streaming import (
+    FlowState,
+    init_state,
+    not_ported,
+    process_sequence,
+    step,
+)
 from cuda_optical_flow_2_torch.models.tracking import (
     advect_points,
     sample_flow,
     track_points,
     track_sequence,
 )
-from cuda_optical_flow_2_torch.models.tvl1 import TVL1Config, pyramidal_tvl1
+from cuda_optical_flow_2_torch.models.tvl1 import TVL1_REALTIME, TVL1Config, pyramidal_tvl1
 
 __all__ = [
     "pyramidal_flow",
@@ -36,10 +49,30 @@ __all__ = [
     "confidence_mask",
     "good_features",
     "min_eigenvalue",
+    "lk_level",
+    "pyramidal_lk",
+    "pyramidal_lk_pyramid",
+    "compose_flow_pyramid",
+    "coarse_to_fine",
+    "preprocess",
+    "FlowState",
+    "init_state",
+    "step",
+    "process_sequence",
     "sample_flow",
     "advect_points",
     "track_points",
     "track_sequence",
+    "HSConfig",
+    "pyramidal_hs",
+    "FBConfig",
+    "pyramidal_farneback",
+    "TVL1_REALTIME",
+    "TVL1Config",
+    "pyramidal_tvl1",
+    "DIS_REALTIME",
+    "DISConfig",
+    "pyramidal_dis",
 ]
 
 

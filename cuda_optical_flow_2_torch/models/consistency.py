@@ -24,6 +24,7 @@ import torch
 
 from cuda_optical_flow_2_torch.kernels import warp_select
 from cuda_optical_flow_2_torch.models.horn_schunck import _DXC, _DYC, _avg3x3
+from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.conv import stencil2d
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
 
@@ -161,7 +162,7 @@ def fill_occluded_flow(
     gy = -stencil2d(m, _DYC)
     norm = torch.sqrt(gx * gx + gy * gy) + 1e-6
     proj = (u[..., 0] * gx + u[..., 1] * gy) / norm
-    src_w = torch.exp(-beta * proj.clamp(0.0, 30.0))
+    src_w = torch.exp(-beta * clip(proj, 0.0, 30.0))
     trusted = (1.0 - occf) * src_w
     keep = (1.0 - occf) > 0
     grow = ~keep
@@ -173,6 +174,6 @@ def fill_occluded_flow(
         filled = den > 1e-9
         # a newly reached pixel takes the normalized average and a weight of
         # at least 1; the rest keep theirs
-        reached = torch.cat([avg[:2] / den.clamp_min(1e-9), state[2:].clamp_min(1.0)])
+        reached = torch.cat([avg[:2] / clip(den, 1e-9), clip(state[2:], 1.0)])
         state = torch.where(grow & filled, reached, state)
     return torch.where(keep[..., None], u, state[:2].movedim(0, -1))

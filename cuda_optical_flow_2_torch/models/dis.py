@@ -42,6 +42,7 @@ from cuda_optical_flow_2_torch.models.lucas_kanade import (
     _validate,
     preprocess,
 )
+from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.conv import stencil2d
 from cuda_optical_flow_2_torch.ops.gradients import SOBEL_GAIN
 from cuda_optical_flow_2_torch.ops.resize import upsample_flow
@@ -200,7 +201,7 @@ def _refine(
     clamped first on every backend, so u0 is the flow the warp applied.
     """
     d = float(config.max_displacement)
-    flow = flow.clamp(-d, d)
+    flow = clip(flow, -d, d)
     if config.use_pallas:
         warped = warp_select.warp_bilinear_select(nxt, flow, config.max_displacement)
     else:
@@ -213,7 +214,7 @@ def _refine(
         tmask = MASKS[config.temporal_kernel]
         it_w = stencil2d(warped - prev, tmask / tmask.sum())
         counts = window_sum(torch.ones_like(it_w), config.window, "cumsum")
-        off = off - window_sum(it_w, config.window, "cumsum") / torch.clamp_min(counts, 1.0)
+        off = off - window_sum(it_w, config.window, "cumsum") / clip(counts, 1.0)
     relax = hs_sweep.hs_relax if config.use_pallas else hs_sweep.hs_relax_plain
     return relax(
         prev, warped, flow, iterations=config.refine_iterations, alpha=config.refine_alpha,

@@ -46,6 +46,7 @@ from cuda_optical_flow_2_torch.kernels import (
 )
 from cuda_optical_flow_2_torch.models.horn_schunck import lk_preproc_config
 from cuda_optical_flow_2_torch.models.lucas_kanade import preprocess
+from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.conv import sep_conv2d
 from cuda_optical_flow_2_torch.ops.poly_exp import gaussian_1d, poly_expansion
 from cuda_optical_flow_2_torch.ops.resize import upsample_flow
@@ -143,7 +144,7 @@ def _warp(config: FBConfig):
 
 def _clip(flow: torch.Tensor, config: FBConfig) -> torch.Tensor:
     d = float(config.max_displacement)
-    return flow.clamp(-d, d)
+    return clip(flow, -d, d)
 
 
 def fb_normal_eq_products(exp1, warped_exp, u, v):

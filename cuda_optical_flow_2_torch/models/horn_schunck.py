@@ -29,6 +29,7 @@ import torch
 from cuda_optical_flow_2_torch.config import BilateralConfig, LKConfig
 from cuda_optical_flow_2_torch.kernels import hs_sweep, warp_select
 from cuda_optical_flow_2_torch.models.lucas_kanade import preprocess
+from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.conv import stencil2d
 from cuda_optical_flow_2_torch.ops.resize import upsample_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
@@ -207,7 +208,7 @@ def _robust_weights(
     ws = es * torch.rsqrt(g2 + es * es)
     if keep is not None:
         ws = torch.where(keep, ws, 0.0)
-    s_plane = torch.clamp_min((ws + _avg3x3(ws)) * 0.5, 1e-12)
+    s_plane = clip((ws + _avg3x3(ws)) * 0.5, 1e-12)
     inv_s = 1.0 / s_plane
     inv_denom = 1.0 / (alpha * alpha * s_plane + wd * (ix * ix + iy * iy))
     return wd, ws, inv_s, inv_denom
@@ -284,7 +285,7 @@ def hs_coarse_to_fine(
             continue
         flow = upsample_flow(flow, tuple(p.shape[-2:]))
         if config.use_pallas:
-            flow = flow.clamp(-float(d), float(d))
+            flow = clip(flow, -float(d), float(d))
             warped = warp_select.warp_bilinear_select(n, flow, d)
         else:
             warped = warp_bilinear(n, flow)

@@ -23,6 +23,7 @@ from cuda_optical_flow_2_torch.models.streaming import (
     _require_ported,
     process_sequence,
 )
+from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.resize import downsample_flow
 
 __all__ = ["sample_flow", "advect_points", "track_points", "track_sequence"]
@@ -35,8 +36,8 @@ def sample_flow(flow: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     dense warp's boundary rule).  A NaN position samples NaN.
     """
     h, w = flow.shape[-3:-1]
-    x = points[..., 0].clamp(0.0, w - 1.0)
-    y = points[..., 1].clamp(0.0, h - 1.0)
+    x = clip(points[..., 0], 0.0, w - 1.0)
+    y = clip(points[..., 1], 0.0, h - 1.0)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = (x - x0)[..., None]
@@ -79,7 +80,7 @@ def advect_points(
         & (new[..., 1] <= h - 1.0)
     )
     clamped = torch.stack(
-        [new[..., 0].clamp(0.0, w - 1.0), new[..., 1].clamp(0.0, h - 1.0)], dim=-1
+        [clip(new[..., 0], 0.0, w - 1.0), clip(new[..., 1], 0.0, h - 1.0)], dim=-1
     )
     out = torch.where(alive[..., None], clamped, points)
     return out, alive & inside

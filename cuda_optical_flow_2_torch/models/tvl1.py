@@ -36,7 +36,8 @@ from cuda_optical_flow_2_torch.config import BilateralConfig
 from cuda_optical_flow_2_torch.kernels import median_select, tvl1_sweep, warp_select
 from cuda_optical_flow_2_torch.models.horn_schunck import lk_preproc_config
 from cuda_optical_flow_2_torch.models.lucas_kanade import preprocess
-from cuda_optical_flow_2_torch.ops.gradients import spatial_gradients
+from cuda_optical_flow_2_torch.ops.clip import clip
+from cuda_optical_flow_2_torch.ops.gradients import gradient_magnitude, spatial_gradients
 from cuda_optical_flow_2_torch.ops.median import median_filter
 from cuda_optical_flow_2_torch.ops.resize import upsample_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
@@ -140,7 +141,7 @@ def primal_dual(
     duals start at zero).  Returns the refined total flow (..., H, W, 2)."""
     gx, gy = spatial_gradients(warped.to(torch.float32), normalize=True)
     g2 = gx * gx + gy * gy
-    g2s = torch.clamp_min(g2, eps)
+    g2s = clip(g2, eps)
     it = warped.to(torch.float32) - prev.to(torch.float32)
     lt = lambda_ * theta
     tt = tau / theta
@@ -158,8 +159,8 @@ def primal_dual(
         v = v + dv + theta * _div(p2x, p2y)
         ux, uy = _fwd_diff(u, -1), _fwd_diff(u, -2)
         vx, vy = _fwd_diff(v, -1), _fwd_diff(v, -2)
-        nu = 1.0 + tt * torch.sqrt(ux * ux + uy * uy)
-        nv = 1.0 + tt * torch.sqrt(vx * vx + vy * vy)
+        nu = 1.0 + tt * gradient_magnitude(ux, uy)
+        nv = 1.0 + tt * gradient_magnitude(vx, vy)
         p1x, p1y = (p1x + tt * ux) / nu, (p1y + tt * uy) / nu
         p2x, p2y = (p2x + tt * vx) / nv, (p2y + tt * vy) / nv
     return torch.stack([u, v], dim=-1)
@@ -219,7 +220,7 @@ def tvl1_coarse_to_fine(
             flow = upsample_flow(flow, tuple(p.shape[-2:]))
         for _ in range(config.warps):
             if config.use_pallas:
-                flow = flow.clamp(-d, d)
+                flow = clip(flow, -d, d)
                 warped = warp_select.warp_bilinear_select(n, flow, config.max_displacement)
             else:
                 warped = warp_bilinear(n, flow)

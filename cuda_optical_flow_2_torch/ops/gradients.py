@@ -12,7 +12,7 @@ import torch
 from cuda_optical_flow_2_torch.constants import MASKS
 from cuda_optical_flow_2_torch.ops.conv import _float_dtype, conv2d
 
-__all__ = ["SOBEL_GAIN", "spatial_gradients", "temporal_gradient"]
+__all__ = ["SOBEL_GAIN", "gradient_magnitude", "spatial_gradients", "temporal_gradient"]
 
 # Gain of a derivative stencil on a unit ramp (Sobel: (1+2+1)*(1+1) = 8).
 SOBEL_GAIN = 8.0
@@ -43,3 +43,17 @@ def temporal_gradient(
     """It = K (x) (next - prev); the correlation is linear, so one stencil."""
     dtype = _float_dtype(prev)
     return conv2d(nxt.to(dtype) - prev.to(dtype), temporal_mask(kernel, normalize))
+
+
+def gradient_magnitude(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """sqrt(gx^2 + gy^2), with a zero derivative where both are zero.
+
+    sqrt's derivative is infinite at 0, so autograd, like ``jax.grad``
+    through the JAX package's ``jnp.sqrt``, gives NaN wherever a flow is
+    locally constant, which TV-L1's median between warps makes common at
+    full width.  The values are sqrt's, bit for bit; the derivative differs
+    from sqrt's only where sqrt's is not finite.
+    """
+    s2 = gx * gx + gy * gy
+    zero = s2 == 0
+    return torch.where(zero, 0.0, torch.sqrt(torch.where(zero, 1.0, s2)))

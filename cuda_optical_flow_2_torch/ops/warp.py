@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from cuda_optical_flow_2_torch.ops.clip import clip
+
 __all__ = ["warp_bilinear", "warp_bilinear_band", "warp_nearest"]
 
 
@@ -43,8 +45,8 @@ def warp_bilinear(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     fy = ys + flow[..., 1]
     valid = (fx >= 0) & (fx <= w - 1) & (fy >= 0) & (fy <= h - 1)
     zero = torch.zeros_like(fx)
-    fx_c = torch.where(valid, fx, zero).clamp(0.0, w - 1)
-    fy_c = torch.where(valid, fy, zero).clamp(0.0, h - 1)
+    fx_c = clip(torch.where(valid, fx, zero), 0.0, w - 1)
+    fy_c = clip(torch.where(valid, fy, zero), 0.0, h - 1)
     x0 = torch.floor(fx_c)
     y0 = torch.floor(fy_c)
     tx = fx_c - x0
@@ -91,8 +93,8 @@ def warp_bilinear_band(
     fy = ys + flow[..., 1]
     valid = (fx >= 0) & (fx <= w - 1) & (fy >= 0) & (fy <= h_global - 1)
     zero = torch.zeros_like(fx)
-    fx_c = torch.where(valid, fx, zero).clamp(0.0, w - 1)
-    fy_c = torch.where(valid, fy, zero).clamp(0.0, h_global - 1)
+    fx_c = clip(torch.where(valid, fx, zero), 0.0, w - 1)
+    fy_c = clip(torch.where(valid, fy, zero), 0.0, h_global - 1)
     x0 = torch.floor(fx_c)
     y0 = torch.floor(fy_c)
     tx = fx_c - x0

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.conv import sep_conv2d
 
 __all__ = [
@@ -129,7 +130,7 @@ def centered_structure_tensor_sums(
     ones = torch.ones_like(ix) if valid is None else valid.to(ix.dtype)
     planes = torch.stack([ix * ix, iy * iy, ix * iy, ix * it, iy * it, ix, iy, it, ones])
     s = window_sum(planes, window, method, weights)
-    inv_n = 1.0 / torch.clamp_min(s[8], 1.0)
+    inv_n = 1.0 / clip(s[8], 1.0)
     return (
         s[0] - s[5] * s[5] * inv_n,
         s[1] - s[6] * s[6] * inv_n,

@@ -14,8 +14,8 @@ Counterpart of ``cuda_optical_flow_2_tpu.parallel``, over a :class:`Mesh` of
   on it.
 
 Spatial TP covers all five families (Lucas-Kanade, Horn-Schunck,
-Farnebäck, TV-L1, DIS); the multi-process ``multihost`` module is not
-ported yet.
+Farnebäck, TV-L1, DIS).  ``multihost`` scales batch sharding over several
+processes on ``torch.distributed``, one process per card.
 """
 
 from cuda_optical_flow_2_torch.parallel.batching import (
@@ -25,6 +25,10 @@ from cuda_optical_flow_2_torch.parallel.batching import (
     shard_batch,
     sharded_flow,
     sharded_pyramidal_lk,
+)
+from cuda_optical_flow_2_torch.parallel.multihost import (
+    host_local_batch,
+    make_global_mesh,
 )
 from cuda_optical_flow_2_torch.parallel.spatial import (
     grid_pyramidal_lk,
@@ -68,4 +72,6 @@ __all__ = [
     "validate_spatial_tvl1",
     "validate_spatial_dis",
     "validate_spatial_flow",
+    "make_global_mesh",
+    "host_local_batch",
 ]

@@ -39,6 +39,7 @@ import torch
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.kernels import bilateral_tap, lk_fused, lk_step_fused
 from cuda_optical_flow_2_torch.ops.bilateral import bilateral_filter_band
+from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.pyramid import pyr_down
 from cuda_optical_flow_2_torch.ops.resize import _up2x_axis
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear_band
@@ -221,7 +222,7 @@ def _local_lk_level(
     nxt_p = halo_exchange(nxt, r_img, r_img)
     d = float(config.max_displacement)
     for _ in range(iterations):
-        flow = [f.clamp(-d, d) for f in flow]
+        flow = [clip(f, -d, d) for f in flow]
         flow_p = halo_exchange(flow, r_grad, r_grad, row_axis=-3)
         warped = [
             warp_bilinear_band(np_, fp, r0 - r_img, r0 - r_grad, h_global)

@@ -58,6 +58,7 @@ from cuda_optical_flow_2_torch.models.horn_schunck import HSConfig
 from cuda_optical_flow_2_torch.models.streaming import not_ported
 from cuda_optical_flow_2_torch.models.tvl1 import TVL1Config, tvl1_median
 from cuda_optical_flow_2_torch.ops.band import rows_in_image, zero_outside_global
+from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.conv import stencil2d
 from cuda_optical_flow_2_torch.ops.gradients import SOBEL_GAIN, spatial_gradients, temporal_gradient
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear_band
@@ -209,7 +210,7 @@ def _hs_warp_band(
     nxt: Blocks, flow: Blocks, config: HSConfig, h_global: int, r_out: int
 ) -> tuple[Blocks, Blocks]:
     d = float(config.max_displacement)
-    flow_c = [f.clamp(-d, d) for f in flow]
+    flow_c = [clip(f, -d, d) for f in flow]
     warped = _band_warp(nxt, flow_c, config, h_global, r_out)
     return flow_c, [_crop_rows(w, r_out) for w in warped]
 
@@ -364,7 +365,7 @@ def _local_fb_level(
                      for np_, r0 in zip(nxt_p, row0s)]
             uv = [(torch.zeros_like(e[0]),) * 2 for e in exp1]
         else:
-            flow = [f.clamp(-md, md) for f in flow]
+            flow = [clip(f, -md, md) for f in flow]
             if config.use_pallas:
                 # one exchange serves the warp (r_img) and the products (r_e)
                 flow_pw = halo_exchange(flow, r_img, r_img, row_axis=-3)
@@ -473,7 +474,7 @@ def _local_tvl1_level(
     if flow is None:
         flow = [p.new_zeros(p.shape + (2,)) for p in prev]
     for _ in range(config.warps):
-        flow = [f.clamp(-md, md) for f in flow]
+        flow = [clip(f, -md, md) for f in flow]
         if kernel:
             # one wide exchange serves the warp (r_img) and the band (rg)
             flow_pw = halo_exchange(flow, r_img, r_img, row_axis=-3)
@@ -595,7 +596,7 @@ def _local_dis_refine(
     m = (config.window // 2 + 1) if config.mean_normalize else 1
     rp = rg + m
     d = float(config.max_displacement)
-    flow_c = [f.clamp(-d, d) for f in flow]
+    flow_c = [clip(f, -d, d) for f in flow]
     warped_p = _band_warp(nxt, flow_c, _dis_lk_like(config), h_global, rp)
     prev_p = halo_exchange(prev, rp, rp)
     flow_p = halo_exchange(flow_c, rp, rp, row_axis=-3)
@@ -611,7 +612,7 @@ def _local_dis_refine(
         if config.mean_normalize:
             valid = zero_outside_global(torch.ones_like(it_w), r0 - rp, h_global)
             counts = window_sum(valid, config.window, "cumsum")
-            off = off - window_sum(it_w, config.window, "cumsum") / torch.clamp_min(counts, 1.0)
+            off = off - window_sum(it_w, config.window, "cumsum") / clip(counts, 1.0)
         bands.append((ix, iy, it_w, zero_outside_global(off, r0 - rp, h_global)))
 
     robust = (
