@@ -145,6 +145,19 @@ then, in order:
    gloo group on the one card, each feeding its half of a 4-pair
    ``PAPER_1080P`` batch through ``parallel.multihost``, bit-equal to the
    single-process ``sharded_flow``;
+8n. the captured entries (CUDA graphs, ``capture.captured``): each family's
+   ``pyramidal_<family>_jit`` at ``PAPER_1080P`` (also with
+   ``fused_half_upsample``), ``REFERENCE_GPU``, both HS penalties, FB image
+   and coeff, ``TVL1_REALTIME``, ``TVL1Config()``, ``DISConfig()`` and
+   ``DIS_REALTIME`` at 1080x1920 and the entry config at 480x640, each
+   ``torch.equal`` to the eager entry on two pairs, its (2, 1) check, its
+   launches the eager call's, one capture per key, the replay's kernels
+   those of the eager call in the profiler, captured and eager ms per pair,
+   busy share, graph nodes, pool MB and capture seconds; the warm LK and FB
+   serving loops with recovery over phase 6's frames through the captured
+   ``init_state`` / ``step``, every step ``torch.equal`` to the eager
+   ``_step`` and both recovery branches replayed; a grad input running the
+   eager plain path; a failing capture raising;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K; host time included; ``consistent_flow`` with the fill off
    and on, the fill alone, ``good_features`` and ``track_sequence`` per
@@ -153,7 +166,10 @@ then, in order:
    time (the card waits in a sleep kernel while the host enqueues the
    calls, so a wrapper's launch cost does not hide a faster kernel);
 10. profile: ``torch.profiler`` over a few pairs (or calls) of each path of
-    phase 9 (device busy share, kernels per pair, the kernels that lead).
+    phase 9 (device busy share, kernels per pair, the kernels that lead);
+    every trace (phases 8n and 10) lies between two spin kernels, each
+    with a run of lead kernels outside it, and is taken again with longer
+    leads when the profiler lost a spin or all the leads beside it.
 
 Each phase prints one line per check; any failed check raises and the
 script exits non-zero.  The launch counters are zeroed just before each path
@@ -545,24 +561,74 @@ def bound(name: str, args, kw) -> tuple[float, str]:
 # --- profile ----------------------------------------------------------------
 
 
-def profile_path(fn, pairs: int) -> dict:
-    """torch.profiler over ``pairs`` calls: device busy ms per pair (merged
-    kernel and copy intervals), wall ms per pair under the profiler, device
-    operations per pair, and the three kernels with the most device time."""
+# late in a long run the profiler can lose the first device events of a
+# trace (a few in phase 10, most of a graph replay once in phase 8n), while
+# a short process loses none.  So each trace brackets the calls with two
+# spin kernels, and those with runs of tiny lead kernels: a trace whose
+# spins both arrived, each with a lead kernel kept on its outer side, holds
+# every event between them.  One that does not is taken again with twice the
+# leads, which the later traces keep.
+PROFILE_PAD_S = 0.05  # host wait at each end of a trace
+PROFILE_MARK_CYCLES = 100_000  # about 50 us of SM clock
+PROFILE_LEAD = 64  # the first run of lead kernels at each end
+PROFILE_TRIES = 7  # leads up to 64 x 2**6
+profile_lead = PROFILE_LEAD
+lost_traces = 0  # traces taken again because a spin or its leads were lost
+
+
+def traced(fn, calls: int) -> tuple[list, float]:
+    """The device events ``(start_us, end_us, name)`` of ``calls`` calls of
+    ``fn`` in time order, and the host's wall seconds for those calls, from
+    a trace whose two spins arrived with a lead kernel outside each (after
+    one unprofiled call)."""
+    global lost_traces, profile_lead
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(pairs):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
+    lead = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(profile_lead):
+                lead.add_(1)
+            torch.cuda._sleep(PROFILE_MARK_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.cuda._sleep(PROFILE_MARK_CYCLES)
+            for _ in range(profile_lead):
+                lead.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+        spins = [i for i, (_, _, name) in enumerate(dev) if "spin_kernel" in name]
+        if len(spins) == 2 and spins[0] > 0 and spins[1] < len(dev) - 1:
+            return dev[spins[0] + 1:spins[1]], wall
+        lost_traces += 1
+        print(f"profiler trace lost events ({len(dev)} device events, spins at {spins}, "
+              f"{profile_lead} lead kernels at each end); tracing again with twice the leads",
+              file=sys.stderr)
+        profile_lead *= 2
+    raise CheckFailed(f"the profiler lost events in {PROFILE_TRIES} traces in a row")
+
+
+def profiler_note() -> str:
+    """The traces taken again so far and the leads the traces use now."""
+    return f"{lost_traces} traces taken again for lost events, {profile_lead} lead kernels now"
+
+
+def profile_path(fn, pairs: int) -> dict:
+    """torch.profiler over ``pairs`` calls: device busy ms per pair (merged
+    kernel and copy intervals), wall ms per pair under the profiler, device
+    operations per pair, and the three kernels with the most device time."""
+    dev, wall = traced(fn, pairs)
     busy, end = 0.0, -math.inf
     by_name: dict[str, float] = {}
     for s, e, name in dev:
@@ -1244,6 +1310,255 @@ def phase_8m(of, dev, run_path, prev, nxt, card: str) -> dict:
               + ", ".join(f"{ms:.3f}" for ms in per_proc) + f"; {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# --- phase 8n: the captured entries (CUDA graphs) against the eager calls ----
+
+CAPTURED_REPS = {"PAPER_1080P": 30, "PAPER_1080P fused_half_upsample": 30, "REFERENCE_GPU": 30,
+                 "HSConfig() quadratic": 10, "HSConfig() charbonnier": 10, "FBConfig() image": 10,
+                 "FBConfig() coeff": 10, "TVL1_REALTIME": 10, "TVL1Config()": 5,
+                 "DISConfig()": 10, "DIS_REALTIME": 10}
+STEP_REPS = 30
+
+
+def back_to_back_ms(fn, n: int) -> float:
+    """Host wall ms per call of ``n`` calls in a row, the device awaited once
+    at the end (after one call outside the clock)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def device_names(fn) -> list:
+    """The device events (kernels, copies, memsets) of one call of ``fn``,
+    after one unprofiled call."""
+    return [name for _, _, name in traced(fn, 1)[0]]
+
+
+def phase_8n(of, dev, run_path, card: str) -> dict:
+    """Each path's captured entry (``pyramidal_<family>_jit``) against its
+    eager entry at 1080x1920 and the entry config at 480x640, the captured
+    serving loops against the eager ``_step``, autograd and a failing capture;
+    print one line per check; return the numbers for PERF.md."""
+    import torch
+
+    from cuda_optical_flow_2_torch import capture
+    from cuda_optical_flow_2_torch.models import dis, farneback, horn_schunck, lucas_kanade
+    from cuda_optical_flow_2_torch.models import streaming, tvl1
+    from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
+
+    def cuda(a):
+        return torch.as_tensor(a, device=dev).float()
+
+    def pairs(h, w, period):
+        """The (2, 1) pair and a second pair of another scene and motion."""
+        a = synthetic_sequence(2, h, w, velocity=(2.0, 1.0), period=period)
+        b = synthetic_sequence(2, h, w, velocity=(-1.0, 1.5), period=period, seed=1)
+        return (cuda(a[0]), cuda(a[1])), (cuda(b[0]), cuda(b[1]))
+
+    def median_ok(tol):
+        def check(flow):
+            m = inner_median(flow)
+            return abs(m[0] - 2.0) <= tol and abs(m[1] - 1.0) <= tol, f"inner median ({m[0]:.4f}, {m[1]:.4f})"
+        return check
+
+    def epe_ok(tol):
+        def check(flow):
+            epe = float((flow[64:-64, 64:-64] - flow.new_tensor([2.0, 1.0])).norm(dim=-1).mean())
+            return epe < tol, f"inner EPE {epe:.4f}"
+        return check
+
+    lk = (lucas_kanade.pyramidal_lk_jit, lucas_kanade.pyramidal_lk)
+    hs = (horn_schunck.pyramidal_hs_jit, horn_schunck.pyramidal_hs)
+    fb = (farneback.pyramidal_farneback_jit, farneback.pyramidal_farneback)
+    tv = (tvl1.pyramidal_tvl1_jit, tvl1.pyramidal_tvl1)
+    ds = (dis.pyramidal_dis_jit, dis.pyramidal_dis)
+    p48, p24 = pairs(1080, 1920, 48), pairs(1080, 1920, 24)
+    small = pairs(480, 640, 48)
+    prefiltered = of.LKConfig(levels=4, window=19, prefilter=of.BilateralConfig())
+    # label -> (entries, config, pairs, (2, 1) check, the check's config when not the path's)
+    paths = {
+        "PAPER_1080P": (lk, of.PAPER_1080P, p48, median_ok(TRANSLATION_TOL), None),
+        "PAPER_1080P fused_half_upsample": (
+            lk, dataclasses.replace(of.PAPER_1080P, fused_half_upsample=True), p48,
+            median_ok(TRANSLATION_TOL), None),
+        # REFERENCE_GPU is no translation oracle: its prefilter's (2, 1) check
+        # runs the prefiltered entry config (phase 7) at 480x640
+        "REFERENCE_GPU": (lk, of.REFERENCE_GPU, p48, median_ok(TRANSLATION_TOL), prefiltered),
+        "HSConfig() quadratic": (hs, of.HSConfig(), p24, median_ok(HS_TRANSLATION_TOL), None),
+        "HSConfig() charbonnier": (hs, of.HSConfig(penalty="charbonnier"), p24,
+                                   median_ok(HS_TRANSLATION_TOL), None),
+        "FBConfig() image": (fb, of.FBConfig(), p24, median_ok(TRANSLATION_TOL), None),
+        "FBConfig() coeff": (fb, of.FBConfig(warp_planes="coeff"), p24,
+                             median_ok(TRANSLATION_TOL), None),
+        "TVL1_REALTIME": (tv, of.TVL1_REALTIME, p48, median_ok(PRESET_TRANSLATION_TOL), None),
+        "TVL1Config()": (tv, of.TVL1Config(), p48, epe_ok(TVL1_EPE_TOL), None),
+        "DISConfig()": (ds, of.DISConfig(), p48, epe_ok(DIS_EPE_TOL), None),
+        "DIS_REALTIME": (ds, of.DIS_REALTIME, p48, median_ok(PRESET_TRANSLATION_TOL), None),
+        "entry LKConfig(levels=4, window=19)": (
+            lk, of.LKConfig(levels=4, window=19), small, median_ok(TRANSLATION_TOL), None),
+    }
+    capture.clear()  # the earlier phases' graphs: each key below captures anew
+    torch.cuda.empty_cache()
+    out: dict = {}
+    for label, ((jit, eager), cfg, ((pa, na), (pb, nb)), check, check_cfg) in paths.items():
+        h, w = pa.shape
+        want_a, counts = run_path(f"8n eager {label}", lambda: eager(pa, na, cfg), ())
+        want_b = eager(pb, nb, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graphs = capture.graphs_captured()
+        t0 = time.perf_counter()
+        got_a, c_counts = run_path(f"8n captured {label}", lambda: jit(pa, na, cfg), ())
+        first_s = time.perf_counter() - t0
+        require(capture.graphs_captured() == graphs + 1, f"8n {label}: first call did not capture once")
+        require(c_counts == counts, f"8n {label}: captured launches {c_counts}, eager {counts}")
+        equal_a = torch.equal(got_a, want_a)
+        ok, what = check(got_a if check_cfg is None else jit(*small[0], check_cfg))
+        del got_a
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+        got_b, b_counts = run_path(f"8n captured {label} second pair", lambda: jit(pb, nb, cfg), ())
+        require(b_counts == counts, f"8n {label}: second call launches {b_counts}, eager {counts}")
+        again = jit(pa, na, cfg)
+        require(capture.graphs_captured() == graphs + 1 + (check_cfg is not None),
+                f"8n {label}: a call with the same key captured again")
+        equal = (equal_a, torch.equal(got_b, want_b), torch.equal(again, want_a))
+        require(all(equal), f"8n {label}: captured flow torch.equal to the eager flow on the "
+                            f"first pair, the second, the first again: {equal}")
+        require(got_b.data_ptr() != again.data_ptr(), f"8n {label}: outputs share memory")
+        require(ok, f"8n {label}: (2, 1) check failed: {what}")
+        graph = jit.cache.entries[jit.key(pa, na, cfg)]
+        # the kernels inside the replay: every one of the eager call's, by name
+        names = device_names(graph.replay)
+        eager_names = device_names(lambda: eager(pa, na, cfg))
+        ours = sorted(n for n in names if "of2_" in n)
+        require(ours == sorted(n for n in eager_names if "of2_" in n) and (ours or not counts),
+                f"8n {label}: the replay's kernels {ours} are not the eager call's")
+        reps = CAPTURED_REPS.get(label, 30)
+        ms = cuda_ms(lambda: jit(pa, na, cfg), reps)
+        eager_ms = cuda_ms(lambda: eager(pa, na, cfg), reps)
+        busy = profile_path(lambda: jit(pa, na, cfg), 5)
+        eager_busy = profile_path(lambda: eager(pa, na, cfg), 5)
+        row = {"ms": ms, "eager_ms": eager_ms, "busy_share": busy["device_ms"] / ms,
+               "eager_busy_share": eager_busy["device_ms"] / eager_ms,
+               "graph_nodes": len(names), "graph_kernels_of2": len(ours),
+               "eager_device_ops": len(eager_names), "pool_mb": pool_mb,
+               "capture_s": graph.seconds, "first_call_s": first_s, "launches": counts}
+        out[label] = row
+        print(f"phase 8n {label} {h}x{w} [{card}]: captured torch.equal to eager on two pairs; "
+              f"(2, 1) {what}; launches {counts} = eager; captured once; replay shows "
+              f"{len(ours)} of2 kernels of {len(names)} graph nodes (eager {len(eager_names)} "
+              f"device ops); {ms:.3f} ms/pair captured vs {eager_ms:.3f} eager (median of "
+              f"{reps}); busy {100 * row['busy_share']:.1f} % vs {100 * row['eager_busy_share']:.1f} "
+              f"%; pool {pool_mb:.1f} MB; capture {graph.seconds:.3f} s (first call "
+              f"{first_s:.3f} s)")
+
+    # the serving loops: phase 6's frames (a cut, a dropped frame), captured
+    # init_state / step through process_sequence against the eager bodies
+    frames = scene_frames(1080, 1920)
+    recovery = of.RecoveryConfig(levels=3)
+
+    def eager_loop(cfg):
+        cf = [None if f is None else cuda(f) for f in frames]
+        state, flows = streaming._init_state(cf[0], cfg, recovery), {}
+        for i, f in enumerate(cf[1:], start=1):
+            if f is None:
+                state = streaming.FlowState(state.pyramid, None)
+                continue
+            state, flows[i] = streaming._step(state, f, cfg, True, recovery)
+        return flows
+
+    for label, cfg in (("LK levels=1", of.LKConfig(levels=1, window=15)),
+                       ("FB levels=1 iterations=1", of.FBConfig(levels=1, iterations=1))):
+        want, counts = run_path(f"8n eager serving {label}", lambda: eager_loop(cfg), ())
+        graphs = capture.graphs_captured()
+        got, c_counts = run_path(f"8n captured serving {label}", lambda: dict(of.process_sequence(
+            (None if f is None else cuda(f) for f in frames), cfg, warm_start=True,
+            recovery=recovery)), ())
+        require(sorted(got) == sorted(want) and all(torch.equal(got[i], want[i]) for i in want),
+                f"8n serving {label}: a captured step differs from the eager step")
+        require(c_counts == counts, f"8n serving {label}: launches {c_counts}, eager {counts}")
+        # the loop's one recovery key, the latest entry of the cache
+        check_g, warm_g, cold_g = list(streaming._recovery_graphs.entries.values())[-1]
+        require(warm_g.replays > 0 and cold_g.replays > 0,
+                f"8n serving {label}: warm {warm_g.replays}, cold {cold_g.replays} replays")
+        # one tracked step, captured and eager, from the same warm state
+        state = of.init_state(cuda(frames[0]), cfg, recovery)
+        state, _ = of.step(state, cuda(frames[1]), cfg, True, recovery)
+        nxt = cuda(frames[2])
+        ms = cuda_ms(lambda: of.step(state, nxt, cfg, True, recovery), STEP_REPS)
+        eager_ms = cuda_ms(lambda: streaming._step(state, nxt, cfg, True, recovery), STEP_REPS)
+        # a step syncs on the check's flag, so one step between events also
+        # times the host's wake-up: the steady rate is back-to-back steps
+        wall = {name: back_to_back_ms(fn, STEP_REPS) for name, fn in (
+            ("captured", lambda: of.step(state, nxt, cfg, True, recovery)),
+            ("eager", lambda: streaming._step(state, nxt, cfg, True, recovery)))}
+        busy = profile_path(lambda: of.step(state, nxt, cfg, True, recovery), 5)
+        eager_busy = profile_path(lambda: streaming._step(state, nxt, cfg, True, recovery), 5)
+        nodes = sum(len(device_names(g.replay)) for g in (check_g, warm_g))
+        out[f"serving step {label}"] = {
+            "ms": ms, "eager_ms": eager_ms, "busy_share": busy["device_ms"] / ms,
+            "eager_busy_share": eager_busy["device_ms"] / eager_ms, "graph_nodes": nodes,
+            "wall_ms": wall["captured"], "eager_wall_ms": wall["eager"],
+            "eager_device_ops": eager_busy["ops_per_pair"],
+            "capture_s": check_g.seconds + warm_g.seconds + cold_g.seconds,
+            "graphs": capture.graphs_captured() - graphs, "launches": counts}
+        print(f"phase 8n serving {label} 8 frames 1080x1920 [{card}]: every step torch.equal "
+              f"to the eager step; launches {counts} = eager; graphs captured "
+              f"{capture.graphs_captured() - graphs} (init_state, cold step, check + warm + "
+              f"cold); recovery warm {warm_g.replays}, cold {cold_g.replays} replays; warm step "
+              f"{ms:.3f} ms captured vs {eager_ms:.3f} eager (median of {STEP_REPS}), "
+              f"{wall['captured']:.3f} vs {wall['eager']:.3f} ms per step back to back; busy "
+              f"{100 * busy['device_ms'] / ms:.1f} % vs "
+              f"{100 * eager_busy['device_ms'] / eager_ms:.1f} %; check + warm graphs {nodes} "
+              f"nodes; capture {out[f'serving step {label}']['capture_s']:.3f} s")
+
+    # autograd: a grad input runs the eager entry (plain path); kernels refuse it
+    (pa, na), _ = small
+    plain = of.LKConfig(levels=4, window=19, use_pallas=False)
+    graphs = capture.graphs_captured()
+    grads = []
+    for entry in (of.pyramidal_lk_jit, of.pyramidal_lk):
+        x = na.clone().requires_grad_(True)
+        entry(pa, x, plain)[..., 0].mean().backward()
+        grads.append(x.grad)
+    gerr = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+    require(capture.graphs_captured() == graphs and gerr <= GRAD_REL_ERR,
+            f"8n autograd: captured {capture.graphs_captured() - graphs}, gradient {gerr}")
+    try:
+        of.pyramidal_lk_jit(pa, na.clone().requires_grad_(True), of.LKConfig(levels=4, window=19))
+        refused = False
+    except RuntimeError as exc:
+        refused = "gradient" in str(exc)
+    require(refused, "8n autograd: the kernel path took an input that requires grad")
+    # a capture that fails raises (a host sync inside the graph); nothing runs eagerly
+    bad = capture.captured(lambda x, k: x * float(x.sum()))
+    try:
+        bad(pa, 0)
+        raised = ""
+    except RuntimeError as exc:
+        raised = str(exc).splitlines()[0][:120]
+    torch.cuda.synchronize()
+    require(raised.startswith("capture of"), f"8n: a failing capture did not raise: {raised!r}")
+    after = of.pyramidal_lk_jit(pa, na, of.LKConfig(levels=4, window=19))
+    require(torch.equal(after, of.pyramidal_lk(pa, na, of.LKConfig(levels=4, window=19))),
+            "8n: captured entries broken after a failed capture")
+    print(f"phase 8n autograd and failures [{card}]: pyramidal_lk_jit with a grad input runs "
+          f"the eager plain path (no capture, gradient max |d| / max |g| {gerr:.3g}); the "
+          f"kernel path refuses it; a failing capture raises ({raised}); entries work after it; "
+          f"profiler: {profiler_note()}")
+    capture.clear()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2471,8 +2786,17 @@ def main() -> int:
     # 8l. the reference-exact profiles and the four command-line tools
     tools_8l = phase_8l(of, dev, run_path, big, card)
 
-    # 8m. the examples, gradients through the plain path, multihost
+    # 8m. the examples, gradients through the plain path, multihost; the
+    # captured graphs of the earlier phases go first (TV-L1's gradient
+    # takes ~42 GiB)
+    from cuda_optical_flow_2_torch import capture
+
+    capture.clear()
+    torch.cuda.empty_cache()
     phase_8m(of, dev, run_path, prev, nxt, card)
+
+    # 8n. the captured entries against the eager calls
+    phase_8n(of, dev, run_path, card)
 
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
@@ -2496,7 +2820,7 @@ def main() -> int:
             (lambda c=c: of.pyramidal_farneback(fp, fq, c)),
             (lambda c=c: of.pyramidal_farneback(fp, fq, dataclasses.replace(c, use_pallas=False))),
             10) for label, c in fb_cfgs.items()},
-        "FB serving step 1080x1920": (
+        "FB serving step (captured) 1080x1920": (
             lambda: of.step(fb_state, fb_frame, fb_serve, True, recovery),
             lambda: of.step(fb_state, fb_frame, fb_serve_plain, True, recovery), 10),
         **{f"pyramidal_tvl1 {label} 1080x1920": (
@@ -2693,6 +3017,7 @@ def main() -> int:
               f"{prof['ops_per_pair']:.0f} device ops/pair, profiled wall {prof['wall_ms']:.3f} "
               f"ms/pair; busy share {100 * prof['device_ms'] / path_ms[label]:.1f} % of the "
               f"unprofiled {path_ms[label]:.3f} ms/pair; top: {top}")
+    print(f"phase 10 profiler [{card}]: {profiler_note()}")
 
     entries = [(name, src, rep) for name, _m, _p, src, rep in KERNELS]
     entries += [(f"{name} centered", src, rep)

@@ -18,8 +18,15 @@ plain PyTorch versions.
     flow = of.pyramidal_dis(prev_gray, next_gray, of.DISConfig())
     flow = of.pyramidal_flow(prev_gray, next_gray, config)  # any of the five
 
+``pyramidal_lk_jit`` (and ``models.<family>.pyramidal_<family>_jit`` for
+the other four) is the JAX package's jitted entry: on CUDA tensors it
+replays a CUDA graph captured once per config and input shape
+(``capture``), on CPU tensors it is the eager entry.
+
 ``process_sequence``, ``init_state`` and ``step`` stream any of the five
-families, warm or cold, with scene-cut recovery.  ``parallel`` shards batches
+families, warm or cold, with scene-cut recovery; on CUDA tensors
+``init_state`` and ``step`` replay captured graphs, as the JAX package jits
+them.  ``parallel`` shards batches
 of pairs, or one pair's rows (any of the five families), over a mesh of
 devices.
 
@@ -79,6 +86,7 @@ from cuda_optical_flow_2_torch.models.lucas_kanade import (
     lk_level,
     preprocess,
     pyramidal_lk,
+    pyramidal_lk_jit,
     pyramidal_lk_pyramid,
     solve_flow,
 )
@@ -138,6 +146,7 @@ __all__ = [
     "pyramidal_flow",
     "pyramidal_hs",
     "pyramidal_lk",
+    "pyramidal_lk_jit",
     "pyramidal_lk_pyramid",
     "pyramidal_tvl1",
     "sample_flow",

@@ -1,9 +1,10 @@
 """Convolution masks and the Gaussian-mask generator (numpy only).
 
-Copies of the entries of ``cuda_optical_flow_2_tpu.constants`` that the
-port's pipeline, its bug-exact profiles and its oracle read;
-``tests/test_torch_ops.py`` and ``tests/test_torch_compat.py`` hold them
-equal to the originals.  Stencils are applied as correlations (no mask flip).
+Copies of every mask of ``cuda_optical_flow_2_tpu.constants``: those the
+port's pipeline, its bug-exact profiles and its oracle read, and the
+reference's tables that nothing runs (kept so the two modules hold the same
+names); ``tests/test_torch_ops.py`` and ``tests/test_torch_compat.py`` hold
+them equal to the originals.  Stencils are applied as correlations (no mask flip).
 """
 
 from __future__ import annotations
@@ -14,11 +15,20 @@ import numpy as np
 
 __all__ = [
     "BINOMIAL_1D",
+    "DELTA_3X3",
     "DT_3X3",
     "DT_3X3_N",
+    "DX_2X2",
     "DX_3X3",
+    "DX_3X3_T",
+    "DX_5X5",
+    "DX_DIAGONAL_2X2",
+    "DY_2X2",
     "DY_3X3",
+    "DY_DIAGONAL_2X2",
+    "DZ_2X2",
     "GAUS_KERNEL_3X3",
+    "GAUS_KERNEL_5X5",
     "MASKS",
     "generate_gaussian_kernel",
 ]
@@ -38,14 +48,47 @@ DT_3X3_N = np.array(
 GAUS_KERNEL_3X3 = np.array(
     [[0.0625, 0.125, 0.0625], [0.125, 0.25, 0.125], [0.0625, 0.125, 0.0625]], _f32
 )
+# Direct frame difference (DIS's temporal "mask").
+DELTA_3X3 = np.array([[0.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 0.0]], _f32)
+
+# The reference's tables that no path runs: a transposed, scaled Sobel-x, the
+# 2x2 schemes zero-padded into 3x3, a 5x5 derivative and a 5x5 Gaussian.
+DX_3X3_T = np.array(
+    [[1.0 / 3.0, 0.0, -1.0 / 3.0], [2.0 / 3.0, 0.0, -2.0 / 3.0], [1.0 / 3.0, 0.0, -1.0 / 3.0]],
+    _f32,
+)
+DY_DIAGONAL_2X2 = np.array([[1.0, 0.0, 0.0], [0.0, -1.0, 0.0], [0.0, 0.0, 0.0]], _f32)
+DX_DIAGONAL_2X2 = np.array([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 0.0]], _f32)
+DX_2X2 = np.array([[-1.0, 1.0, 0.0], [-1.0, 1.0, 0.0], [0.0, 0.0, 0.0]], _f32)
+DY_2X2 = np.array([[-1.0, -1.0, 0.0], [1.0, 1.0, 0.0], [0.0, 0.0, 0.0]], _f32)
+DZ_2X2 = np.array([[1.0, 1.0, 0.0], [1.0, 1.0, 0.0], [0.0, 0.0, 0.0]], _f32)
+DX_5X5 = np.array(
+    [
+        [-1.0, -2.0, 0.0, 1.0, 2.0],
+        [-2.0, -3.0, 0.0, 2.0, 3.0],
+        [-3.0, -5.0, 0.0, 3.0, 5.0],
+        [-2.0, -3.0, 0.0, 3.0, 2.0],
+        [-1.0, -2.0, 0.0, 2.0, 1.0],
+    ],
+    _f32,
+)
+GAUS_KERNEL_5X5 = np.array(
+    [
+        [0.00366, 0.01465, 0.02564, 0.01465, 0.00366],
+        [0.01465, 0.05860, 0.09523, 0.05860, 0.01465],
+        [0.02564, 0.09523, 0.15018, 0.09523, 0.02564],
+        [0.01465, 0.05860, 0.09523, 0.05860, 0.01465],
+        [0.00366, 0.01465, 0.02564, 0.01465, 0.00366],
+    ],
+    _f32,
+)
 
 # Name -> 3x3 mask, for the LKConfig string fields.
 MASKS = {
     "sobel_x": DX_3X3,
     "sobel_y": DY_3X3,
     "dt3": DT_3X3,
-    # Direct frame difference.
-    "delta": np.array([[0.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 0.0]], _f32),
+    "delta": DELTA_3X3,
     "gauss3": GAUS_KERNEL_3X3,
 }
 

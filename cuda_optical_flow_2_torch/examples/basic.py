@@ -19,7 +19,7 @@ def main(device="cuda", out_dir="/tmp"):
     prev, nxt = (torch.from_numpy(f.astype(np.float32)).to(dev) for f in frames)
 
     config = of.LKConfig(levels=4, window=15, temporal_kernel="gauss3")
-    flow = of.pyramidal_lk(prev, nxt, config).cpu().numpy()
+    flow = of.pyramidal_lk_jit(prev, nxt, config).cpu().numpy()
 
     median = np.median(flow[40:-40, 40:-40], axis=(0, 1))
     print("median flow:", median)

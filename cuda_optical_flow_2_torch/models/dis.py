@@ -34,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from cuda_optical_flow_2_torch.capture import captured
 from cuda_optical_flow_2_torch.config import BilateralConfig, LKConfig
 from cuda_optical_flow_2_torch.constants import MASKS
 from cuda_optical_flow_2_torch.kernels import hs_sweep, lk_fused, lk_step_fused, warp_select
@@ -56,6 +57,7 @@ __all__ = [
     "dis_preprocess",
     "dis_coarse_to_fine",
     "pyramidal_dis",
+    "pyramidal_dis_jit",
 ]
 
 
@@ -294,6 +296,12 @@ def pyramidal_dis(prev: torch.Tensor, nxt: torch.Tensor, config: DISConfig) -> t
     _validate(prev, nxt, config)
     both = dis_preprocess(torch.stack([prev, nxt]).to(torch.float32), config)
     return dis_coarse_to_fine([lvl[0] for lvl in both], [lvl[1] for lvl in both], config)
+
+
+# The JAX package's jitted entry: on CUDA tensors a replay of a graph captured
+# once per config and input shape, dtype and device (``capture.captured``);
+# on CPU tensors, or under autograd, ``pyramidal_dis`` itself.
+pyramidal_dis_jit = captured(pyramidal_dis)
 
 
 # Realtime serving preset: skip the full-resolution solve (finest_level=1)

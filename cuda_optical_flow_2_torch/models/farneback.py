@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from cuda_optical_flow_2_torch.capture import captured
 from cuda_optical_flow_2_torch.config import BilateralConfig
 from cuda_optical_flow_2_torch.kernels import (
     fb_step_fused,
@@ -62,6 +63,7 @@ __all__ = [
     "fb_coarse_to_fine",
     "fb_preprocess",
     "pyramidal_farneback",
+    "pyramidal_farneback_jit",
 ]
 
 
@@ -282,3 +284,9 @@ def pyramidal_farneback(prev: torch.Tensor, nxt: torch.Tensor, config: FBConfig)
         raise ValueError(f"frame shapes differ: {tuple(prev.shape)} vs {tuple(nxt.shape)}")
     both = fb_preprocess(torch.stack([prev, nxt]).to(torch.float32), config)
     return fb_coarse_to_fine([lvl[0] for lvl in both], [lvl[1] for lvl in both], config)
+
+
+# The JAX package's jitted entry: on CUDA tensors a replay of a graph captured
+# once per config and input shape, dtype and device (``capture.captured``);
+# on CPU tensors, or under autograd, ``pyramidal_farneback`` itself.
+pyramidal_farneback_jit = captured(pyramidal_farneback)

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cuda_optical_flow_2_torch.capture import captured
 from cuda_optical_flow_2_torch.config import BilateralConfig, LKConfig
 from cuda_optical_flow_2_torch.kernels import hs_sweep, warp_select
 from cuda_optical_flow_2_torch.models.lucas_kanade import preprocess
@@ -43,6 +44,7 @@ __all__ = [
     "hs_preprocess",
     "hs_coarse_to_fine",
     "pyramidal_hs",
+    "pyramidal_hs_jit",
 ]
 
 # Horn & Schunck 1981 neighbour-average weights (4-neighbours 1/6, diagonals
@@ -303,3 +305,9 @@ def pyramidal_hs(prev: torch.Tensor, nxt: torch.Tensor, config: HSConfig) -> tor
         raise ValueError(f"frame shapes differ: {tuple(prev.shape)} vs {tuple(nxt.shape)}")
     both = hs_preprocess(torch.stack([prev, nxt]).to(torch.float32), config)
     return hs_coarse_to_fine([lvl[0] for lvl in both], [lvl[1] for lvl in both], config)
+
+
+# The JAX package's jitted entry: on CUDA tensors a replay of a graph captured
+# once per config and input shape, dtype and device (``capture.captured``);
+# on CPU tensors, or under autograd, ``pyramidal_hs`` itself.
+pyramidal_hs_jit = captured(pyramidal_hs)

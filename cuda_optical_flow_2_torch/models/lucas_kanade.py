@@ -30,6 +30,7 @@ import dataclasses
 
 import torch
 
+from cuda_optical_flow_2_torch.capture import captured
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.kernels import bilateral_tap, lk_fused, lk_step_fused
 from cuda_optical_flow_2_torch.ops.bilateral import bilateral_filter
@@ -44,6 +45,7 @@ __all__ = [
     "lk_level",
     "preprocess",
     "pyramidal_lk",
+    "pyramidal_lk_jit",
     "pyramidal_lk_pyramid",
     "solve_flow",
 ]
@@ -185,6 +187,12 @@ def pyramidal_lk(prev: torch.Tensor, nxt: torch.Tensor, config: LKConfig) -> tor
     one device; the flow comes back on that device.
     """
     return pyramidal_lk_pyramid(prev, nxt, config)[0]
+
+
+# The JAX package's jitted entry: on CUDA tensors a replay of a graph captured
+# once per config and input shape, dtype and device (``capture.captured``);
+# on CPU tensors, or under autograd, ``pyramidal_lk`` itself.
+pyramidal_lk_jit = captured(pyramidal_lk)
 
 
 def compose_flow_pyramid(flow_pyramid: list[torch.Tensor], level: int = 0) -> torch.Tensor:

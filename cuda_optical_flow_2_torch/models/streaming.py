@@ -17,6 +17,11 @@ previous pair's flow.  With a :class:`RecoveryConfig` every warm step first
 checks the seed at the deepest carried pyramid level (one warp through the
 ``warp_select`` kernel on the kernel path) and re-acquires over a deeper
 pyramid after a scene cut.
+
+On CUDA tensors ``init_state`` and ``step`` replay CUDA graphs captured once
+per key (``capture``), the counterpart of the JAX package's jitted pair; the
+eager bodies ``_init_state`` and ``_step`` run on CPU tensors and under
+autograd.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from cuda_optical_flow_2_torch import capture
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.kernels import warp_select
 from cuda_optical_flow_2_torch.models.dis import DISConfig, dis_coarse_to_fine, dis_preprocess
@@ -133,14 +139,101 @@ def _flow(prev_pyr, next_pyr, config, init_flow=None) -> torch.Tensor:
     return coarse_to_fine(list(prev_pyr), list(next_pyr), config, init_flow)[0]
 
 
+def _init_state(frame: torch.Tensor, config, recovery: RecoveryConfig | None = None) -> FlowState:
+    """The eager :func:`init_state`."""
+    _require_ported(config)
+    return FlowState(tuple(_preprocess(frame.to(torch.float32), _carry_config(config, recovery))))
+
+
+def _prepare(state: FlowState, frame: torch.Tensor, config, warm_start: bool,
+             recovery: RecoveryConfig | None):
+    """A step's checks, the new frame's pyramid and the warm seed at the
+    coarsest tracking level (None unless warm with a carried flow)."""
+    _require_ported(config)
+    if recovery is not None and not warm_start:
+        raise ValueError("recovery requires warm_start=True")
+    pyr = _preprocess(frame.to(torch.float32), _carry_config(config, recovery))
+    if len(state.pyramid) != len(pyr):
+        raise ValueError(
+            f"state carries {len(state.pyramid)} pyramid levels but this "
+            f"config/recovery needs {len(pyr)}; build the state with "
+            f"init_state(frame, config, recovery)"
+        )
+    init = None
+    if warm_start and state.flow is not None:
+        init = downsample_flow(
+            state.flow, tuple(pyr[config.levels - 1].shape[-2:]), config.use_pallas
+        )
+    return pyr, init
+
+
+def _seed_ok(state: FlowState, pyr, config, recovery: RecoveryConfig) -> torch.Tensor:
+    """The acquisition check at the deepest carried level: whether every
+    stream's seed passes (a 0-dim bool tensor on the frames' device)."""
+    prev_c, next_c = state.pyramid[-1], pyr[-1]
+    seed_c = downsample_flow(state.flow, tuple(next_c.shape[-2:]), config.use_pallas)
+    if config.use_pallas:
+        # The default 32 px budget, as the JAX check's LKConfig(levels=1).
+        warped = warp_select.warp_bilinear_select(next_c, seed_c)
+    else:
+        warped = warp_bilinear(next_c, seed_c)
+    r_seed = (warped - prev_c).abs().mean(dim=(-2, -1))
+    r_zero = (next_c - prev_c).abs().mean(dim=(-2, -1))
+    small_seed = seed_c.abs().mean(dim=(-3, -2, -1)) < recovery.seed_floor
+    return (small_seed | (r_seed < recovery.ratio * r_zero)).all()
+
+
+def _warm(state: FlowState, pyr, init: torch.Tensor, config) -> torch.Tensor:
+    """The warm solve over the tracking levels, seeded with ``init``."""
+    return _flow(state.pyramid[: config.levels], pyr[: config.levels], config, init)
+
+
+def _cold(state: FlowState, pyr, config, recovery: RecoveryConfig | None) -> torch.Tensor:
+    """The unseeded solve over every carried level."""
+    return _flow(state.pyramid, pyr, _carry_config(config, recovery), None)
+
+
+def _step(
+    state: FlowState,
+    frame: torch.Tensor,
+    config,
+    warm_start: bool = False,
+    recovery: RecoveryConfig | None = None,
+) -> tuple[FlowState, torch.Tensor]:
+    """The eager :func:`step`."""
+    pyr, init = _prepare(state, frame, config, warm_start, recovery)
+    if recovery is None:
+        flow = _flow(state.pyramid, pyr, config, init)
+        return FlowState(tuple(pyr), flow if warm_start else None), flow
+    if init is None:
+        flow = _cold(state, pyr, config, recovery)
+    elif bool(_seed_ok(state, pyr, config, recovery)):
+        flow = _warm(state, pyr, init, config)
+    else:
+        flow = _cold(state, pyr, config, recovery)
+    return FlowState(tuple(pyr), flow), flow
+
+
+# On CUDA tensors init_state and step replay graphs captured once per key (the
+# config, the recovery, warm_start, the tensors' shapes, dtypes and device,
+# and whether the state carries a flow), as the JAX package jits them.
+_init_state_graphs = capture.captured(_init_state)
+_step_graphs = capture.captured(_step)
+# A warm step with recovery: (check, warm solve, cold solve) per key.
+_recovery_graphs = capture.GraphCache()
+
+
 def init_state(
     frame: torch.Tensor, config, recovery: RecoveryConfig | None = None
 ) -> FlowState:
     """Build the initial state from the first frame.  ``config`` is the
     port's LKConfig, HSConfig, FBConfig, TVL1Config or DISConfig.  Pass the same ``recovery`` given to
-    :func:`step`: the state then carries the deeper acquisition pyramid."""
-    _require_ported(config)
-    return FlowState(tuple(_preprocess(frame.to(torch.float32), _carry_config(config, recovery))))
+    :func:`step`: the state then carries the deeper acquisition pyramid.
+
+    On CUDA tensors a replay of a captured graph (``capture.captured``); on
+    CPU tensors, or under autograd with an input that requires grad, the
+    eager body."""
+    return _init_state_graphs(frame, config, recovery)
 
 
 def step(
@@ -157,47 +250,47 @@ def step(
     stream of the batch fails the check, re-solves the whole batch at the
     deep config (the JAX package's ``lax.cond`` rule; here a host-side
     branch on the check's result).
+
+    On CUDA tensors the step replays captured graphs: one per key, or with
+    ``recovery`` and a carried flow three (the check, which builds the new
+    pyramid and the seed; then, after the host reads the check's one flag,
+    the warm or the cold solve).  The returned state and flow are clones, as
+    the JAX package returns fresh arrays.  On CPU tensors, or under autograd
+    with an input that requires grad, the eager body runs.
     """
-    _require_ported(config)
-    if recovery is not None and not warm_start:
-        raise ValueError("recovery requires warm_start=True")
-    carry_cfg = _carry_config(config, recovery)
-    pyr = _preprocess(frame.to(torch.float32), carry_cfg)
-    if len(state.pyramid) != len(pyr):
-        raise ValueError(
-            f"state carries {len(state.pyramid)} pyramid levels but this "
-            f"config/recovery needs {len(pyr)}; build the state with "
-            f"init_state(frame, config, recovery)"
-        )
-    track = config.levels
-    init = None
-    if warm_start and state.flow is not None:
-        init = downsample_flow(state.flow, tuple(pyr[track - 1].shape[-2:]), config.use_pallas)
+    if recovery is not None and warm_start and state.flow is not None:
+        spec, tensors = capture.flatten((state, frame, config, warm_start, recovery))
+        if not capture.runs_eagerly(tensors):
+            return _recovery_step(spec, tensors)
+    return _step_graphs(state, frame, config, warm_start, recovery)
 
-    if recovery is None or init is None:
-        if recovery is not None:
-            flow = _flow(state.pyramid, pyr, carry_cfg, None)
-        else:
-            flow = _flow(state.pyramid, pyr, config, init)
-        return FlowState(tuple(pyr), flow if warm_start else None), flow
 
-    # Acquisition check at the deepest carried level, per stream.
-    prev_c, next_c = state.pyramid[-1], pyr[-1]
-    seed_c = downsample_flow(state.flow, tuple(next_c.shape[-2:]), config.use_pallas)
-    if config.use_pallas:
-        # The default 32 px budget, as the JAX check's LKConfig(levels=1).
-        warped = warp_select.warp_bilinear_select(next_c, seed_c)
-    else:
-        warped = warp_bilinear(next_c, seed_c)
-    r_seed = (warped - prev_c).abs().mean(dim=(-2, -1))
-    r_zero = (next_c - prev_c).abs().mean(dim=(-2, -1))
-    small_seed = seed_c.abs().mean(dim=(-3, -2, -1)) < recovery.seed_floor
-    seed_ok = small_seed | (r_seed < recovery.ratio * r_zero)
-    if bool(seed_ok.all()):
-        flow = _flow(state.pyramid[:track], pyr[:track], config, init)
-    else:
-        flow = _flow(state.pyramid, pyr, carry_cfg, None)
-    return FlowState(tuple(pyr), flow), flow
+def _recovery_step(spec: tuple, tensors: list[torch.Tensor]) -> tuple[FlowState, torch.Tensor]:
+    """A warm step with recovery on CUDA tensors: replay the check, read its
+    flag, replay the warm or the cold solve on the check's buffers."""
+
+    def capture_all():
+        device = tensors[0].device
+        name = "step with recovery"
+
+        def check_body(*static):
+            state, frame, config, _, recovery = capture.unflatten(spec, static)
+            pyr, init = _prepare(state, frame, config, True, recovery)
+            return tuple(pyr), init, _seed_ok(state, pyr, config, recovery)
+
+        check = capture.Graph(check_body, tensors, device, f"{name} (check)", spec)
+        state, _, config, _, recovery = capture.unflatten(spec, check.inputs)
+        pyr, init, _ = check.outputs
+        warm = capture.Graph(lambda: _warm(state, pyr, init, config), (), device,
+                             f"{name} (warm)", spec, copy=False)
+        cold = capture.Graph(lambda: _cold(state, pyr, config, recovery), (), device,
+                             f"{name} (cold)", spec, copy=False)
+        return check, warm, cold
+
+    check, warm, cold = _recovery_graphs.get(spec, capture_all)
+    pyr, _, ok = check.replay(tensors)
+    flow = (warm if bool(ok) else cold).replay()
+    return capture.clone_outputs((FlowState(pyr, flow), flow))
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:

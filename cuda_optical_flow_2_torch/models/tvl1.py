@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from cuda_optical_flow_2_torch.capture import captured
 from cuda_optical_flow_2_torch.config import BilateralConfig
 from cuda_optical_flow_2_torch.kernels import median_select, tvl1_sweep, warp_select
 from cuda_optical_flow_2_torch.models.horn_schunck import lk_preproc_config
@@ -51,6 +52,7 @@ __all__ = [
     "tvl1_median",
     "tvl1_preprocess",
     "pyramidal_tvl1",
+    "pyramidal_tvl1_jit",
 ]
 
 
@@ -240,6 +242,12 @@ def pyramidal_tvl1(prev: torch.Tensor, nxt: torch.Tensor, config: TVL1Config) ->
         raise ValueError(f"frame shapes differ: {tuple(prev.shape)} vs {tuple(nxt.shape)}")
     both = tvl1_preprocess(torch.stack([prev, nxt]).to(torch.float32), config)
     return tvl1_coarse_to_fine([lvl[0] for lvl in both], [lvl[1] for lvl in both], config)
+
+
+# The JAX package's jitted entry: on CUDA tensors a replay of a graph captured
+# once per config and input shape, dtype and device (``capture.captured``);
+# on CPU tensors, or under autograd, ``pyramidal_tvl1`` itself.
+pyramidal_tvl1_jit = captured(pyramidal_tvl1)
 
 
 # The JAX package's real-time operating point: 14 iterations fill one

@@ -42,8 +42,9 @@ def upsample_flow(flow: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
         lead = flow.shape[:-3]
         x = flow.reshape((-1, h, w, 2)).permute(0, 3, 1, 2)
         out = F.interpolate(x, size=(th, tw), mode="bilinear", align_corners=False)
-        scale = torch.tensor([tw / w, th / h], dtype=flow.dtype, device=flow.device)
-        return out.permute(0, 2, 3, 1).reshape(lead + (th, tw, 2)) * scale
+        # Python-float scales: no host-to-device copy, so a CUDA graph can capture it
+        out = torch.stack([out[:, 0] * (tw / w), out[:, 1] * (th / h)], dim=-1)
+        return out.reshape(lead + (th, tw, 2))
     out = _up2x_axis(_up2x_axis(flow, -3), -2)
     if th == 2 * h + 1:
         out = torch.cat([out, out[..., -1:, :, :]], dim=-3)

@@ -91,6 +91,14 @@ def test_constants_equal_to_jax():
         assert mask.dtype == jconst.MASKS[name].dtype
         np.testing.assert_array_equal(mask, jconst.MASKS[name])
     np.testing.assert_array_equal(tconst.BINOMIAL_1D, jconst.BINOMIAL_1D)
+    # every uppercase array of the JAX module has an equal counterpart
+    arrays = [n for n in dir(jconst) if n.isupper() and isinstance(getattr(jconst, n), np.ndarray)]
+    assert len(arrays) >= 15
+    for name in arrays:
+        got, want = getattr(tconst, name), getattr(jconst, name)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        assert name in tconst.__all__
 
 
 # --- stencils ------------------------------------------------------------
