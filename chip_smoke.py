@@ -158,6 +158,21 @@ then, in order:
    ``init_state`` / ``step``, every step ``torch.equal`` to the eager
    ``_step`` and both recovery branches replayed; a grad input running the
    eager plain path; a failing capture raising;
+8o. the rest of the JAX package's jitted surface, captured: at 2160x3840
+   on the 3-shard mesh of the one card ``spatial_pyramidal_lk`` at
+   ``PAPER_1080P`` and ``REFERENCE_GPU``, ``spatial_pyramidal_hs``
+   (``HSConfig()``), ``_tvl1`` (``TVL1_REALTIME``), ``_fb`` (``FBConfig()``),
+   ``_dis`` (``DISConfig(levels=4)``) and ``grid_pyramidal_lk`` over (2 batch
+   x 3 space); at 1080x1920 ``sharded_flow`` (batch 4 over the card twice),
+   ``chunked_flow`` (batch 8, chunk 2), ``track_sequence`` (8 frames) and the
+   evaluate tool's step without and with the occlusion fill: each
+   ``torch.equal`` to its eager body (``.eager``) on two inputs, one capture
+   per key, launches per call the eager call's, the replayed kernels (and,
+   for one graph per call, every device op) those of the eager call in the
+   profiler, its (2, 1) check, captured and eager ms, busy share, graph
+   nodes, pool MB and capture seconds; every band kernel launched inside a
+   replay.  The plain references of phases 8f and 9 for the TP and tracking
+   paths run the eager bodies, as before these entries were captured;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K; host time included; ``consistent_flow`` with the fill off
    and on, the fill alone, ``good_features`` and ``track_sequence`` per
@@ -1562,6 +1577,212 @@ def phase_8n(of, dev, run_path, card: str) -> dict:
     return out
 
 
+# --- phase 8o: the parallel/ entries, tracking and the tools' step, captured -
+
+CAPTURED_8O_REPS = {"TP TVL1_REALTIME": 5, "evaluate step TVL1_REALTIME fill": 5}
+# the band kernels (#2b, #2b centered, #3b, #5b, #6b, #7b, #8b): each must
+# launch inside a replay of phase 8o
+BAND_KERNELS = ("lk_band_step", "lk_band_step centered", "warp_bilinear_select_band",
+                "bilateral_kernel_band", "hs_relax_band", "tvl1_relax_band", "fb_band_step")
+
+
+def phase_8o(of, dev, run_path, card: str) -> dict:
+    """Each captured ``parallel/`` entry, ``track_sequence`` and the evaluate
+    tool's step against its eager body (``.eager``); print one line per path;
+    return the numbers for PERF.md."""
+    import torch
+
+    from cuda_optical_flow_2_torch import capture, parallel
+    from cuda_optical_flow_2_torch.cli import evaluate
+    from cuda_optical_flow_2_torch.models import lucas_kanade, tracking
+    from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
+
+    def cuda(a):
+        return torch.as_tensor(a, device=dev).float()
+
+    def pairs(h, w):
+        """The (2, 1) pair and a second pair of another scene and motion."""
+        a = synthetic_sequence(2, h, w, velocity=(2.0, 1.0), period=48)
+        b = synthetic_sequence(2, h, w, velocity=(-1.0, 1.5), period=48, seed=1)
+        return (cuda(a[0]), cuda(a[1])), (cuda(b[0]), cuda(b[1]))
+
+    def median_ok(tol, pick=lambda out: out):
+        def check(out):
+            m = inner_median(pick(out))
+            ok = abs(m[0] - 2.0) <= tol and abs(m[1] - 1.0) <= tol
+            return ok, f"inner median ({m[0]:.4f}, {m[1]:.4f})"
+        return check
+
+    def epe_ok(tol):
+        def check(flow):
+            epe = float((flow[64:-64, 64:-64] - flow.new_tensor([2.0, 1.0])).norm(dim=-1).mean())
+            return epe < tol, f"inner EPE {epe:.4f}"
+        return check
+
+    def same(a, b) -> bool:
+        if isinstance(a, tuple):
+            return all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+        return torch.equal(a, b)
+
+    (ua, va), (ub, vb) = pairs(2160, 3840)
+    (pa, na), (pb, nb) = pairs(1080, 1920)
+    mesh3 = parallel.make_mesh(axis_name="space", devices=[dev] * 3)
+    grid = parallel.Mesh([[dev] * 3] * 2, ("batch", "space"))
+    mesh2 = parallel.make_mesh(devices=[dev] * 2)
+    prefiltered = of.LKConfig(levels=4, window=19, prefilter=of.BilateralConfig())
+    lk_tp = parallel.spatial_pyramidal_lk
+
+    # the tracking clips: 8 frames at (2, 1), and 8 of another scene; interior points
+    clip_a = cuda(synthetic_sequence(8, 1080, 1920, velocity=(2.0, 1.0), period=48, noise=0.0))
+    clip_b = cuda(synthetic_sequence(8, 1080, 1920, velocity=(-1.0, 1.5), period=48, seed=1,
+                                     noise=0.0))
+    gy, gx = torch.meshgrid(torch.linspace(200.0, 880.0, 12, device=dev),
+                            torch.linspace(200.0, 1720.0, 20, device=dev), indexing="ij")
+    pts = torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)
+
+    def track_ok(out):
+        pos, alive = out
+        truth = pts[None] + torch.arange(1, 8, device=dev)[:, None, None] * pts.new_tensor(
+            [2.0, 1.0])
+        err = float((pos - truth).norm(dim=-1).max())
+        return bool(alive.all()) and err <= TRACK_TOL, f"max point error {err:.4f} px"
+
+    step = evaluate._step_jit()
+    # label -> (captured entry, eager body, args of the (2, 1) input, args of the
+    # other, the cache that holds its graph, replays per call, (2, 1) check)
+    paths = {
+        "TP PAPER_1080P": (lk_tp, lk_tp.eager, (ua, va, of.PAPER_1080P, mesh3),
+                           (ub, vb, of.PAPER_1080P, mesh3), lk_tp.cache, 1,
+                           median_ok(TRANSLATION_TOL)),
+        # REFERENCE_GPU is no translation oracle (phase 8f): its (2, 1) check
+        # runs the prefiltered entry config through the same captured entry
+        "TP REFERENCE_GPU": (lk_tp, lk_tp.eager, (ua, va, of.REFERENCE_GPU, mesh3),
+                             (ub, vb, of.REFERENCE_GPU, mesh3), lk_tp.cache, 1,
+                             lambda flow: median_ok(TRANSLATION_TOL)(
+                                 lk_tp(ua, va, prefiltered, mesh3))),
+        "TP HSConfig()": (parallel.spatial_pyramidal_hs, parallel.spatial_pyramidal_hs.eager,
+                          (ua, va, of.HSConfig(), mesh3), (ub, vb, of.HSConfig(), mesh3),
+                          parallel.spatial_pyramidal_hs.cache, 1, median_ok(HS_TRANSLATION_TOL)),
+        "TP TVL1_REALTIME": (parallel.spatial_pyramidal_tvl1,
+                             parallel.spatial_pyramidal_tvl1.eager,
+                             (ua, va, of.TVL1_REALTIME, mesh3), (ub, vb, of.TVL1_REALTIME, mesh3),
+                             parallel.spatial_pyramidal_tvl1.cache, 1,
+                             median_ok(PRESET_TRANSLATION_TOL)),
+        "TP FBConfig()": (parallel.spatial_pyramidal_fb, parallel.spatial_pyramidal_fb.eager,
+                          (ua, va, of.FBConfig(), mesh3), (ub, vb, of.FBConfig(), mesh3),
+                          parallel.spatial_pyramidal_fb.cache, 1, median_ok(TRANSLATION_TOL)),
+        "TP DISConfig(levels=4)": (parallel.spatial_pyramidal_dis,
+                                   parallel.spatial_pyramidal_dis.eager,
+                                   (ua, va, of.DISConfig(levels=4), mesh3),
+                                   (ub, vb, of.DISConfig(levels=4), mesh3),
+                                   parallel.spatial_pyramidal_dis.cache, 1, epe_ok(DIS_EPE_TOL)),
+        "grid PAPER_1080P 2x3": (parallel.grid_pyramidal_lk, parallel.grid_pyramidal_lk.eager,
+                                 (torch.stack([ua, vb]), torch.stack([va, ub]), of.PAPER_1080P,
+                                  grid),
+                                 (torch.stack([ub, va]), torch.stack([vb, ua]), of.PAPER_1080P,
+                                  grid), lk_tp.cache, 2,
+                                 median_ok(TRANSLATION_TOL, lambda out: out[0])),
+        "sharded_flow PAPER_1080P batch 4, 2 shards": (
+            parallel.sharded_flow, parallel.sharded_flow.eager,
+            (torch.stack([pa, pb, pa, pb]), torch.stack([na, nb, na, nb]), of.PAPER_1080P, mesh2),
+            (torch.stack([pb, pa, nb, pb]), torch.stack([nb, na, pb, nb]), of.PAPER_1080P, mesh2),
+            lucas_kanade.pyramidal_lk_jit.cache, 2,
+            median_ok(TRANSLATION_TOL, lambda out: out[0])),
+        "chunked_flow PAPER_1080P batch 8, chunk 2": (
+            parallel.chunked_flow, parallel.chunked_flow.eager,
+            (torch.stack([pa, pb] * 4), torch.stack([na, nb] * 4), of.PAPER_1080P, 2),
+            (torch.stack([pb, na] * 4), torch.stack([nb, pa] * 4), of.PAPER_1080P, 2),
+            parallel.chunked_flow.cache, 1, median_ok(TRANSLATION_TOL, lambda out: out[6])),
+        "track_sequence PAPER_1080P 8 frames": (
+            tracking.track_sequence, tracking.track_sequence.eager,
+            (clip_a, pts, of.PAPER_1080P), (clip_b, pts, of.PAPER_1080P),
+            tracking.track_sequence.cache, 1, track_ok),
+        "evaluate step PAPER_1080P": (
+            step, evaluate._step, (pa, na, of.PAPER_1080P, False),
+            (pb, nb, of.PAPER_1080P, False), step.cache, 1, median_ok(TRANSLATION_TOL)),
+        "evaluate step TVL1_REALTIME fill": (
+            step, evaluate._step, (pa, na, of.TVL1_REALTIME, True),
+            (pb, nb, of.TVL1_REALTIME, True), step.cache, 1,
+            median_ok(PRESET_TRANSLATION_TOL)),
+    }
+    out: dict = {}
+    in_replays: set = set()
+    t_phase = time.perf_counter()
+    for label, (jit, eager, args_a, args_b, cache, n_graph, check) in paths.items():
+        capture.clear()
+        torch.cuda.empty_cache()
+        want_a, counts = run_path(f"8o eager {label}", lambda: eager(*args_a), ())
+        want_b = eager(*args_b)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graphs = capture.graphs_captured()
+        t0 = time.perf_counter()
+        got_a, c_counts = run_path(f"8o captured {label}", lambda: jit(*args_a), ())
+        first_s = time.perf_counter() - t0
+        require(capture.graphs_captured() == graphs + 1 and len(cache.entries) == 1,
+                f"8o {label}: first call captured {capture.graphs_captured() - graphs} graphs")
+        require(c_counts == counts, f"8o {label}: captured launches {c_counts}, eager {counts}")
+        in_replays |= set(c_counts)
+        equal_a = same(got_a, want_a)
+        ok, what = check(got_a)
+        del got_a
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+        graphs_after = capture.graphs_captured()
+        got_b, b_counts = run_path(f"8o captured {label} second input", lambda: jit(*args_b), ())
+        require(b_counts == counts, f"8o {label}: second call launches {b_counts}, eager {counts}")
+        again = jit(*args_a)
+        require(capture.graphs_captured() == graphs_after,
+                f"8o {label}: a call with the same key captured again")
+        equal = (equal_a, same(got_b, want_b), same(again, want_a))
+        require(all(equal), f"8o {label}: captured torch.equal to the eager body on the first "
+                            f"input, the second, the first again: {equal}")
+        require(ok, f"8o {label}: (2, 1) check failed: {what}")
+        graph = list(cache.entries.values())[-1]  # the key of the first input, used last
+        # the replay's device ops against the eager call's: every op for one
+        # graph per call; the kernels (and a gather of at most 2 ops) when a
+        # call replays one graph per group or shard
+        names = device_names(graph.replay)
+        eager_names = device_names(lambda: eager(*args_a))
+        ours = sorted(n for n in names if "of2_" in n) * n_graph
+        require(sorted(ours) == sorted(n for n in eager_names if "of2_" in n) and ours,
+                f"8o {label}: the replays' kernels are not the eager call's")
+        gather = len(eager_names) - n_graph * len(names)
+        require(gather == 0 if n_graph == 1 else 0 <= gather <= 2,
+                f"8o {label}: {n_graph} x {len(names)} replayed device ops, eager "
+                f"{len(eager_names)}")
+        reps = CAPTURED_8O_REPS.get(label, 10)
+        ms = cuda_ms(lambda: jit(*args_a), reps)
+        eager_ms = cuda_ms(lambda: eager(*args_a), reps)
+        busy = profile_path(lambda: jit(*args_a), 3)
+        eager_busy = profile_path(lambda: eager(*args_a), 3)
+        row = {"ms": ms, "eager_ms": eager_ms, "busy_share": busy["device_ms"] / ms,
+               "eager_busy_share": eager_busy["device_ms"] / eager_ms,
+               "device_ms": busy["device_ms"], "eager_device_ms": eager_busy["device_ms"],
+               "graph_nodes": len(names), "graphs_per_call": n_graph,
+               "eager_device_ops": len(eager_names), "pool_mb": pool_mb,
+               "capture_s": graph.seconds, "first_call_s": first_s, "launches": counts}
+        out[label] = row
+        print(f"phase 8o {label} [{card}]: captured torch.equal to eager on two inputs; (2, 1) "
+              f"{what}; launches {counts} = eager; captured once; {n_graph} replay(s) of "
+              f"{len(names)} graph nodes ({len(ours) // n_graph} of2 kernels) per call vs "
+              f"{len(eager_names)} eager device ops; {ms:.3f} ms captured vs {eager_ms:.3f} "
+              f"eager (median of {reps}); device {busy['device_ms']:.3f} vs "
+              f"{eager_busy['device_ms']:.3f} ms; busy {100 * row['busy_share']:.1f} % vs "
+              f"{100 * row['eager_busy_share']:.1f} %; pool {pool_mb:.1f} MB; capture "
+              f"{graph.seconds:.3f} s (first call {first_s:.3f} s)")
+    missing = [k for k in BAND_KERNELS if k not in in_replays]
+    require(not missing, f"8o: band kernels never launched inside a replay: {missing}")
+    capture.clear()
+    torch.cuda.empty_cache()
+    print(f"phase 8o [{card}]: every band kernel ({', '.join(BAND_KERNELS)}) launched inside a "
+          f"replay at the eager call's counts; {time.perf_counter() - t_phase:.1f} s; profiler: "
+          f"{profiler_note()}")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "cuda_optical_flow_2_torch" / "csrc").is_dir():
         print("chip_smoke: cuda_optical_flow_2_torch/ not found beside this script", file=sys.stderr)
@@ -2383,7 +2604,8 @@ def main() -> int:
         require(counts == expect, f"TP {label} 3 shards launches {counts}, predicted {expect}")
         require(tuple(flow.shape) == (uh, uw, 2) and flow.device == dev,
                 f"TP {label} flow {tuple(flow.shape)} on {flow.device}")
-        e_plain = err_stats(flow, tp_fn(up, un, dataclasses.replace(cfg, use_pallas=False), mesh3))
+        e_plain = err_stats(flow, tp_fn.eager(up, un, dataclasses.replace(cfg, use_pallas=False),
+                                              mesh3))
         unsharded_4k[label] = whole(up, un, cfg)
         e_whole = err_stats(flow, unsharded_4k[label])
         for what, e in (("plain TP path", e_plain), ("unsharded kernel path", e_whole)):
@@ -2783,20 +3005,27 @@ def main() -> int:
           f"liveness equal; launches {counts} and {counts_tp} (as predicted), good_features "
           "none")
 
-    # 8l. the reference-exact profiles and the four command-line tools
+    # 8l. the reference-exact profiles and the four command-line tools; the
+    # graphs that the TP and tracking paths of 8f-8k captured go first: with
+    # the benchmark's 64-pair captures of config 5 they overfilled the card
+    from cuda_optical_flow_2_torch import capture
+
+    capture.clear()
+    torch.cuda.empty_cache()
     tools_8l = phase_8l(of, dev, run_path, big, card)
 
     # 8m. the examples, gradients through the plain path, multihost; the
     # captured graphs of the earlier phases go first (TV-L1's gradient
     # takes ~42 GiB)
-    from cuda_optical_flow_2_torch import capture
-
     capture.clear()
     torch.cuda.empty_cache()
     phase_8m(of, dev, run_path, prev, nxt, card)
 
     # 8n. the captured entries against the eager calls
     phase_8n(of, dev, run_path, card)
+
+    # 8o. the parallel/ entries, tracking and the evaluate tool's step, captured
+    phase_8o(of, dev, run_path, card)
 
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
@@ -2849,7 +3078,7 @@ def main() -> int:
             lambda: of.consistent_flow(bp, bn, rt_plain, fill=True), 5),
         "track_sequence PAPER_1080P 8 frames 1080x1920": (
             lambda: of.track_sequence(tr_frames, pts, of.PAPER_1080P),
-            lambda: of.track_sequence(tr_frames, pts, plain_cfg), 10),
+            lambda: of.track_sequence.eager(tr_frames, pts, plain_cfg), 10),
     }
     # the TP paths at 4K, each beside its unsharded run
     for label, (c, tp_fn, whole, *_rest) in (tp_paths | tp_paths_8g).items():
@@ -2859,7 +3088,8 @@ def main() -> int:
             (lambda c=c, g=whole: g(up, un, dataclasses.replace(c, use_pallas=False))), r)
         paths[f"{tp_fn.__name__} {label} {uh}x{uw} 3 shards"] = (
             (lambda c=c, g=tp_fn: g(up, un, c, mesh3)),
-            (lambda c=c, g=tp_fn: g(up, un, dataclasses.replace(c, use_pallas=False), mesh3)), r)
+            (lambda c=c, g=tp_fn.eager: g(up, un, dataclasses.replace(c, use_pallas=False),
+                                          mesh3)), r)
     # DIS TP at 4K beside its unsharded runs
     for label, c, mesh, shards in (("DISConfig(levels=4)", dis4, mesh3, 3),
                                    ("DISConfig()", of.DISConfig(), mesh1, 1)):
@@ -2869,7 +3099,7 @@ def main() -> int:
             (lambda c=c: of.pyramidal_dis(up, un, dataclasses.replace(c, use_pallas=False))), r)
         paths[f"spatial_pyramidal_dis {label} {uh}x{uw} {shards} shard{'s' * (shards > 1)}"] = (
             (lambda c=c, m=mesh: parallel.spatial_pyramidal_dis(up, un, c, m)),
-            (lambda c=c, m=mesh: parallel.spatial_pyramidal_dis(
+            (lambda c=c, m=mesh: parallel.spatial_pyramidal_dis.eager(
                 up, un, dataclasses.replace(c, use_pallas=False), m)), r)
     # a warm FB serving state: the step times one tracked pair with the check
     fb_state = of.init_state(cuda(frames[0]), fb_serve, recovery)

@@ -19,13 +19,14 @@ stream, replays the graph and returns clones of the static outputs (as
 replay overwrites.  Each entry keeps at most ``CACHE_SIZE`` graphs, the least
 recently used dropped first, since each graph holds its pool.
 
-``fn`` runs eagerly, with nothing captured, in two cases only: on CPU
+``fn`` runs eagerly, with nothing captured, in two cases: on CPU
 tensors (the kernels' plain versions, as every entry of the port runs
 there), and when autograd records and an input requires grad (a replay
 records no autograd graph, while ``jax.jit`` is transparent to
-``jax.grad``; the kernels refuse such inputs as before).  A capture or a
-replay that fails raises with its key and the CUDA error; nothing falls
-back to the eager body.
+``jax.grad``; the kernels refuse such inputs as before).  An entry may add
+its own rule through ``prepare`` (the spatial-TP entries run eagerly on a
+mesh over several cards).  A capture or a replay that fails raises with
+its key and the CUDA error; nothing falls back to the eager body.
 
 A replay runs no Python, so the kernels' launch counters (the ``launches*``
 attributes of the wrappers in ``kernels/``) would stand still.  A capture
@@ -186,7 +187,11 @@ class Graph:
     (buffers of another graph that replays first).  ``name`` and ``key``
     go into every error.  ``outputs`` are the static outputs, ``delta`` the
     counters' change over the captured call, ``seconds`` the warm-up and
-    capture time, ``replays`` the replays so far."""
+    capture time, ``replays`` the replays so far.
+
+    The CUDA work is in three methods (:meth:`_warm_up`, :meth:`_capture`,
+    :meth:`_launch`); the bookkeeping around them (buffers, counters,
+    errors) is this class's on any device."""
 
     def __init__(self, body: Callable, inputs, device: torch.device, name: str, key,
                  copy: bool = True):
@@ -197,41 +202,54 @@ class Graph:
         before = snapshot()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.device(device), torch.no_grad():
-                side = torch.cuda.Stream(device)
-                side.wait_stream(torch.cuda.current_stream(device))
-                with torch.cuda.stream(side):
-                    for _ in range(WARMUP):
-                        body(*self.inputs)
-                torch.cuda.current_stream(device).wait_stream(side)
+            with torch.no_grad():
+                self._warm_up(body)
                 start = snapshot()
-                self.graph = torch.cuda.CUDAGraph()
                 try:
-                    with torch.cuda.graph(self.graph):
-                        self.outputs = body(*self.inputs)
+                    self.outputs = self._capture(body)
                 except Exception as exc:
                     raise RuntimeError(f"capture of {name} failed for key {key}: {exc}") from exc
-                self.delta = delta(start, snapshot())
+            self.delta = delta(start, snapshot())
         finally:
             restore(before)
         self.seconds = time.perf_counter() - t0
         self.replays = 0
         _captured += 1
 
+    def _warm_up(self, body: Callable) -> None:
+        """``WARMUP`` eager runs of the body on a side stream (the kernels
+        build, the allocator settles, outside any capture)."""
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP):
+                    body(*self.inputs)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+
+    def _capture(self, body: Callable) -> Any:
+        """Capture the body into ``self.graph``; returns its static outputs."""
+        with torch.cuda.device(self.device):
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                return body(*self.inputs)
+
+    def _launch(self) -> None:
+        """Replay the graph on the current stream."""
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+
     def replay(self, inputs=None) -> Any:
         """Copy ``inputs``, when given, into the static input buffers, replay
         on the current stream and count its launches; returns the static
         outputs, which the next replay overwrites."""
-        with torch.cuda.device(self.device):
-            if inputs is not None:
-                for dst, src in zip(self.inputs, inputs, strict=True):
-                    dst.copy_(src)
-            try:
-                self.graph.replay()
-            except Exception as exc:
-                raise RuntimeError(
-                    f"replay of {self.name} failed for key {self.key}: {exc}"
-                ) from exc
+        if inputs is not None:
+            for dst, src in zip(self.inputs, inputs, strict=True):
+                dst.copy_(src)
+        try:
+            self._launch()
+        except Exception as exc:
+            raise RuntimeError(f"replay of {self.name} failed for key {self.key}: {exc}") from exc
         add_counts(self.delta)
         self.replays += 1
         return self.outputs
@@ -271,10 +289,16 @@ def graphs_captured() -> int:
     return _captured
 
 
-def captured(fn: Callable) -> Callable:
+def captured(fn: Callable, prepare: Callable | None = None) -> Callable:
     """``fn`` as a captured entry (module docstring).  The wrapper keeps
     ``fn`` as ``.eager``, its cache as ``.cache`` and the key of a call as
-    ``.key(*args, **kwargs)``."""
+    ``.key(*args, **kwargs)``.
+
+    ``prepare``, when given, runs on every call before the key, outside any
+    graph, with the call's arguments: it returns the ``(args, kwargs)`` to
+    key and run on (e.g. frames moved to the card the graph runs on, which
+    a capture cannot do from pageable host memory, or arrays made tensors),
+    or None for a call that runs ``fn`` eagerly on its own arguments."""
     signature = inspect.signature(fn)
     cache = GraphCache()
 
@@ -285,6 +309,11 @@ def captured(fn: Callable) -> Callable:
 
     @functools.wraps(fn)
     def call(*args, **kwargs):
+        if prepare is not None:
+            prepared = prepare(*args, **kwargs)
+            if prepared is None:
+                return fn(*args, **kwargs)
+            args, kwargs = prepared
         spec, tensors = key(*args, **kwargs)
         if runs_eagerly(tensors):
             return fn(*args, **kwargs)

@@ -8,7 +8,8 @@ ms per call (the JAX tool's ``ms_per_frame``: one frame pair, or config
 ``utils/profiling.py``) and the mean end-point error against the synthetic
 translation.  Configs 1-4 time the family's captured entry
 (``pyramidal_<family>_jit``), as the JAX tool times a jitted call; config 5,
-the batch over the mesh, runs eagerly.
+the batch over the mesh, times ``parallel.sharded_flow``, whose shards
+replay that entry on their devices.
 
     of2-torch-benchmark --configs 1 4 --iters 20
     of2-torch-benchmark --configs 4 --model tvl1 --device cpu
@@ -26,11 +27,11 @@ import torch
 
 import cuda_optical_flow_2_torch as of
 from cuda_optical_flow_2_torch.cli import add_device_argument, device_from_flag
-from cuda_optical_flow_2_torch.models import dis, farneback, horn_schunck, lucas_kanade, tvl1
+from cuda_optical_flow_2_torch.models import _jit_entry
 from cuda_optical_flow_2_torch.utils import io as uio
 from cuda_optical_flow_2_torch.utils.profiling import device_time
 
-__all__ = ["main", "CONFIGS", "JIT_ENTRIES"]
+__all__ = ["main", "CONFIGS"]
 
 # BASELINE.json "configs" (1-based), scaled to concrete shapes.
 CONFIGS = {
@@ -62,16 +63,6 @@ CONFIGS = {
 }
 
 
-# The captured entry of each family, by config type.
-JIT_ENTRIES = {
-    of.LKConfig: lucas_kanade.pyramidal_lk_jit,
-    of.HSConfig: horn_schunck.pyramidal_hs_jit,
-    of.FBConfig: farneback.pyramidal_farneback_jit,
-    of.TVL1Config: tvl1.pyramidal_tvl1_jit,
-    of.DISConfig: dis.pyramidal_dis_jit,
-}
-
-
 def batch_mesh(device: torch.device):
     """The mesh of config 5: every CUDA device, or the one CPU device."""
     if device.type == "cuda":
@@ -88,7 +79,7 @@ def config_call(spec: dict, device: torch.device) -> tuple[Callable, tuple, int]
     prev = torch.as_tensor(frames[0].astype(np.float32), device=device)
     nxt = torch.as_tensor(frames[1].astype(np.float32), device=device)
     if not spec.get("batch"):
-        entry = JIT_ENTRIES[type(cfg)]
+        entry = _jit_entry(cfg)
         return (lambda p, n: entry(p, n, cfg)), (prev, nxt), 1
     mesh = batch_mesh(device)
     n_dev = mesh.shape["batch"]
@@ -155,6 +146,9 @@ def main(argv=None) -> None:
         if args.model != "lk":
             spec["name"] = f'{spec["name"]} [{args.model}]'
         print(json.dumps(_run_config(idx, spec, args.iters, device)), flush=True)
+        # each config runs once: its graphs' pools go back to the allocator
+        # (config 5 captures a 64-pair batch)
+        _jit_entry(spec["cfg"]).cache.clear()
 
 
 if __name__ == "__main__":

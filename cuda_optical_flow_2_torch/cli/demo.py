@@ -29,7 +29,8 @@ import torch
 import cuda_optical_flow_2_torch as of
 from cuda_optical_flow_2_torch.cli import add_device_argument, device_from_flag
 from cuda_optical_flow_2_torch.constants import DT_3X3_N, DX_3X3, DY_3X3
-from cuda_optical_flow_2_torch.models import streaming
+from cuda_optical_flow_2_torch.capture import captured
+from cuda_optical_flow_2_torch.models import _jit_entry, streaming, tracking
 from cuda_optical_flow_2_torch.ops.color import grayscale
 from cuda_optical_flow_2_torch.ops.conv import conv2d
 from cuda_optical_flow_2_torch.ops.pyramid import build_pyramid
@@ -37,6 +38,10 @@ from cuda_optical_flow_2_torch.ops.resize import upscale_nn
 from cuda_optical_flow_2_torch.utils import io, native, viz
 
 __all__ = ["main"]
+
+# The render as a captured entry: one graph per flow shape and max_flow,
+# shared by every run in the process (the JAX demo jits it, max_flow static).
+_render = captured(viz.flow_to_color_device)
 
 
 def _load_frames(args) -> np.ndarray:
@@ -71,7 +76,7 @@ def _dump_gradients(
     """showTest twin (main.cu:19-92): per-level Ix/Iy/It maps, binarized and
     upscaled to full resolution."""
     both = torch.as_tensor(np.stack([frame, prev_frame]).astype(np.float32), device=device)
-    pyr2 = build_pyramid(both, levels, use_pallas)
+    pyr2 = build_pyramid(both, levels, use_pallas=use_pallas)
     pyr = [lvl[0] for lvl in pyr2]
     prev_pyr = [lvl[1] for lvl in pyr2]
     for k, (lvl, plvl) in enumerate(zip(pyr, prev_pyr)):
@@ -301,6 +306,9 @@ def main(argv=None) -> None:
         )
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+    # the backward flow of the occlusion masks: the family's captured entry,
+    # a replay per frame shape (the JAX demo jits it once, config static)
+    backward_flow = _jit_entry(cfg)
 
     def on_device(frame: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(frame.astype(np.float32), device=device)
@@ -312,11 +320,11 @@ def main(argv=None) -> None:
 
         track_hist = deque(maxlen=24)  # bounded trail on unbounded streams
 
-    # Flow-color rendering runs on the device (viz.flow_to_color_device):
-    # the host fetches 3 B/px of uint8 RGB instead of running the colorize
-    # in the frame loop.
+    # Flow-color rendering runs on the device (viz.flow_to_color_device,
+    # captured: a replay per flow shape and max_flow): the host fetches 3
+    # B/px of uint8 RGB instead of running the colorize in the frame loop.
     def render(fl: torch.Tensor) -> np.ndarray:
-        return viz.flow_to_color_device(fl, args.viz_max_flow).cpu().numpy()
+        return _render(fl, args.viz_max_flow).cpu().numpy()
 
     vx, vy = args.velocity
     t0 = time.perf_counter()
@@ -360,7 +368,7 @@ def main(argv=None) -> None:
                     viz.draw_flow_arrows(cur.astype(np.uint8), flow_np, args.arrow_res),
                 )
                 if args.occlusion:
-                    bw = of.pyramidal_flow(on_device(cur), on_device(prv), cfg)
+                    bw = backward_flow(on_device(cur), on_device(prv), cfg)
                     occ = of.occlusion_mask(flow, bw, use_pallas=cfg.use_pallas)
                     occ = occ.cpu().numpy()
                     viz.write_png(
@@ -384,7 +392,7 @@ def main(argv=None) -> None:
                             -1,
                         )
                     )
-                track_pts, track_alive = of.advect_points(flow, track_pts, track_alive)
+                track_pts, track_alive = tracking._advect_jit(flow, track_pts, track_alive)
                 track_hist.append(track_pts.cpu().numpy())
                 if args.out:
                     cur = frames[i] if frames is not None else recent[i]

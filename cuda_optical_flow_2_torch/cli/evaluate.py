@@ -5,6 +5,9 @@ flags, records and summary, with ``--device`` (default ``cuda``).  Point it
 at a directory of frame pairs with Middlebury ``.flo`` ground truth and it
 reports per-pair and aggregate EPE / angular error / KITTI Fl outlier rate
 for the chosen model family, through the production pipeline on the device.
+Each pair's device work (the flow, and with ``--fill-occlusions`` the
+consistency check and the fill) is one captured entry, a replay of a CUDA
+graph per frame shape on the card, as the JAX tool jits its step.
 
 Four directory layouts are recognized:
 
@@ -57,6 +60,7 @@ survives content cuts (models.streaming.RecoveryConfig).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 
@@ -511,6 +515,27 @@ def _run_chains(
     return records
 
 
+def _step(p, n, cfg, fill: bool):
+    """The device part of one pair's flow: the family's flow, or with
+    ``fill`` ``consistent_flow``'s occlusion-filled forward flow (the JAX
+    tool's jitted ``_step``)."""
+    from cuda_optical_flow_2_torch.models import consistent_flow, pyramidal_flow
+
+    if fill:
+        return consistent_flow(p, n, cfg, fill=True)[0]
+    return pyramidal_flow(p, n, cfg)
+
+
+@functools.cache
+def _step_jit():
+    """:func:`_step` as a captured entry (one graph per frame shape, config
+    and ``fill``), made at first use and shared by every run in the
+    process."""
+    from cuda_optical_flow_2_torch.capture import captured
+
+    return captured(_step)
+
+
 def main(argv=None) -> None:
     from cuda_optical_flow_2_torch.cli import add_device_argument, device_from_flag
 
@@ -681,16 +706,14 @@ def main(argv=None) -> None:
     # frame shapes the pipeline ran at (the JAX tool compiles once per
     # shape), so with --bucket it is the number of buckets.
     shapes: set = set()
+    step = _step_jit()
 
     def flow_fn(p: np.ndarray, n: np.ndarray) -> np.ndarray:
         shapes.add(p.shape)
         p = torch.as_tensor(p, device=device)
         n = torch.as_tensor(n, device=device)
-        if args.fill_occlusions:
-            flow, _ = of.consistent_flow(p, n, cfg, fill=True)
-        else:
-            flow = of.pyramidal_flow(p, n, cfg)
-        return flow.cpu().numpy()
+        # on CUDA a replay; the host copy stays outside the graph
+        return step(p, n, cfg, args.fill_occlusions).cpu().numpy()
 
     layout, pairs = _discover(args.dataset, sintel_pass=args.sintel_pass)
     recovery = None

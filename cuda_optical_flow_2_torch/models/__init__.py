@@ -15,15 +15,25 @@ from cuda_optical_flow_2_torch.models.consistency import (
     fb_consistency,
     occlusion_mask,
 )
-from cuda_optical_flow_2_torch.models.dis import DIS_REALTIME, DISConfig, pyramidal_dis
-from cuda_optical_flow_2_torch.models.farneback import FBConfig, pyramidal_farneback
-from cuda_optical_flow_2_torch.models.horn_schunck import HSConfig, pyramidal_hs
+from cuda_optical_flow_2_torch.models.dis import (
+    DIS_REALTIME,
+    DISConfig,
+    pyramidal_dis,
+    pyramidal_dis_jit,
+)
+from cuda_optical_flow_2_torch.models.farneback import (
+    FBConfig,
+    pyramidal_farneback,
+    pyramidal_farneback_jit,
+)
+from cuda_optical_flow_2_torch.models.horn_schunck import HSConfig, pyramidal_hs, pyramidal_hs_jit
 from cuda_optical_flow_2_torch.models.lucas_kanade import (
     coarse_to_fine,
     compose_flow_pyramid,
     lk_level,
     preprocess,
     pyramidal_lk,
+    pyramidal_lk_jit,
     pyramidal_lk_pyramid,
 )
 from cuda_optical_flow_2_torch.models.streaming import (
@@ -39,7 +49,12 @@ from cuda_optical_flow_2_torch.models.tracking import (
     track_points,
     track_sequence,
 )
-from cuda_optical_flow_2_torch.models.tvl1 import TVL1_REALTIME, TVL1Config, pyramidal_tvl1
+from cuda_optical_flow_2_torch.models.tvl1 import (
+    TVL1_REALTIME,
+    TVL1Config,
+    pyramidal_tvl1,
+    pyramidal_tvl1_jit,
+)
 
 __all__ = [
     "pyramidal_flow",
@@ -92,4 +107,21 @@ def pyramidal_flow(prev, nxt, config):
         return pyramidal_dis(prev, nxt, config)
     if isinstance(config, LKConfig):
         return pyramidal_lk(prev, nxt, config)
+    raise not_ported(config)
+
+
+def _jit_entry(config):
+    """The captured entry of the config's family (``pyramidal_<family>_jit``),
+    dispatched as :func:`pyramidal_flow` dispatches.  Private: the JAX
+    package has no public ``pyramidal_flow_jit`` either."""
+    if isinstance(config, HSConfig):
+        return pyramidal_hs_jit
+    if isinstance(config, FBConfig):
+        return pyramidal_farneback_jit
+    if isinstance(config, TVL1Config):
+        return pyramidal_tvl1_jit
+    if isinstance(config, DISConfig):
+        return pyramidal_dis_jit
+    if isinstance(config, LKConfig):
+        return pyramidal_lk_jit
     raise not_ported(config)

@@ -131,7 +131,7 @@ def preprocess(frame: torch.Tensor, config: LKConfig) -> list[torch.Tensor]:
             )
         else:
             frame = bilateral_filter(frame, None, pf.window, pf.sigma_spatial, pf.sigma_range)
-    return build_pyramid(frame, config.levels, config.use_pallas)
+    return build_pyramid(frame, config.levels, use_pallas=config.use_pallas)
 
 
 def coarse_to_fine(

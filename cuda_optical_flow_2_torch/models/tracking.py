@@ -9,12 +9,21 @@ Conventions: points are (N, 2) float ``(x, y)`` pixel coordinates;
 ``flow[..., 0]`` is the x-displacement and ``flow[..., 1]`` the y one, and a
 pair's flow maps prev(x) = next(x + d), so a point at ``p`` in the previous
 frame is at ``p + flow(p)`` in the next.  Points live on the frames' device.
+
+As the JAX package jits ``track_sequence`` (its scan, with ``config`` and
+``warm_start`` static) and the advection (``_advect_jit``), here both are
+captured entries (``capture.captured``): on CUDA tensors
+:func:`track_sequence` replays one graph over the whole clip per frames
+shape, points shape, config and ``warm_start``, and ``_advect_jit`` one per
+shape, which :func:`track_points` and the demo call.  The eager bodies stay
+as ``.eager``; on CPU tensors both run eagerly.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cuda_optical_flow_2_torch.capture import captured
 from cuda_optical_flow_2_torch.models.lucas_kanade import _validate
 from cuda_optical_flow_2_torch.models.streaming import (
     _as_frame,
@@ -86,6 +95,11 @@ def advect_points(
     return out, alive & inside
 
 
+# One stream's advection graph serves every later stream of the same shapes,
+# as the JAX package's module-level jit does.
+_advect_jit = captured(advect_points)
+
+
 def _points(points, device: torch.device | None = None) -> torch.Tensor:
     pts = torch.as_tensor(points, dtype=torch.float32, device=device)
     if pts.ndim != 2 or pts.shape[-1] != 2:
@@ -111,7 +125,8 @@ def track_sequence(
     ``device`` (``models.streaming.resolve_device``: the card unless
     ``"cpu"``); the points follow the frames.
 
-    For unbounded or iterable sources use :func:`track_points`.
+    For unbounded or iterable sources use :func:`track_points`.  On CUDA
+    tensors a replay of one graph over the clip (module docstring).
     """
     _require_ported(config)
     frames = _as_frame(frames, device).to(torch.float32)
@@ -139,6 +154,21 @@ def track_sequence(
     return torch.stack(positions), torch.stack(alives)
 
 
+def _track_inputs(frames, points, config, warm_start: bool = True,
+                  device: torch.device | str | None = None):
+    """The captured ``track_sequence``'s ``prepare``: the frames and points
+    as float32 tensors on the frames' device, made outside the graph; a
+    clip of fewer than two frames runs eagerly (nothing to capture)."""
+    _require_ported(config)
+    frames = _as_frame(frames, device).to(torch.float32)
+    if frames.shape[0] < 2:
+        return None
+    return (frames, _points(points, frames.device), config, warm_start), {}
+
+
+track_sequence = captured(track_sequence, _track_inputs)
+
+
 def track_points(
     frames, points, config, warm_start: bool = True, device: torch.device | str | None = None
 ):
@@ -147,7 +177,8 @@ def track_points(
 
     Rides :func:`models.streaming.process_sequence` (``device`` as there), so
     a ``None`` frame (a decode failure) is skipped and the next good frame
-    pairs across the gap: the trajectory stays continuous.
+    pairs across the gap: the trajectory stays continuous.  Each step's
+    advection is the captured ``_advect_jit``.
     """
     pts = _points(points)
     alive = None
@@ -155,5 +186,5 @@ def track_points(
         if alive is None:
             pts = pts.to(flow.device)
             alive = torch.ones(pts.shape[:-1], dtype=torch.bool, device=flow.device)
-        pts, alive = advect_points(flow, pts, alive)
+        pts, alive = _advect_jit(flow, pts, alive)
         yield i, pts, alive

@@ -19,23 +19,37 @@ import torch.nn.functional as F
 __all__ = ["conv2d", "sep_conv2d", "stencil2d"]
 
 
-def _float_dtype(x: torch.Tensor) -> torch.dtype:
+def _float_dtype(x: torch.Tensor, dtype=None) -> torch.dtype:
+    """``dtype``, else ``x``'s floating dtype, else float32."""
+    if dtype is not None:
+        return dtype
     return x.dtype if x.is_floating_point() else torch.float32
 
 
-def conv2d(x: torch.Tensor, mask) -> torch.Tensor:
-    """Zero-padded 2-D correlation of ``x`` (..., H, W) with a (kh, kw) mask."""
+def _taps(values, dtype: torch.dtype) -> list[float]:
+    """The mask's taps as ``dtype`` rounds them (the JAX package builds its
+    kernel in the accumulation dtype), as Python floats."""
+    return torch.as_tensor(np.asarray(values, np.float64), dtype=dtype).tolist()
+
+
+def conv2d(x: torch.Tensor, mask, *, dtype=None) -> torch.Tensor:
+    """Zero-padded 2-D correlation of ``x`` (..., H, W) with a (kh, kw) mask.
+
+    ``dtype`` is the accumulation and output dtype (default: ``x``'s
+    floating dtype, else float32); the taps are rounded to it."""
     mask = np.asarray(mask)
     if mask.ndim != 2:
         raise ValueError(f"mask must be 2-D, got shape {mask.shape}")
-    x = x.to(_float_dtype(x))
+    dtype = _float_dtype(x, dtype)
+    x = x.to(dtype)
+    taps = _taps(mask, dtype)
     kh, kw = mask.shape
     h, w = x.shape[-2:]
     xp = F.pad(x, (kw // 2, (kw - 1) // 2, kh // 2, (kh - 1) // 2))
     out = torch.zeros_like(x)
     for i in range(kh):
         for j in range(kw):
-            tap = float(mask[i, j])
+            tap = taps[i][j]
             if tap != 0.0:
                 out = out + tap * xp[..., i : i + h, j : j + w]
     return out
@@ -46,27 +60,26 @@ def stencil2d(x: torch.Tensor, mask, *, dtype=None) -> torch.Tensor:
     correlation, a sum of shifted slices that skips zero taps, in row-major
     tap order.  Here :func:`conv2d` already has that form.  ``dtype`` (default:
     ``x``'s floating dtype, else float32) is the dtype of the sum."""
-    return conv2d(x if dtype is None else x.to(dtype), mask)
+    return conv2d(x, mask, dtype=dtype)
 
 
-def _correlate1d(x: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
+def _correlate1d(x: torch.Tensor, taps: list[float], axis: int) -> torch.Tensor:
     """Zero-padded 1-D correlation along ``axis`` (-2 rows, -1 columns)."""
-    k = taps.size
+    k = len(taps)
     n = x.shape[axis]
     pad = (k // 2, (k - 1) // 2)
     xp = F.pad(x, pad if axis == -1 else (0, 0) + pad)
     out = torch.zeros_like(x)
-    for j in range(k):
-        tap = float(taps[j])
+    for j, tap in enumerate(taps):
         if tap != 0.0:
             out = out + tap * xp.narrow(axis, j, n)
     return out
 
 
-def sep_conv2d(x: torch.Tensor, col, row) -> torch.Tensor:
+def sep_conv2d(x: torch.Tensor, col, row, *, dtype=None) -> torch.Tensor:
     """Separable zero-padded correlation with the rank-1 mask col (x) row:
-    a column pass, then a row pass."""
-    col = np.asarray(col, np.float32).reshape(-1)
-    row = np.asarray(row, np.float32).reshape(-1)
-    x = x.to(_float_dtype(x))
-    return _correlate1d(_correlate1d(x, col, -2), row, -1)
+    a column pass, then a row pass, in ``dtype`` as :func:`conv2d`."""
+    dtype = _float_dtype(x, dtype)
+    col = _taps(np.asarray(col).reshape(-1), dtype)
+    row = _taps(np.asarray(row).reshape(-1), dtype)
+    return _correlate1d(_correlate1d(x.to(dtype), col, -2), row, -1)

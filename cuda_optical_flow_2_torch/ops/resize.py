@@ -67,7 +67,8 @@ def downsample_flow(
             raise ValueError(f"{shape} is not a floor-halving of {tuple(flow.shape[-3:-1])}")
         h, w = h // 2, w // 2
         flow = torch.stack(
-            [pyr_down(flow[..., 0], use_pallas), pyr_down(flow[..., 1], use_pallas)], dim=-1
+            [pyr_down(flow[..., 0], use_pallas=use_pallas),
+             pyr_down(flow[..., 1], use_pallas=use_pallas)], dim=-1
         ) * 0.5
     return flow
 

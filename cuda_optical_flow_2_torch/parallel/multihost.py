@@ -141,7 +141,9 @@ def sharded_flow_from_local(
     :func:`host_local_batch` slice) and gets their (B_local, H, W, 2) flow,
     computed on its block of the mesh's batch axis: the part of the global
     flow that the JAX package lets a process address.  Arrays are taken as
-    float32 tensors; tensors keep their device until they are sharded.
+    float32 tensors; tensors keep their device until they are sharded.  On
+    CUDA each shard replays its family's captured entry, as in
+    ``sharded_flow``; no collective lies on the flow's path.
     """
     world, rank = _process()
     devs = mesh.axis_devices(batch_axis)

@@ -12,6 +12,19 @@ moves with ``.to(device)`` (nothing moves between blocks on one device).
 Use it for frames too large for one card or to cut one pair's latency; for
 throughput over many pairs prefer batch sharding (``parallel/batching.py``).
 
+Captured entries: the JAX package jits each TP entry, so here each public
+entry replays a CUDA graph (``capture.captured``) keyed on the config, the
+mesh (by value), the axis names, the tiles and the frames' shapes, with
+its eager body as ``.eager``.  The frames go to the space axis's device
+before the graph, as JAX's ``in_shardings`` place them: a capture cannot
+copy from pageable host memory, and inside the graph each block's ``.to``
+is then a no-op.  Only a space axis that lists ONE device is captured (a
+mesh over one card, several times or once); a space axis over several
+cards runs the eager body, since its halo exchanges are copies between
+cards that one graph on one card cannot hold.  The grid entries capture per
+batch group: each group is one TP call on its own space devices.  On CPU
+tensors every entry runs its eager body.
+
 Exactness: away from the global top and bottom edges the sharded result is
 the unsharded computation (same zero-padded stencils, same warp fallback),
 float for float up to summation order.  The one semantic difference, as in
@@ -31,11 +44,13 @@ twin) runs.
 
 from __future__ import annotations
 
+import inspect
 import math
-from collections.abc import Callable
+from collections.abc import Callable, Sequence
 
 import torch
 
+from cuda_optical_flow_2_torch.capture import captured
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.kernels import bilateral_tap, lk_fused, lk_step_fused
 from cuda_optical_flow_2_torch.ops.bilateral import bilateral_filter_band
@@ -47,6 +62,7 @@ from cuda_optical_flow_2_torch.parallel.batching import Mesh
 
 __all__ = [
     "halo_exchange",
+    "one_device",
     "spatial_pyramidal_lk",
     "grid_pyramidal_lk",
     "validate_spatial",
@@ -145,7 +161,9 @@ def _local_pyr_down(blocks: Blocks, use_pallas: bool) -> Blocks:
     zero padding.  It is the same function as the whole-image step, so CUDA
     blocks take the ``pyr_down`` kernel with ``use_pallas``.
     """
-    return [pyr_down(xp, use_pallas)[..., 1:, :] for xp in halo_exchange(blocks, 2, 0)]
+    return [
+        pyr_down(xp, use_pallas=use_pallas)[..., 1:, :] for xp in halo_exchange(blocks, 2, 0)
+    ]
 
 
 def _local_upsample2x_flow(flow: Blocks) -> Blocks:
@@ -373,6 +391,40 @@ def _run_sharded(
     return torch.cat([f.to(devices[0]) for f in flow], dim=-3)
 
 
+def one_device(devices: Sequence[torch.device]) -> torch.device | None:
+    """The device that every entry of ``devices`` names, or None when they
+    name more than one: the rule for a TP entry's capture (module
+    docstring).  Devices compare as ``torch.device`` does, so ``cuda`` and
+    ``cuda:0`` count as two."""
+    first = devices[0]
+    return first if all(d == first for d in devices) else None
+
+
+def _captured_tp(fn: Callable) -> Callable:
+    """A TP entry ``fn`` (frames, ``config``, ``mesh``, ``axis_name``, ...) as
+    a captured entry whose frames are placed on the space axis's one device
+    first, or that runs eagerly when the axis lists several (module
+    docstring)."""
+    signature = inspect.signature(fn)
+
+    def prepare(*args, **kwargs):
+        bound = signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        mesh, axis = bound.arguments["mesh"], bound.arguments["axis_name"]
+        if axis not in mesh.axis_names:
+            return None  # the eager body raises as it always has
+        device = one_device(mesh.axis_devices(axis))
+        if device is None:
+            return None
+        for name, value in bound.arguments.items():
+            if isinstance(value, torch.Tensor):
+                bound.arguments[name] = value.to(device)
+        return bound.args, bound.kwargs
+
+    return captured(fn, prepare)
+
+
+@_captured_tp
 def spatial_pyramidal_lk(
     prev: torch.Tensor,
     nxt: torch.Tensor,
@@ -381,6 +433,8 @@ def spatial_pyramidal_lk(
     axis_name: str = "space",
 ) -> torch.Tensor:
     """Dense flow for ONE frame pair row-sharded over ``mesh``.
+
+    A captured entry when the space axis lists one card (module docstring).
 
     Args:
       prev / nxt: (H, W) planar grayscale, H divisible by
@@ -398,11 +452,12 @@ def spatial_pyramidal_lk(
 
 def _grid(
     prev_batch: torch.Tensor, nxt_batch: torch.Tensor, mesh: Mesh, batch_axis: str,
-    space_axis: str, local: Callable,
+    space_axis: str, tp: Callable,
 ) -> torch.Tensor:
     """Batch groups over ``batch_axis``, each group's rows over the
-    ``space_axis`` devices at that batch index; (B, H, W, 2) flow on the
-    mesh's first device."""
+    ``space_axis`` devices at that batch index through ``tp(prev, nxt,
+    space_mesh)`` (a TP entry on a 1-D ``"space"`` mesh of those devices);
+    (B, H, W, 2) flow on the mesh's first device."""
     b = prev_batch.shape[-3]
     nb = mesh.shape[batch_axis]
     if b % nb != 0:
@@ -413,7 +468,7 @@ def _grid(
     groups = zip(prev_batch.chunk(nb, dim=-3), nxt_batch.chunk(nb, dim=-3), grid)
     first = grid[0][0]
     return torch.cat(
-        [_run_sharded(p, q, list(devs), local).to(first) for p, q, devs in groups], dim=-4
+        [tp(p, q, Mesh(list(devs), ("space",))).to(first) for p, q, devs in groups], dim=-4
     )
 
 
@@ -428,16 +483,36 @@ def grid_pyramidal_lk(
     """Combined DP x TP: a frame-pair batch over a 2-D mesh.
 
     The batch axis is data-parallel (no communication) and each pair's rows
-    are sharded over the space axis with halo exchange.
+    are sharded over the space axis with halo exchange: each batch group is
+    one :func:`spatial_pyramidal_lk` call, a replay where the group's space
+    devices are one card (``.eager`` runs every group eagerly).
 
     Args:
       prev_batch / nxt_batch: (B, H, W), B divisible by the batch axis size,
         H by space-size * 2^(levels-1).
     Returns: (B, H, W, 2) flow on the mesh's first device.
     """
+    return _grid_lk(False, prev_batch, nxt_batch, config, mesh, batch_axis, space_axis)
+
+
+def _grid_lk(eager: bool, prev_batch, nxt_batch, config, mesh, batch_axis, space_axis):
     h, w = prev_batch.shape[-2:]
     validate_spatial(h, w, config, mesh.shape[space_axis])
-    return _grid(
-        prev_batch, nxt_batch, mesh, batch_axis, space_axis,
-        lambda p, q: _local_pipeline(p, q, config, h),
-    )
+    tp = spatial_pyramidal_lk.eager if eager else spatial_pyramidal_lk
+    return _grid(prev_batch, nxt_batch, mesh, batch_axis, space_axis,
+                 lambda p, q, space: tp(p, q, config, space))
+
+
+def _grid_pyramidal_lk_eager(
+    prev_batch: torch.Tensor,
+    nxt_batch: torch.Tensor,
+    config: LKConfig,
+    mesh: Mesh,
+    batch_axis: str = "batch",
+    space_axis: str = "space",
+) -> torch.Tensor:
+    """:func:`grid_pyramidal_lk` with every group's TP call eager."""
+    return _grid_lk(True, prev_batch, nxt_batch, config, mesh, batch_axis, space_axis)
+
+
+grid_pyramidal_lk.eager = _grid_pyramidal_lk_eager

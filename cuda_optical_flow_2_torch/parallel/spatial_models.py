@@ -26,6 +26,10 @@ Counterpart of ``cuda_optical_flow_2_tpu.parallel.spatial_models``:
   exchange (with ``use_pallas`` one ``hs_relax_band`` call with
   ``it_offset`` per chunk).  Levels below ``finest_level`` are 2x upsamples.
 
+Each family's TP entry is a captured entry, as ``spatial_pyramidal_lk`` is
+(``parallel/spatial.py``'s docstring: one graph per key where the space
+axis lists one card, else the eager body, which stays as ``.eager``).
+
 With ``use_pallas`` every coarse-to-fine warp outside the fused FB step is
 one call of ``kernels.warp_select.warp_bilinear_select_band``; without it
 the plain composition (the JAX package's XLA twin) runs.
@@ -66,14 +70,15 @@ from cuda_optical_flow_2_torch.ops.window import window_sum
 from cuda_optical_flow_2_torch.parallel.batching import Mesh
 from cuda_optical_flow_2_torch.parallel.spatial import (
     Blocks,
+    _captured_tp,
     _crop_rows,
     _grid,
     _local_family_pipeline,
     _local_lk_level,
-    _local_pipeline,
     _row0s,
     _run_sharded,
     halo_exchange,
+    spatial_pyramidal_lk,
     validate_prefilter_shards,
     validate_spatial,
 )
@@ -248,6 +253,7 @@ def _local_hs_level(
     return [f + r for f, r in zip(flow, relaxed)]
 
 
+@_captured_tp
 def spatial_pyramidal_hs(
     prev: torch.Tensor,
     nxt: torch.Tensor,
@@ -420,6 +426,7 @@ def validate_spatial_fb(h: int, w: int, config: FBConfig, n: int) -> None:
             )
 
 
+@_captured_tp
 def spatial_pyramidal_fb(
     prev: torch.Tensor,
     nxt: torch.Tensor,
@@ -543,6 +550,7 @@ def validate_spatial_tvl1(h: int, w: int, config: TVL1Config, n: int,
             )
 
 
+@_captured_tp
 def spatial_pyramidal_tvl1(
     prev: torch.Tensor,
     nxt: torch.Tensor,
@@ -708,6 +716,7 @@ def validate_spatial_dis(h: int, w: int, config: DISConfig, n: int, sweep_tile: 
             )
 
 
+@_captured_tp
 def spatial_pyramidal_dis(
     prev: torch.Tensor,
     nxt: torch.Tensor,
@@ -734,8 +743,8 @@ def spatial_pyramidal_dis(
 
 
 def _family_local(config, h: int, sweep_tile: int, iter_tile: int):
-    """The shard-local pipeline function for a config's model family: the
-    single dispatch point behind every spatial entry."""
+    """The shard-local pipeline function of an HS, FB, TV-L1 or DIS config
+    (LK's is ``spatial._local_pipeline``)."""
     if isinstance(config, HSConfig):
         def level_fn(p: Blocks, q: Blocks, flow: Blocks | None, h_level: int) -> Blocks:
             return _local_hs_level(p, q, flow, config, h_level, sweep_tile)
@@ -748,8 +757,6 @@ def _family_local(config, h: int, sweep_tile: int, iter_tile: int):
     elif isinstance(config, DISConfig):
         def level_fn(p: Blocks, q: Blocks, flow: Blocks | None, h_level: int) -> Blocks:
             return _local_dis_level(p, q, flow, config, h_level, sweep_tile)
-    elif isinstance(config, LKConfig):
-        return lambda p, q: _local_pipeline(p, q, config, h)
     else:
         raise not_ported(config)
     finest = getattr(config, "finest_level", 0)
@@ -770,7 +777,22 @@ def validate_spatial_flow(h: int, w: int, config, n: int, sweep_tile: int = 8,
     elif isinstance(config, LKConfig):
         validate_spatial(h, w, config, n)
     else:
-        _family_local(config, h, sweep_tile, iter_tile)  # raises for the rest
+        raise not_ported(config)
+
+
+def _tp_entry(config, sweep_tile: int, iter_tile: int):
+    """(the config family's captured TP entry, its tile keywords)."""
+    if isinstance(config, HSConfig):
+        return spatial_pyramidal_hs, {"sweep_tile": sweep_tile}
+    if isinstance(config, FBConfig):
+        return spatial_pyramidal_fb, {}
+    if isinstance(config, TVL1Config):
+        return spatial_pyramidal_tvl1, {"iter_tile": iter_tile}
+    if isinstance(config, DISConfig):
+        return spatial_pyramidal_dis, {"sweep_tile": sweep_tile}
+    if isinstance(config, LKConfig):
+        return spatial_pyramidal_lk, {}
+    raise not_ported(config)
 
 
 def spatial_pyramidal_flow(
@@ -782,12 +804,10 @@ def spatial_pyramidal_flow(
     sweep_tile: int = 8,
     iter_tile: int = 8,
 ) -> torch.Tensor:
-    """Model-generic spatial TP: dispatch on the config type (the TP
-    counterpart of ``models.pyramidal_flow``)."""
-    h, w = prev.shape[-2:]
-    local = _family_local(config, h, sweep_tile, iter_tile)
-    validate_spatial_flow(h, w, config, mesh.shape[axis_name], sweep_tile, iter_tile)
-    return _run_sharded(prev, nxt, mesh.axis_devices(axis_name), local)
+    """Model-generic spatial TP: dispatch on the config type to the family's
+    (captured) TP entry (the TP counterpart of ``models.pyramidal_flow``)."""
+    entry, tiles = _tp_entry(config, sweep_tile, iter_tile)
+    return entry(prev, nxt, config, mesh, axis_name, **tiles)
 
 
 def grid_pyramidal_flow(
@@ -802,14 +822,42 @@ def grid_pyramidal_flow(
 ) -> torch.Tensor:
     """Combined DP x TP for the ported families: a frame-pair batch over a
     2-D mesh, batch-data-parallel x row-sharded with halo exchange (the
-    model-generic form of ``spatial.grid_pyramidal_lk``).
+    model-generic form of ``spatial.grid_pyramidal_lk``): each batch group
+    is one call of the family's TP entry, a replay where the group's space
+    devices are one card (``.eager`` runs every group eagerly).
 
     Args:
       prev_batch / nxt_batch: (B, H, W), B divisible by the batch axis size,
         H by space-size * 2^(levels-1).
     Returns: (B, H, W, 2) flow on the mesh's first device.
     """
+    return _grid_flow(False, prev_batch, nxt_batch, config, mesh, batch_axis, space_axis,
+                      sweep_tile, iter_tile)
+
+
+def _grid_flow(eager: bool, prev_batch, nxt_batch, config, mesh, batch_axis, space_axis,
+               sweep_tile, iter_tile):
     h, w = prev_batch.shape[-2:]
-    local = _family_local(config, h, sweep_tile, iter_tile)
+    entry, tiles = _tp_entry(config, sweep_tile, iter_tile)
     validate_spatial_flow(h, w, config, mesh.shape[space_axis], sweep_tile, iter_tile)
-    return _grid(prev_batch, nxt_batch, mesh, batch_axis, space_axis, local)
+    tp = entry.eager if eager else entry
+    return _grid(prev_batch, nxt_batch, mesh, batch_axis, space_axis,
+                 lambda p, q, space: tp(p, q, config, space, "space", **tiles))
+
+
+def _grid_pyramidal_flow_eager(
+    prev_batch: torch.Tensor,
+    nxt_batch: torch.Tensor,
+    config,
+    mesh: Mesh,
+    batch_axis: str = "batch",
+    space_axis: str = "space",
+    sweep_tile: int = 8,
+    iter_tile: int = 8,
+) -> torch.Tensor:
+    """:func:`grid_pyramidal_flow` with every group's TP call eager."""
+    return _grid_flow(True, prev_batch, nxt_batch, config, mesh, batch_axis, space_axis,
+                      sweep_tile, iter_tile)
+
+
+grid_pyramidal_flow.eager = _grid_pyramidal_flow_eager

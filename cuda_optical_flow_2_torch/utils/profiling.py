@@ -6,7 +6,8 @@ Counterpart of ``cuda_optical_flow_2_tpu.utils.profiling``:
   tensor arguments: CUDA events around ``iters`` back-to-back calls after
   warm-up on a CUDA device, ``time.perf_counter`` on the CPU.  Eager torch
   enqueues each call in order on the current stream, so the JAX module's
-  chained ``fori_loop`` (and its ``perturb_arg``) has no counterpart here.
+  chained ``fori_loop`` has no counterpart here (its ``perturb_arg`` is
+  taken and ignored).
 * :func:`trace` — context manager around ``torch.profiler`` that writes a
   Chrome trace of the kernels (open it in Perfetto or ``chrome://tracing``).
 """
@@ -32,13 +33,18 @@ def _device(args) -> torch.device:
     return torch.device("cpu")
 
 
-def device_time(fn: Callable, *args, iters: int = 20) -> float:
+def device_time(fn: Callable, *args, iters: int = 20, perturb_arg: int = 0) -> float:
     """Seconds per call of ``fn(*args)``.
 
     ``WARMUP`` calls first, then ``iters`` calls back to back: between two
     CUDA events on the current stream when the first tensor argument lies
     on a CUDA device, else between two ``time.perf_counter`` reads.  ``fn``
     is called ``WARMUP + iters`` times in all.
+
+    ``perturb_arg`` is the JAX signature's: there it names the argument
+    nudged by each result to chain the iterations on the device.  The calls
+    here are already in stream order, so there is no chain to perturb: the
+    argument is accepted and ignored.
     """
     if iters < 1:
         raise ValueError(f"iters must be >= 1, got {iters}")

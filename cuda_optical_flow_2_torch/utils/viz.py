@@ -125,7 +125,8 @@ def flow_to_color_device(flow, max_flow: float | None = None, device=None) -> to
     elif not np.isfinite(max_flow) or max_flow <= 0:
         raise ValueError(f"max_flow must be a positive finite scale, got {max_flow}")
     else:
-        mf = torch.tensor(max_flow, dtype=torch.float32, device=flow.device)
+        # a fill on the device, not a host-to-device copy: capturable
+        mf = torch.full((), max_flow, dtype=torch.float32, device=flow.device)
     u, v = u / mf, v / mf
     mag = torch.clamp(mag / mf, max=1.0)
     ncols = _WHEEL.shape[0]

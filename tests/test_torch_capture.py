@@ -11,7 +11,8 @@ test_torch_farneback.py, test_torch_tvl1.py, test_torch_dis.py); the key;
 the launch counters' snapshot and delta; autograd; and the graph logic of
 the captured entries and of the three-graph recovery step, run through a
 stand-in ``capture.Graph`` that executes its body where the real one would
-capture and replay (the CUDA capture itself runs in chip_smoke.py phase 8n).
+capture and replay (``tests/torch_capture_stand_in.py``; the CUDA capture
+itself runs in chip_smoke.py phase 8n).
 """
 
 import dataclasses
@@ -42,6 +43,8 @@ from cuda_optical_flow_2_torch.models import tvl1 as ttvl1
 from cuda_optical_flow_2_torch.ops.resize import upsample_flow
 from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
 
+from torch_capture_stand_in import StandInGraph, stand_in  # noqa: F401  (a fixture)
+
 # name -> (JAX module, port module, JAX config with use_pallas=False, config
 # converter, (h, w), the family parity test's flow tolerance)
 FAMILIES = {
@@ -64,40 +67,6 @@ FAMILIES = {
 def _pair(h, w):
     fr = synthetic_sequence(2, h, w, velocity=(2.0, 1.0), period=24)
     return fr[0].astype(np.float32), fr[1].astype(np.float32)
-
-
-class StandInGraph:
-    """``capture.Graph`` without CUDA: the body runs where the real graph is
-    captured and on every replay, its results copied into the outputs of the
-    capture as a replay rewrites the static outputs in place."""
-
-    built = 0
-
-    def __init__(self, body, inputs, device, name, key, copy=True):
-        self.body = body
-        self.inputs = [t.clone() for t in inputs] if copy else list(inputs)
-        self.outputs = body(*self.inputs)
-        StandInGraph.built += 1
-
-    def replay(self, inputs=None):
-        if inputs is not None:
-            for dst, src in zip(self.inputs, inputs, strict=True):
-                dst.copy_(src)
-        _, fresh = capture.flatten(self.body(*self.inputs))
-        for dst, src in zip(capture.flatten(self.outputs)[1], fresh, strict=True):
-            dst.copy_(src)
-        return self.outputs
-
-
-@pytest.fixture
-def stand_in(monkeypatch):
-    """Route CPU tensors through the capture logic with ``StandInGraph``."""
-    monkeypatch.setattr(capture, "Graph", StandInGraph)
-    monkeypatch.setattr(capture, "runs_eagerly", lambda tensors: False)
-    capture.clear()
-    StandInGraph.built = 0
-    yield
-    capture.clear()
 
 
 # --- names -------------------------------------------------------------------

@@ -173,6 +173,24 @@ def test_device_time_is_seconds_per_call():
         profiling.device_time(fn, x, iters=0)
 
 
+def test_device_time_takes_jax_perturb_arg():
+    """JAX's ``device_time(fn, *args, iters, perturb_arg)``: the keyword is
+    accepted (there is no chain to perturb, so it changes nothing)."""
+    import inspect
+
+    from cuda_optical_flow_2_tpu.utils import profiling as jprofiling
+
+    jparams = inspect.signature(jprofiling.device_time).parameters
+    params = inspect.signature(profiling.device_time).parameters
+    assert params["perturb_arg"].default == jparams["perturb_arg"].default == 0
+    assert params["perturb_arg"].kind == jparams["perturb_arg"].kind
+    calls = []
+    x, y = torch.ones(8, 8), torch.zeros(8, 8)
+    secs = profiling.device_time(lambda a, b: calls.append(1) or a + b, x, y, iters=3,
+                                 perturb_arg=1)
+    assert isinstance(secs, float) and secs > 0 and len(calls) == profiling.WARMUP + 3
+
+
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "t")):
         torch.ones(32, 32).cumsum(0)

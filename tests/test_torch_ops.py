@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from cuda_optical_flow_2_tpu import config as jcfg
@@ -115,6 +116,34 @@ def test_sep_conv2d_matches_jax(rng):
     x = _img(rng, 29, 37)
     col, row = np.array([1.0, 2.0, 3.0, 2.0, 1.0]), np.array([0.5, 1.0, 0.25])
     _close(tconv.sep_conv2d(_t(x), col, row), jconv.sep_conv2d(_j(x), col, row))
+
+
+# taps that float32 does not hold exactly: a tap rounded to float32 moves a
+# float64 sum by ~1e-8 relative, far past the 1e-12 these cases hold
+_FINE_MASK = np.array([[0.1, 1 / 3, 0.1], [0.2, -0.7, 1 / 7], [0.05, 0.3, 0.1]])
+_FINE_COL, _FINE_ROW = np.array([0.1, 1 / 3, 0.4, 1 / 7, 0.1]), np.array([0.3, 1 / 3, 0.2])
+
+
+@pytest.mark.parametrize("op", ["conv2d", "sep_conv2d"])
+@pytest.mark.parametrize(
+    "in_dtype,dtype",
+    [(np.float64, None), (np.int32, None), (np.int32, "float64"), (np.float32, "float64")],
+    ids=["f64", "int", "int_to_f64", "f32_to_f64"],
+)
+def test_conv_dtype_matches_jax_x64(rng, op, in_dtype, dtype):
+    """JAX's keyword-only ``dtype`` (the accumulation and output dtype;
+    None keeps a floating input's dtype, else float32), with the taps built
+    in that dtype, under x64 on the JAX side."""
+    x = rng.integers(0, 256, (2, 19, 23)).astype(in_dtype)
+    args = (_FINE_MASK,) if op == "conv2d" else (_FINE_COL, _FINE_ROW)
+    tdt = None if dtype is None else getattr(torch, dtype)
+    got = getattr(tconv, op)(torch.from_numpy(x), *args, dtype=tdt)
+    with jax.enable_x64(True):
+        jdt = None if dtype is None else getattr(jnp, dtype)
+        want = np.asarray(getattr(jconv, op)(jnp.asarray(x), *args, dtype=jdt))
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12 if want.dtype == np.float64 else 1e-6,
+                               atol=1e-9 if want.dtype == np.float64 else 1e-3)
 
 
 @pytest.mark.parametrize("kernel", ["dt3", "gauss3", "delta"])

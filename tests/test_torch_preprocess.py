@@ -97,10 +97,46 @@ def test_pyr_down_matches_xla_and_pallas_interpret(rng, shape):
 def test_build_pyramid_matches_jax(rng, use_pallas):
     x = rng.integers(0, 256, (2, 75, 98)).astype(np.float32)
     want = jpyr.build_pyramid(_j(x), 4)
-    got = tpyr.build_pyramid(_t(x), 4, use_pallas)
+    got = tpyr.build_pyramid(_t(x), 4, use_pallas=use_pallas)
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
     for g, w in zip(got, want):
         _close(g, w, IMG_TOL)
+
+
+# a 5-tap Gaussian (sigma 1): not the binomial, so both packages take their
+# plain forms (JAX: the banded matmuls; the port: strided slices)
+_GAUSS5 = np.exp(-0.5 * np.arange(-2, 3) ** 2) / np.exp(-0.5 * np.arange(-2, 3) ** 2).sum()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", [(64, 128), (2, 61, 75)])
+def test_pyr_down_kernel_1d_matches_jax(rng, monkeypatch, shape, dtype):
+    """JAX's signature ``pyr_down(x, kernel_1d, use_pallas)``: a non-binomial
+    kernel_1d (positional, as a JAX caller passes it) computes JAX's
+    function and never reaches kernel #4; the binomial with ``use_pallas``
+    does (on the CPU the wrapper then takes its plain version)."""
+    x = rng.normal(0, 50, shape).astype(dtype)
+    calls = []
+    orig = pyr_down.pyr_down
+    monkeypatch.setattr(pyr_down, "pyr_down", lambda t: calls.append(t.shape) or orig(t))
+    with jax.enable_x64(True):
+        want = np.asarray(jpyr.pyr_down(jnp.asarray(x), _GAUSS5))
+        want_pyr = [np.asarray(a) for a in jpyr.build_pyramid(jnp.asarray(x), 3, _GAUSS5)]
+    tol = IMG_TOL if dtype == np.float32 else 1e-9
+    for use_pallas in (True, False):
+        got = tpyr.pyr_down(torch.from_numpy(x), _GAUSS5, use_pallas)
+        assert got.dtype == torch.from_numpy(x).dtype and tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+        pyr = tpyr.build_pyramid(torch.from_numpy(x), 3, _GAUSS5, use_pallas)
+        assert [tuple(g.shape) for g in pyr] == [w.shape for w in want_pyr]
+        for g, w in zip(pyr, want_pyr):
+            np.testing.assert_allclose(g.numpy(), w, rtol=tol, atol=tol)
+    assert calls == []
+    tpyr.pyr_down(torch.from_numpy(x), tconst.BINOMIAL_1D, True)
+    tpyr.build_pyramid(torch.from_numpy(x), 2)
+    assert len(calls) == 2
+    with pytest.raises(ValueError, match="odd length"):
+        tpyr.pyr_down(torch.from_numpy(x), np.ones(4, np.float32) / 4)
 
 
 def test_pyr_down_takes_strided_views(rng):
