@@ -156,8 +156,15 @@ then, in order:
    busy share, graph nodes, pool MB and capture seconds; the warm LK and FB
    serving loops with recovery over phase 6's frames through the captured
    ``init_state`` / ``step``, every step ``torch.equal`` to the eager
-   ``_step`` and both recovery branches replayed; a grad input running the
-   eager plain path; a failing capture raising;
+   ``_step``; a step is one replay (the recovery check's solves as CUDA
+   conditional nodes, the state donated): launches after
+   ``capture.settle()`` the eager loop's, both branches replayed as the
+   eager loop took them (device counts), only the frame copied in after
+   the first warm step (the general pool refilled with NaN between steps),
+   no sync under ``torch.cuda.set_sync_debug_mode("error")``, ms between
+   events and back to back, busy share, device ops per branch and the warm
+   key's memory; a grad input running the eager plain path; a failing
+   capture raising;
 8o. the rest of the JAX package's jitted surface, captured: at 2160x3840
    on the 3-shard mesh of the one card ``spatial_pyramidal_lk`` at
    ``PAPER_1080P`` and ``REFERENCE_GPU``, ``spatial_pyramidal_hs``
@@ -1482,61 +1489,175 @@ def phase_8n(of, dev, run_path, card: str) -> dict:
     # init_state / step through process_sequence against the eager bodies
     frames = scene_frames(1080, 1920)
     recovery = of.RecoveryConfig(levels=3)
+    seed_ok = streaming._seed_ok
 
-    def eager_loop(cfg):
+    def eager_loop(cfg, checks):
+        """The eager loop; ``checks`` collects the recovery check's outcome
+        of each warm step (a host read, as the eager step makes anyway)."""
+        def spy(*args):
+            ok = seed_ok(*args)
+            checks.append(bool(ok))
+            return ok
+
         cf = [None if f is None else cuda(f) for f in frames]
         state, flows = streaming._init_state(cf[0], cfg, recovery), {}
-        for i, f in enumerate(cf[1:], start=1):
-            if f is None:
-                state = streaming.FlowState(state.pyramid, None)
-                continue
-            state, flows[i] = streaming._step(state, f, cfg, True, recovery)
+        streaming._seed_ok = spy
+        try:
+            for i, f in enumerate(cf[1:], start=1):
+                if f is None:
+                    state = streaming.FlowState(state.pyramid, None)
+                    continue
+                state, flows[i] = streaming._step(state, f, cfg, True, recovery)
+        finally:
+            streaming._seed_ok = seed_ok
         return flows
+
+    def warm_entry():
+        """The loop's warm key: the one donating entry with two graphs."""
+        (entry,) = [e for e in streaming._step_graphs.cache.entries.values()
+                    if len(e.graphs) == 2]
+        return entry
 
     for label, cfg in (("LK levels=1", of.LKConfig(levels=1, window=15)),
                        ("FB levels=1 iterations=1", of.FBConfig(levels=1, iterations=1))):
-        want, counts = run_path(f"8n eager serving {label}", lambda: eager_loop(cfg), ())
+        checks: list = []
+        want, counts = run_path(f"8n eager serving {label}", lambda: eager_loop(cfg, checks), ())
+        capture.clear()  # this loop's keys capture anew
         graphs = capture.graphs_captured()
         got, c_counts = run_path(f"8n captured serving {label}", lambda: dict(of.process_sequence(
             (None if f is None else cuda(f) for f in frames), cfg, warm_start=True,
             recovery=recovery)), ())
+        captured_graphs = capture.graphs_captured() - graphs
         require(sorted(got) == sorted(want) and all(torch.equal(got[i], want[i]) for i in want),
                 f"8n serving {label}: a captured step differs from the eager step")
-        require(c_counts == counts, f"8n serving {label}: launches {c_counts}, eager {counts}")
-        # the loop's one recovery key, the latest entry of the cache
-        check_g, warm_g, cold_g = list(streaming._recovery_graphs.entries.values())[-1]
-        require(warm_g.replays > 0 and cold_g.replays > 0,
-                f"8n serving {label}: warm {warm_g.replays}, cold {cold_g.replays} replays")
-        # one tracked step, captured and eager, from the same warm state
-        state = of.init_state(cuda(frames[0]), cfg, recovery)
-        state, _ = of.step(state, cuda(frames[1]), cfg, True, recovery)
-        nxt = cuda(frames[2])
+        require(c_counts == counts, f"8n serving {label}: launches after settle() {c_counts}, "
+                                    f"eager {counts}")
+        # init_state, the cold step (no carried flow), the warm step's G0 and G1
+        require(captured_graphs == 4, f"8n serving {label}: {captured_graphs} graphs captured")
+        entry = warm_entry()
+        capture.settle()
+        taken = [sum(g.taken[0][b] for g in entry.graphs) for b in (0, 1)]
+        want_taken = [checks.count(True), checks.count(False)]
+        require(taken == want_taken and min(taken) > 0,
+                f"8n serving {label}: branches replayed (warm, cold) {taken}, the eager loop's "
+                f"checks {want_taken}")
+        require(sum(g.replays for g in entry.graphs) == len(checks) and entry.plain is None,
+                f"8n serving {label}: {[g.replays for g in entry.graphs]} replays for "
+                f"{len(checks)} warm steps, a copy-in graph built: {entry.plain is not None}")
+        del got, want
+
+        # a stream step by step beside the eager steps, the general pool
+        # refilled with NaN between steps (a graph that wrote memory it does
+        # not own would show): only the frame is copied in after the first
+        # warm step, the state returned is the key's buffers and the flow a
+        # clone that later steps leave alone
+        cf = [cuda(f) for f in frames[:7]]
+        state = of.init_state(cf[0], cfg, recovery)
+        state, _ = of.step(state, cf[1], cfg, True, recovery)
+        eager_state = streaming._init_state(cf[0], cfg, recovery)
+        eager_state, _ = streaming._step(eager_state, cf[1], cfg, True, recovery)
+        copies, kept = [], []
+        for k, f in enumerate(cf[2:], start=2):
+            before = sum(g.copied for g in entry.graphs)
+            torch.cuda.empty_cache()
+            junk = torch.full((2**28,), float("nan"), device=dev)
+            state, flow = of.step(state, f, cfg, True, recovery)
+            del junk
+            eager_state, eager_flow = streaming._step(eager_state, f, cfg, True, recovery)
+            copies.append(sum(g.copied for g in entry.graphs) - before)
+            require(torch.equal(flow, eager_flow), f"8n serving {label}: step {k} differs from "
+                                                   "eager with the pool refilled")
+            sets = entry.sets[(k - 1) % 2]
+            require(all(a.data_ptr() == b.data_ptr() for a, b in
+                        zip((*state.pyramid, state.flow), sets, strict=True))
+                    and flow.data_ptr() != state.flow.data_ptr(),
+                    f"8n serving {label}: step {k}'s state is not the key's buffer set")
+            kept.append((flow, flow.clone()))
+        # the first warm step copies the carried pyramid, the flow and the frame
+        require(copies[0] == len(entry.sets[0]) + 1 and all(c == 1 for c in copies[1:]),
+                f"8n serving {label}: tensors copied in per warm step {copies}")
+        require(all(torch.equal(a, b) for a, b in kept), f"8n serving {label}: a handed flow "
+                                                         "changed in a later step")
+        del kept, state, eager_state
+
+        # no host read: a warm step with CUDA frames under the sync check
+        state = of.init_state(cf[0], cfg, recovery)
+        state, _ = of.step(state, cf[1], cfg, True, recovery)
+        state, _ = of.step(state, cf[2], cfg, True, recovery)
+        nxt = cf[3]
+        of.step(state, nxt, cfg, True, recovery)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            of.step(state, nxt, cfg, True, recovery)
+            synced = ""
+        except RuntimeError as exc:
+            synced = str(exc).splitlines()[0][:160]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        require(not synced, f"8n serving {label}: a warm step synchronised: {synced}")
+
+        # the warm step from a state of the key's buffers, captured and eager
         ms = cuda_ms(lambda: of.step(state, nxt, cfg, True, recovery), STEP_REPS)
         eager_ms = cuda_ms(lambda: streaming._step(state, nxt, cfg, True, recovery), STEP_REPS)
-        # a step syncs on the check's flag, so one step between events also
-        # times the host's wake-up: the steady rate is back-to-back steps
         wall = {name: back_to_back_ms(fn, STEP_REPS) for name, fn in (
             ("captured", lambda: of.step(state, nxt, cfg, True, recovery)),
             ("eager", lambda: streaming._step(state, nxt, cfg, True, recovery)))}
         busy = profile_path(lambda: of.step(state, nxt, cfg, True, recovery), 5)
         eager_busy = profile_path(lambda: streaming._step(state, nxt, cfg, True, recovery), 5)
-        nodes = sum(len(device_names(g.replay)) for g in (check_g, warm_g))
-        out[f"serving step {label}"] = {
+        warm_ops = len(device_names(lambda: of.step(state, nxt, cfg, True, recovery)))
+        del state
+        # a replay across the cut (a (2, 1) seed on the new scene) runs the cold branch
+        state = of.init_state(cf[2], cfg, recovery)
+        state, _ = of.step(state, cf[3], cfg, True, recovery)
+        state, _ = of.step(state, cf[4], cfg, True, recovery)
+        cut = cf[5]
+        capture.settle()
+        cold_before = sum(g.taken[0][1] for g in entry.graphs)
+        cold_ops = len(device_names(lambda: of.step(state, cut, cfg, True, recovery)))
+        capture.settle()
+        require(sum(g.taken[0][1] for g in entry.graphs) > cold_before,
+                f"8n serving {label}: the step across the cut ran no cold branch")
+        del state
+        require(entry.plain is None, f"8n serving {label}: a copy-in graph was built")
+        # the warm key's memory: capture it alone from a clean cache
+        del entry
+        capture.clear()
+        state = of.init_state(cf[0], cfg, recovery)
+        state, _ = of.step(state, cf[1], cfg, True, recovery)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        state, flow = of.step(state, cf[2], cfg, True, recovery)
+        del flow
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+        entry = warm_entry()
+        capture_s = sum(g.seconds for g in entry.graphs)
+        del state, cf
+        row = out[f"serving step {label}"] = {
             "ms": ms, "eager_ms": eager_ms, "busy_share": busy["device_ms"] / ms,
-            "eager_busy_share": eager_busy["device_ms"] / eager_ms, "graph_nodes": nodes,
+            "eager_busy_share": eager_busy["device_ms"] / eager_ms,
             "wall_ms": wall["captured"], "eager_wall_ms": wall["eager"],
-            "eager_device_ops": eager_busy["ops_per_pair"],
-            "capture_s": check_g.seconds + warm_g.seconds + cold_g.seconds,
-            "graphs": capture.graphs_captured() - graphs, "launches": counts}
+            "device_ms": busy["device_ms"], "device_ops_warm": warm_ops,
+            "device_ops_cold": cold_ops, "eager_device_ops": eager_busy["ops_per_pair"],
+            "pool_mb": pool_mb, "capture_s": capture_s, "graphs": captured_graphs,
+            "branches": taken, "copies": copies, "launches": counts}
         print(f"phase 8n serving {label} 8 frames 1080x1920 [{card}]: every step torch.equal "
-              f"to the eager step; launches {counts} = eager; graphs captured "
-              f"{capture.graphs_captured() - graphs} (init_state, cold step, check + warm + "
-              f"cold); recovery warm {warm_g.replays}, cold {cold_g.replays} replays; warm step "
-              f"{ms:.3f} ms captured vs {eager_ms:.3f} eager (median of {STEP_REPS}), "
-              f"{wall['captured']:.3f} vs {wall['eager']:.3f} ms per step back to back; busy "
-              f"{100 * busy['device_ms'] / ms:.1f} % vs "
-              f"{100 * eager_busy['device_ms'] / eager_ms:.1f} %; check + warm graphs {nodes} "
-              f"nodes; capture {out[f'serving step {label}']['capture_s']:.3f} s")
+              f"to the eager step; launches {counts} = eager after settle(); one replay per "
+              f"step, {captured_graphs} graphs captured (init_state, cold step, the warm step's "
+              f"G0 and G1); branches replayed warm {taken[0]}, cold {taken[1]} (device counts, "
+              f"= the eager loop's checks); tensors copied in per warm step {copies} (the "
+              f"frame alone after the first), flows equal with the pool refilled with NaN; no "
+              f"sync in a warm step under set_sync_debug_mode('error'); warm step "
+              f"{ms:.3f} ms captured vs {eager_ms:.3f} eager (median of {STEP_REPS} between "
+              f"events), {wall['captured']:.3f} vs {wall['eager']:.3f} ms per step back to "
+              f"back; device busy {busy['device_ms']:.3f} ms, {100 * row['busy_share']:.1f} % "
+              f"vs {100 * row['eager_busy_share']:.1f} %; device ops per replay warm "
+              f"{warm_ops}, cold {cold_ops} (eager warm {eager_busy['ops_per_pair']:.0f}); "
+              f"warm key's memory {pool_mb:.1f} MB (two graphs' pools, branch pools, both "
+              f"state sets, the frame buffer); capture {capture_s:.3f} s")
 
     # autograd: a grad input runs the eager entry (plain path); kernels refuse it
     (pa, na), _ = small
@@ -1798,6 +1919,7 @@ def main() -> int:
         return 2
 
     import cuda_optical_flow_2_torch as of
+    from cuda_optical_flow_2_torch import capture
     from cuda_optical_flow_2_torch.constants import BINOMIAL_1D
     from cuda_optical_flow_2_torch.kernels import (
         _build, bilateral_tap, fb_step_fused, hs_sweep, lk_fused, lk_step_fused, median_select,
@@ -2211,6 +2333,7 @@ def main() -> int:
     def run_path(label: str, fn, needs: tuple[str, ...]):
         """Zero the counters, drive one path, read them: each kernel in
         ``needs`` must have launched."""
+        capture.settle()  # replays before the path count before the zero
         for wrapper in wrappers.values():
             wrapper.launches = 0
         for name in CENTERED:
@@ -2218,6 +2341,7 @@ def main() -> int:
         lk_step_fused.lk_level_step.launches_half = 0
         out = fn()
         torch.cuda.synchronize()
+        capture.settle()  # the cond branches that replays ran count here
         counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
         counts |= {f"{name} centered": wrappers[name].launches_centered for name in CENTERED}
         counts[HALF] = lk_step_fused.lk_level_step.launches_half
@@ -3008,8 +3132,6 @@ def main() -> int:
     # 8l. the reference-exact profiles and the four command-line tools; the
     # graphs that the TP and tracking paths of 8f-8k captured go first: with
     # the benchmark's 64-pair captures of config 5 they overfilled the card
-    from cuda_optical_flow_2_torch import capture
-
     capture.clear()
     torch.cuda.empty_cache()
     tools_8l = phase_8l(of, dev, run_path, big, card)

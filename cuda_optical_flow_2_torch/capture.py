@@ -28,39 +28,78 @@ its own rule through ``prepare`` (the spatial-TP entries run eagerly on a
 mesh over several cards).  A capture or a replay that fails raises with
 its key and the CUDA error; nothing falls back to the eager body.
 
+``cond(pred, true_fn, false_fn, *operands)`` is the port's ``lax.cond``:
+eagerly it runs the branch ``bool(pred)`` picks; inside a capture both
+branches go into the graph as CUDA conditional nodes (``csrc/graph_cond.cu``)
+and a replay runs the one that the predicate, a bool on the device, picks
+there: the host reads nothing.
+
+``captured(fn, donate_argnums=...)`` is JAX's donation: the donated
+arguments are not copied into static buffers on each call.  A key whose
+``fn`` returns new values of the donated arguments with their shapes (a
+serving step's state) captures two graphs over two buffer sets S0 and S1:
+G0 reads S0 and writes the new values into S1, G1 reads S1 and writes S0.
+The call returns the set just written, so the next call passes it back and
+replays the other graph with only the other arguments copied in (the
+reference's pointer swap).  A donated value that is neither set is copied
+into S0 once.  The buffers of a returned value are written again only once
+the caller holds none of the returned tensors (nor a view of one): a value
+stays valid while it is held, so every use that JAX allows still works.
+When a call would write a set the caller still holds (two streams of one
+key, or a value passed twice), it replays a third graph of the key that
+copies everything in and clones everything out instead.
+
 A replay runs no Python, so the kernels' launch counters (the ``launches*``
 attributes of the wrappers in ``kernels/``) would stand still.  A capture
 therefore records each counter's change over the captured call and adds it
 back on every replay, and sets the counters back to what they were before
 its warm-up: a call counts the launches of one eager call, captured or not.
+A branch of a ``cond`` counts on the device instead (a pair of int64 per
+cond, one add in each branch), since the host does not know which branch a
+replay ran: :func:`settle` reads those pairs once and adds each branch's
+launches times the replays that took it.  :func:`snapshot` and
+:func:`restore` settle first.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
+import ctypes
 import functools
 import importlib
 import inspect
 import pkgutil
 import time
+import weakref
 from typing import Any, Callable
 
 import torch
 
 from cuda_optical_flow_2_torch import kernels
+from cuda_optical_flow_2_torch.kernels import _build
 
 __all__ = [
-    "CACHE_SIZE", "WARMUP", "Graph", "GraphCache", "captured", "clear", "graphs_captured",
-    "counters", "snapshot", "delta", "add_counts", "restore",
+    "CACHE_SIZE", "WARMUP", "Graph", "DonatingGraphs", "GraphCache", "captured", "clear",
+    "graphs_captured", "cond", "settle", "counters", "snapshot", "delta", "add_counts", "restore",
     "flatten", "unflatten", "clone_outputs", "runs_eagerly",
 ]
 
 CACHE_SIZE = 8  # graphs kept per entry
 WARMUP = 2      # eager runs on a side stream before a capture
+CONDS = 4       # conds per captured call
 
 _TENSOR, _STATIC, _SEQ = "tensor", "static", "seq"
 _caches: list[GraphCache] = []
 _captured = 0
+# What a cond runs as: None (eagerly), _WARM_UP (both branches, outside any
+# capture), or the Graph that is capturing (conditional nodes).
+_WARM_UP = "warm-up"
+_mode: contextvars.ContextVar = contextvars.ContextVar("capture_mode", default=None)
+# graphs with conds replayed since the last settle()
+_pending: dict[int, Graph] = {}
+_branch_streams: dict[int, torch.cuda.ExternalStream] = {}
 
 
 # --- launch counters -------------------------------------------------------
@@ -86,9 +125,21 @@ def counters() -> list[str]:
     return list(_registry())
 
 
-def snapshot() -> dict[str, int]:
-    """Every launch counter's value."""
+def _counts() -> dict[str, int]:
     return {name: getattr(obj, attr) for name, (obj, attr) in _registry().items()}
+
+
+def _set_counts(values: dict[str, int]) -> None:
+    registry = _registry()
+    for name, n in values.items():
+        obj, attr = registry[name]
+        setattr(obj, attr, n)
+
+
+def snapshot() -> dict[str, int]:
+    """Every launch counter's value, after :func:`settle`."""
+    settle()
+    return _counts()
 
 
 def delta(before: dict[str, int], after: dict[str, int]) -> dict[str, int]:
@@ -105,14 +156,39 @@ def add_counts(change: dict[str, int], times: int = 1) -> None:
 
 
 def restore(values: dict[str, int]) -> None:
-    """Set the counters to a :func:`snapshot`."""
-    registry = _registry()
-    for name, n in values.items():
-        obj, attr = registry[name]
-        setattr(obj, attr, n)
+    """Set the counters to a :func:`snapshot`, after :func:`settle` (so no
+    branch replayed before counts after)."""
+    settle()
+    _set_counts(values)
+
+
+def settle() -> None:
+    """Add the launches of the ``cond`` branches that replays took since the
+    last settle: wait for the device and read each such graph's taken
+    counts once.  Call it before reading the counters' attributes directly
+    (:func:`snapshot` and :func:`restore` do)."""
+    while _pending:
+        _, graph = _pending.popitem()
+        graph._settle()
 
 
 # --- arguments and outputs -------------------------------------------------
+
+
+def _walk(x, tensors: list[torch.Tensor]) -> tuple:
+    if isinstance(x, torch.Tensor):
+        tensors.append(x)
+        return (_TENSOR, tuple(x.shape), x.dtype, x.device)
+    if isinstance(x, (tuple, list)):
+        return (_SEQ, type(x), tuple(_walk(v, tensors) for v in x))
+    try:
+        hash(x)
+    except TypeError:
+        raise TypeError(
+            f"the non-tensor arguments of a captured entry must be hashable (a frozen "
+            f"config), got {type(x).__name__}"
+        ) from None
+    return (_STATIC, type(x), x)
 
 
 def flatten(tree) -> tuple[tuple, list[torch.Tensor]]:
@@ -123,38 +199,23 @@ def flatten(tree) -> tuple[tuple, list[torch.Tensor]]:
     included), and every other leaf (a config, a flag, ``None``) by type and
     value: it is the key of a capture."""
     tensors: list[torch.Tensor] = []
+    return _walk(tree, tensors), tensors
 
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            tensors.append(x)
-            return (_TENSOR, tuple(x.shape), x.dtype, x.device)
-        if isinstance(x, (tuple, list)):
-            return (_SEQ, type(x), tuple(walk(v) for v in x))
-        try:
-            hash(x)
-        except TypeError:
-            raise TypeError(
-                f"the non-tensor arguments of a captured entry must be hashable (a frozen "
-                f"config), got {type(x).__name__}"
-            ) from None
-        return (_STATIC, type(x), x)
 
-    return walk(tree), tensors
+def _build_tree(s: tuple, it) -> Any:
+    if s[0] == _TENSOR:
+        return next(it)
+    if s[0] == _STATIC:
+        return s[2]
+    items = [_build_tree(c, it) for c in s[2]]
+    return s[1](*items) if hasattr(s[1], "_fields") else s[1](items)
 
 
 def unflatten(spec: tuple, tensors) -> Any:
     """The tree of ``spec`` with ``tensors`` in its tensor leaves."""
-    it = iter(tensors)
-
-    def build(s):
-        if s[0] == _TENSOR:
-            return next(it)
-        if s[0] == _STATIC:
-            return s[2]
-        items = [build(c) for c in s[2]]
-        return s[1](*items) if hasattr(s[1], "_fields") else s[1](items)
-
-    return build(spec)
+    # module-level helpers, not nested closures: a recursive closure is a
+    # reference cycle that would keep the tensors alive until the collector runs
+    return _build_tree(spec, iter(tensors))
 
 
 def clone_outputs(tree) -> Any:
@@ -176,6 +237,70 @@ def runs_eagerly(tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` are one buffer: the same memory, dtype,
+    device, shape and strides."""
+    return (a.data_ptr() == b.data_ptr() and a.dtype == b.dtype and a.device == b.device
+            and a.shape == b.shape and a.stride() == b.stride())
+
+
+@contextlib.contextmanager
+def _as_mode(mode):
+    token = _mode.set(mode)
+    try:
+        yield
+    finally:
+        _mode.reset(token)
+
+
+def _branch_stream(device: torch.device) -> torch.cuda.ExternalStream:
+    """The stream that ``device``'s branch bodies are captured on: one of
+    its own (a pooled stream of PyTorch's may be the capturing one),
+    created once, outside any capture."""
+    stream = _branch_streams.get(device.index)
+    if stream is None:
+        handle = ctypes.c_void_p()
+        with torch.cuda.device(device):
+            status = _build.library().of2_stream_create(ctypes.byref(handle))
+        if status != 0:
+            raise RuntimeError(f"of2_stream_create: CUDA error {status}")
+        stream = torch.cuda.ExternalStream(handle.value, device=device)
+        _branch_streams[device.index] = stream
+    return stream
+
+
+# --- cond ------------------------------------------------------------------
+
+
+def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable, *operands) -> Any:
+    """``true_fn(*operands)`` if ``pred`` else ``false_fn(*operands)``: the
+    port's ``jax.lax.cond``.
+
+    ``pred`` is a one-element bool tensor.  Eagerly the host reads it and
+    runs one branch.  While a :class:`Graph` warms up, both branches run and
+    the picked one's result is returned, so both have built their kernels
+    before the capture.  While a Graph captures, both branches go into the
+    graph as two CUDA IF nodes that a kernel sets from ``pred`` on the
+    device: each replay runs one branch, and the host reads nothing.  The
+    branches return tensors of the same shapes and dtypes (in a replay that
+    takes the false branch, its outputs are copied into the true branch's,
+    which the rest of the graph reads), and the true branch's outputs are
+    tensors it made, not operands.  In a capture a cond must not sit inside
+    a branch of another."""
+    mode = _mode.get()
+    if isinstance(mode, Graph):
+        return mode._cond(pred, true_fn, false_fn, operands)
+    if mode is _WARM_UP:
+        if pred.is_cuda:
+            _branch_stream(pred.device)
+        outs = true_fn(*operands), false_fn(*operands)
+        return outs[0] if bool(pred) else outs[1]
+    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("capture.cond inside a CUDA graph capture that capture.Graph did not "
+                           "begin: the host cannot read the predicate there")
+    return true_fn(*operands) if bool(pred) else false_fn(*operands)
+
+
 # --- graphs ----------------------------------------------------------------
 
 
@@ -184,14 +309,20 @@ class Graph:
 
     With ``copy`` the inputs are copied into static buffers of the graph,
     which :meth:`replay` refills; without it they are used as they are
-    (buffers of another graph that replays first).  ``name`` and ``key``
-    go into every error.  ``outputs`` are the static outputs, ``delta`` the
-    counters' change over the captured call, ``seconds`` the warm-up and
-    capture time, ``replays`` the replays so far.
+    (buffers that the caller owns).  ``name`` and ``key`` go into every
+    error.  ``outputs`` are the static outputs, ``delta`` the counters'
+    change over the captured call outside its conds' branches, ``seconds``
+    the warm-up and capture time, ``replays`` the replays so far, ``copied``
+    the tensors copied into the static inputs so far, and ``taken``, per
+    cond, how many replays ran its true and its false branch (as of the
+    last :func:`settle`).  The device counts behind ``taken`` live in a
+    buffer made before the capture: memory allocated during it may be
+    memory that earlier nodes of every replay write.
 
-    The CUDA work is in three methods (:meth:`_warm_up`, :meth:`_capture`,
-    :meth:`_launch`); the bookkeeping around them (buffers, counters,
-    errors) is this class's on any device."""
+    The CUDA work is in five methods (:meth:`_warm_up`, :meth:`_capture`,
+    :meth:`_launch`, and a cond's :meth:`_open_cond` and :meth:`_branch`);
+    the bookkeeping around them (buffers, counters, conds, errors) is this
+    class's on any device."""
 
     def __init__(self, body: Callable, inputs, device: torch.device, name: str, key,
                  copy: bool = True):
@@ -199,21 +330,31 @@ class Graph:
         self.name, self.key, self.device = name, key, device
         self.inputs = [t.clone(memory_format=torch.contiguous_format) for t in inputs] if copy \
             else list(inputs)
-        before = snapshot()
+        self.replays = self.copied = 0
+        # per cond: the replays that ran its (true, false) branch, on the device
+        self._taken_device = torch.zeros((CONDS, 2), dtype=torch.int64, device=device)
+        self._conds = 0
+        self._branch_deltas: list[tuple[dict, dict]] = []
+        self._in_branch = False
+        self._branch_pool = None
+        before = _counts()
         t0 = time.perf_counter()
         try:
             with torch.no_grad():
-                self._warm_up(body)
-                start = snapshot()
+                with _as_mode(_WARM_UP):
+                    self._warm_up(body)
+                start = _counts()
                 try:
-                    self.outputs = self._capture(body)
+                    with _as_mode(self):
+                        self.outputs = self._capture(body)
                 except Exception as exc:
                     raise RuntimeError(f"capture of {name} failed for key {key}: {exc}") from exc
-            self.delta = delta(start, snapshot())
+                self._taken_device.zero_()  # the capture ran nothing
+            self.delta = delta(start, _counts())
         finally:
-            restore(before)
+            _set_counts(before)
+        self.taken = [[0, 0] for _ in range(self._conds)]
         self.seconds = time.perf_counter() - t0
-        self.replays = 0
         _captured += 1
 
     def _warm_up(self, body: Callable) -> None:
@@ -231,28 +372,214 @@ class Graph:
         """Capture the body into ``self.graph``; returns its static outputs."""
         with torch.cuda.device(self.device):
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                return body(*self.inputs)
+            pool = torch.cuda.graph_pool_handle()  # a new pool, as without one
+            try:
+                with torch.cuda.graph(self.graph, pool=pool):
+                    return body(*self.inputs)
+            except Exception:
+                # A capture that the CUDA runtime ended in error leaves the
+                # caching allocator recording into the graph's pool, and a
+                # pool released later (a cond's branch pool) then aborts the
+                # process: stop the recording unless PyTorch did.
+                try:
+                    torch._C._cuda_endAllocateToPool(self.device.index, pool)
+                except RuntimeError:
+                    pass
+                raise
 
     def _launch(self) -> None:
         """Replay the graph on the current stream."""
         with torch.cuda.device(self.device):
             self.graph.replay()
 
+    def _open_cond(self, pred: torch.Tensor) -> tuple[int, int]:
+        """Capture the kernel that sets a true and a false IF handle from
+        ``pred``; returns the two handles."""
+        if self._branch_pool is None:
+            self._branch_pool = torch.cuda.MemPool()
+        handles = (ctypes.c_ulonglong * 2)()
+        with torch.cuda.device(self.device):
+            status = _build.library().of2_cond_open(
+                pred.data_ptr(), ctypes.addressof(handles),
+                torch.cuda.current_stream(self.device).cuda_stream)
+        if status != 0:
+            raise RuntimeError(
+                f"CUDA conditional graph nodes failed (CUDA error {status}) with torch "
+                f"{torch.__version__}, CUDA {torch.version.cuda}: they need CUDA 12.4 or later")
+        return handles[0], handles[1]
+
+    @contextlib.contextmanager
+    def _branch(self, handle: int):
+        """Capture what runs inside into the body of a new IF node on
+        ``handle``: on the branch stream, its memory from the graph's branch
+        pool (the graph's own pool routes the capturing stream only)."""
+        stream = _branch_stream(self.device)
+        _build.launch(self.device, "of2_cond_begin_branch", handle, stream.cuda_stream)
+        try:
+            with torch.cuda.stream(stream), torch.cuda.use_mem_pool(self._branch_pool, self.device):
+                yield
+        finally:
+            status = _build.library().of2_cond_end_branch(stream.cuda_stream)
+        if status != 0:
+            raise RuntimeError(f"of2_cond_end_branch: CUDA error {status}")
+
+    def _cond(self, pred: torch.Tensor, true_fn: Callable, false_fn: Callable, operands) -> Any:
+        """:func:`cond` while this graph captures: both branches, each in
+        an IF node, each counting its runs on the device."""
+        if self._in_branch:
+            raise RuntimeError(f"capture of {self.name}: a cond inside a branch of a cond")
+        if pred.dtype != torch.bool or pred.numel() != 1:
+            raise ValueError(f"cond needs a one-element bool predicate, got {pred.dtype} "
+                             f"{tuple(pred.shape)}")
+        if self._conds == CONDS:
+            raise RuntimeError(f"capture of {self.name}: more than {CONDS} conds in one call")
+        taken = self._taken_device[self._conds]
+        self._conds += 1
+        start = _counts()
+        handles = self._open_cond(pred)
+        outs, deltas = [], []
+        for which, fn in enumerate((true_fn, false_fn)):
+            before = _counts()
+            self._in_branch = True
+            try:
+                with self._branch(handles[which]):
+                    out = fn(*operands)
+                    taken[which].add_(1)
+                    if outs:
+                        _copy_into(outs[0], out)
+            finally:
+                self._in_branch = False
+            deltas.append(delta(before, _counts()))
+            outs.append(out)
+        _set_counts(start)  # a branch counts at settle(), once per replay that ran it
+        self._branch_deltas.append((deltas[0], deltas[1]))
+        return outs[0]
+
     def replay(self, inputs=None) -> Any:
-        """Copy ``inputs``, when given, into the static input buffers, replay
-        on the current stream and count its launches; returns the static
-        outputs, which the next replay overwrites."""
+        """Copy ``inputs``, when given, into the static input buffers (an
+        input that is its buffer is not copied), replay on the current
+        stream and count its launches; returns the static outputs, which the
+        next replay overwrites."""
         if inputs is not None:
             for dst, src in zip(self.inputs, inputs, strict=True):
-                dst.copy_(src)
+                if src is not dst:
+                    dst.copy_(src)
+                    self.copied += 1
         try:
             self._launch()
         except Exception as exc:
             raise RuntimeError(f"replay of {self.name} failed for key {self.key}: {exc}") from exc
         add_counts(self.delta)
+        if self._conds:
+            _pending[id(self)] = self
         self.replays += 1
         return self.outputs
+
+    def _settle(self) -> None:
+        """Add the branch launches of the replays since the last settle."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = self._taken_device[:self._conds].tolist()
+        for (t, f), (t0, f0), (dt, df) in zip(now, self.taken, self._branch_deltas, strict=True):
+            add_counts(dt, t - t0)
+            add_counts(df, f - f0)
+        self.taken = now
+
+
+def _copy_into(dst_tree, src_tree) -> None:
+    dst_spec, dst = flatten(dst_tree)
+    src_spec, src = flatten(src_tree)
+    if dst_spec != src_spec:
+        raise RuntimeError(f"the branches of a cond return different outputs: {dst_spec} and "
+                           f"{src_spec}")
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+def _tensor_leaves(spec: tuple) -> int:
+    if spec[0] == _TENSOR:
+        return 1
+    return sum(_tensor_leaves(c) for c in spec[2]) if spec[0] == _SEQ else 0
+
+
+class DonatingGraphs:
+    """The graphs of one key of an entry that donates arguments (module
+    docstring): ``fn`` returns a tuple whose first ``len(donate_argnums)``
+    items are the donated arguments' new values.
+
+    ``graphs`` holds G0 and G1 when those values keep the donated arguments'
+    shapes (they swap the buffer sets ``sets[0]`` and ``sets[1]``), else one
+    graph that copies in and clones out; ``plain`` is the copy-in, clone-out
+    graph built when a call would write a set the caller still holds."""
+
+    def __init__(self, fn: Callable, spec: tuple, tensors, donate_argnums: tuple[int, ...],
+                 device: torch.device, name: str):
+        self.fn, self.spec, self.device, self.name = fn, spec, device, name
+        args = spec[2]
+        self.mask = [i in donate_argnums for i, a in enumerate(args)
+                     for _ in range(_tensor_leaves(a))]
+        self.donated_spec = (_SEQ, tuple, tuple(args[i] for i in donate_argnums))
+        self.n_donated = len(donate_argnums)
+        static = [t.clone(memory_format=torch.contiguous_format) for t in tensors]
+        donated = [t for t, d in zip(static, self.mask) if d]
+        # both sets outside every graph's pool, so no graph's temporaries sit in them
+        self.sets = (donated, [torch.empty_like(t) for t in donated])
+        self.handed: tuple[list, list] = ([], [])  # weak references to what each set returned
+        self.swaps = False
+        self.plain: Graph | None = None
+        self.graphs = [Graph(self._body(0), static, device, name, spec, copy=False)]
+        if self.swaps:
+            self.graphs.append(Graph(self._body(1), self._with_set(static, 1), device, name,
+                                     spec, copy=False))
+        else:
+            self.sets = (donated, [])
+
+    def _body(self, k: int) -> Callable:
+        """The body that reads set ``k`` and writes the new values into the other."""
+
+        def body(*static):
+            out = self.fn(*unflatten(self.spec, static))
+            new_spec, new = flatten(tuple(out[:self.n_donated]))
+            self.swaps = new_spec == self.donated_spec
+            if not self.swaps:
+                return out
+            for dst, src in zip(self.sets[1 - k], new, strict=True):
+                dst.copy_(src)
+            return (*unflatten(new_spec, self.sets[1 - k]), *out[self.n_donated:])
+
+        return body
+
+    def _with_set(self, tensors, k: int) -> list:
+        """``tensors`` with the donated ones replaced by set ``k``."""
+        it = iter(self.sets[k])
+        return [next(it) if d else t for t, d in zip(tensors, self.mask)]
+
+    def _held(self, k: int) -> bool:
+        return any(ref() is not None for ref in self.handed[k])
+
+    def __call__(self, tensors: list[torch.Tensor]) -> Any:
+        if len(self.graphs) == 1:
+            return clone_outputs(self.graphs[0].replay(tensors))
+        passed = [t for t, d in zip(tensors, self.mask) if d]
+        k = next((k for k in (0, 1) if all(map(_same, passed, self.sets[k]))), None)
+        if k is None:  # another key's, or the caller's: copied into set 0
+            if self._held(0) or self._held(1):
+                return self._plain(tensors)
+            k, inputs = 0, tensors
+        elif self._held(1 - k):
+            return self._plain(tensors)
+        else:
+            inputs = self._with_set(tensors, k)
+        out = self.graphs[k].replay(inputs)
+        views = [t.detach() for t in self.sets[1 - k]]  # tensors of their own, to track
+        self.handed[1 - k][:] = [weakref.ref(v) for v in views]
+        return (*unflatten(self.donated_spec, views), *clone_outputs(tuple(out[self.n_donated:])))
+
+    def _plain(self, tensors: list[torch.Tensor]) -> Any:
+        if self.plain is None:
+            self.plain = Graph(lambda *static: self.fn(*unflatten(self.spec, static)), tensors,
+                               self.device, f"{self.name} (a held value)", self.spec)
+        return clone_outputs(self.plain.replay(tensors))
 
 
 class GraphCache:
@@ -269,11 +596,13 @@ class GraphCache:
             self.entries.move_to_end(key)
             return self.entries[key]
         while len(self.entries) >= CACHE_SIZE:
+            settle()
             self.entries.popitem(last=False)
         value = self.entries[key] = build()
         return value
 
     def clear(self) -> None:
+        settle()
         self.entries.clear()
 
 
@@ -289,7 +618,8 @@ def graphs_captured() -> int:
     return _captured
 
 
-def captured(fn: Callable, prepare: Callable | None = None) -> Callable:
+def captured(fn: Callable, prepare: Callable | None = None,
+             donate_argnums: tuple[int, ...] = ()) -> Callable:
     """``fn`` as a captured entry (module docstring).  The wrapper keeps
     ``fn`` as ``.eager``, its cache as ``.cache`` and the key of a call as
     ``.key(*args, **kwargs)``.
@@ -298,9 +628,14 @@ def captured(fn: Callable, prepare: Callable | None = None) -> Callable:
     graph, with the call's arguments: it returns the ``(args, kwargs)`` to
     key and run on (e.g. frames moved to the card the graph runs on, which
     a capture cannot do from pageable host memory, or arrays made tensors),
-    or None for a call that runs ``fn`` eagerly on its own arguments."""
+    or None for a call that runs ``fn`` eagerly on its own arguments.
+
+    ``donate_argnums`` are the positions of ``fn``'s parameters whose
+    values are donated (:class:`DonatingGraphs`); ``fn`` then returns a
+    tuple that starts with their new values."""
     signature = inspect.signature(fn)
     cache = GraphCache()
+    donate_argnums = tuple(donate_argnums)
 
     def key(*args, **kwargs) -> tuple:
         bound = signature.bind(*args, **kwargs)
@@ -318,6 +653,10 @@ def captured(fn: Callable, prepare: Callable | None = None) -> Callable:
         if runs_eagerly(tensors):
             return fn(*args, **kwargs)
         device = next((t.device for t in tensors if t.is_cuda), tensors[0].device)
+        if donate_argnums:
+            entry = cache.get(spec, lambda: DonatingGraphs(fn, spec, tensors, donate_argnums,
+                                                           device, fn.__qualname__))
+            return entry(tensors)
 
         def body(*static):
             return fn(*unflatten(spec, static))

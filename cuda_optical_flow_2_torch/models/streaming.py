@@ -19,8 +19,10 @@ checks the seed at the deepest carried pyramid level (one warp through the
 pyramid after a scene cut.
 
 On CUDA tensors ``init_state`` and ``step`` replay CUDA graphs captured once
-per key (``capture``), the counterpart of the JAX package's jitted pair; the
-eager bodies ``_init_state`` and ``_step`` run on CPU tensors and under
+per key (``capture``), the counterpart of the JAX package's jitted pair: one
+replay per call, the recovery check's two solves under one ``capture.cond``
+(JAX's ``lax.cond``), and the state donated (JAX's ``donate_argnums=(0,)``).
+The eager bodies ``_init_state`` and ``_step`` run on CPU tensors and under
 autograd.
 """
 
@@ -207,20 +209,19 @@ def _step(
         return FlowState(tuple(pyr), flow if warm_start else None), flow
     if init is None:
         flow = _cold(state, pyr, config, recovery)
-    elif bool(_seed_ok(state, pyr, config, recovery)):
-        flow = _warm(state, pyr, init, config)
     else:
-        flow = _cold(state, pyr, config, recovery)
+        flow = capture.cond(_seed_ok(state, pyr, config, recovery),
+                            lambda: _warm(state, pyr, init, config),
+                            lambda: _cold(state, pyr, config, recovery))
     return FlowState(tuple(pyr), flow), flow
 
 
 # On CUDA tensors init_state and step replay graphs captured once per key (the
 # config, the recovery, warm_start, the tensors' shapes, dtypes and device,
-# and whether the state carries a flow), as the JAX package jits them.
+# and whether the state carries a flow), as the JAX package jits them; step
+# donates its state, as JAX's step does.
 _init_state_graphs = capture.captured(_init_state)
-_step_graphs = capture.captured(_step)
-# A warm step with recovery: (check, warm solve, cold solve) per key.
-_recovery_graphs = capture.GraphCache()
+_step_graphs = capture.captured(_step, donate_argnums=(0,))
 
 
 def init_state(
@@ -248,49 +249,20 @@ def step(
     ``warm_start=True`` seeds the coarsest level with the previous pair's
     flow.  ``recovery`` (warm start only) checks that seed and, if any
     stream of the batch fails the check, re-solves the whole batch at the
-    deep config (the JAX package's ``lax.cond`` rule; here a host-side
-    branch on the check's result).
+    deep config (the JAX package's ``lax.cond`` rule, ``capture.cond``).
 
-    On CUDA tensors the step replays captured graphs: one per key, or with
-    ``recovery`` and a carried flow three (the check, which builds the new
-    pyramid and the seed; then, after the host reads the check's one flag,
-    the warm or the cold solve).  The returned state and flow are clones, as
-    the JAX package returns fresh arrays.  On CPU tensors, or under autograd
+    On CUDA tensors one replay of a graph captured for the key, recovery
+    included: the check and both solves are in the graph as conditional
+    nodes, so the host reads nothing.  The state is donated, as in JAX: a
+    state that a warm step returned is the key's own buffers, and passing it
+    to the next step copies only the frame in.  Such a state keeps its
+    values while the caller holds it (or a view of it); a step writes those
+    buffers again only once the caller has let go of them, so a state may be
+    kept, or passed twice, at the cost of a copy.  The returned flow is a
+    clone that later steps leave alone.  On CPU tensors, or under autograd
     with an input that requires grad, the eager body runs.
     """
-    if recovery is not None and warm_start and state.flow is not None:
-        spec, tensors = capture.flatten((state, frame, config, warm_start, recovery))
-        if not capture.runs_eagerly(tensors):
-            return _recovery_step(spec, tensors)
     return _step_graphs(state, frame, config, warm_start, recovery)
-
-
-def _recovery_step(spec: tuple, tensors: list[torch.Tensor]) -> tuple[FlowState, torch.Tensor]:
-    """A warm step with recovery on CUDA tensors: replay the check, read its
-    flag, replay the warm or the cold solve on the check's buffers."""
-
-    def capture_all():
-        device = tensors[0].device
-        name = "step with recovery"
-
-        def check_body(*static):
-            state, frame, config, _, recovery = capture.unflatten(spec, static)
-            pyr, init = _prepare(state, frame, config, True, recovery)
-            return tuple(pyr), init, _seed_ok(state, pyr, config, recovery)
-
-        check = capture.Graph(check_body, tensors, device, f"{name} (check)", spec)
-        state, _, config, _, recovery = capture.unflatten(spec, check.inputs)
-        pyr, init, _ = check.outputs
-        warm = capture.Graph(lambda: _warm(state, pyr, init, config), (), device,
-                             f"{name} (warm)", spec, copy=False)
-        cold = capture.Graph(lambda: _cold(state, pyr, config, recovery), (), device,
-                             f"{name} (cold)", spec, copy=False)
-        return check, warm, cold
-
-    check, warm, cold = _recovery_graphs.get(spec, capture_all)
-    pyr, _, ok = check.replay(tensors)
-    flow = (warm if bool(ok) else cold).replay()
-    return capture.clone_outputs((FlowState(pyr, flow), flow))
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:

@@ -9,10 +9,12 @@ JAX ``_jit`` within the tolerance of the family's parity test
 (tests/test_torch_pipeline.py, test_torch_horn_schunck.py,
 test_torch_farneback.py, test_torch_tvl1.py, test_torch_dis.py); the key;
 the launch counters' snapshot and delta; autograd; and the graph logic of
-the captured entries and of the three-graph recovery step, run through a
-stand-in ``capture.Graph`` that executes its body where the real one would
-capture and replay (``tests/torch_capture_stand_in.py``; the CUDA capture
-itself runs in chip_smoke.py phase 8n).
+the captured entries and of the serving step with recovery (one graph per
+key, the check's branches under ``capture.cond``), run through a stand-in
+``capture.Graph`` that executes its body where the real one would capture
+and replay (``tests/torch_capture_stand_in.py``; the donation and the cond
+in detail in tests/test_torch_capture_donation.py; the CUDA capture itself
+runs in chip_smoke.py phase 8n).
 """
 
 import dataclasses
@@ -291,10 +293,11 @@ def _serve(step_fn, init_fn, frames, cfg, rec):
 @pytest.mark.parametrize("use_pallas", [True, False])
 def test_recovery_step_graph_logic_on_cpu(stand_in, use_pallas):
     """The captured serving loop's graph logic through the stand-in graph:
-    warm steps with recovery (the check, then the warm or the cold graph on
-    the check's buffers) over a cut and a dropped frame, each flow
-    torch.equal to the eager step's; both branches taken; one key each for
-    init_state, the cold step and the recovery step."""
+    warm steps with recovery (one graph per key, the check's two solves
+    under capture.cond) over a cut and a dropped frame, each flow
+    torch.equal to the eager step's; both branches taken, on the host and
+    by the graph's device counts; one key each for init_state, the cold
+    step and the warm step (two graphs: the donated state's two sets)."""
     cfg = tof.LKConfig(levels=1, window=15, use_pallas=use_pallas)
     rec = tof.RecoveryConfig(levels=3)
     frames = _cut_frames(64, 96)
@@ -314,11 +317,15 @@ def test_recovery_step_graph_logic_on_cpu(stand_in, use_pallas):
         tstream._seed_ok = seed_ok
     for g, e in zip(got, eager, strict=True):
         assert torch.equal(g, e)
-    # built: init_state 1, cold steps (flow None) 1, recovery 3 (check, warm, cold)
-    assert StandInGraph.built == 5
-    assert len(tstream._recovery_graphs.entries) == 1
+    # built: init_state 1, cold steps (flow None) 1, warm steps 2 (G0, G1)
+    assert StandInGraph.built == 4
+    assert len(tstream._step_graphs.cache.entries) == 2
     # the check ran at capture (body) and on each warm replay; both outcomes seen
     assert True in branches and False in branches
+    warm = [e for e in tstream._step_graphs.cache.entries.values() if len(e.graphs) == 2][0]
+    capture.settle()
+    taken = [sum(g.taken[0][b] for g in warm.graphs) for b in (0, 1)]
+    assert min(taken) > 0 and sum(taken) == 4  # pairs 2, 3, 4 and 6
 
 
 def test_recovery_step_matches_jax(stand_in):
@@ -336,7 +343,8 @@ def test_recovery_step_matches_jax(stand_in):
     tcfg = interop.lk_config_from_jax(jcfg)
     new, flow = tof.step(tstate, torch.from_numpy(frames[4]), tcfg, True,
                          tof.RecoveryConfig(levels=3))
-    assert new.flow is flow  # one clone for the state's flow and the result
+    # the state's flow is the key's buffer, the returned flow a clone of it
+    assert torch.equal(new.flow, flow) and new.flow.data_ptr() != flow.data_ptr()
     np.testing.assert_allclose(flow.numpy(), np.asarray(jflow, np.float32), rtol=2e-3, atol=2e-3)
 
 
@@ -349,4 +357,4 @@ def test_public_streaming_on_cpu_is_the_eager_body():
     s1, f1 = tof.step(state, torch.from_numpy(frames[1]), cfg, True)
     s2, f2 = tstream._step(ref, torch.from_numpy(frames[1]), cfg, True)
     assert torch.equal(f1, f2) and torch.equal(s1.flow, s2.flow)
-    assert not tstream._step_graphs.cache.entries and not tstream._recovery_graphs.entries
+    assert not tstream._step_graphs.cache.entries and not tstream._init_state_graphs.cache.entries

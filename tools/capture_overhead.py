@@ -6,9 +6,11 @@ Run from the root of a checkout on a machine with one CUDA GPU.  For
 ``pyramidal_lk_jit`` at ``PAPER_1080P`` on a 1080x1920 pair, and for the
 warm serving step with recovery (``step``, ``FBConfig(levels=1,
 iterations=1)`` and ``LKConfig(levels=1, window=15)``,
-``RecoveryConfig(levels=3)``), each piece of the captured call (the key,
-the graph's replay alone and with the copy-in, the recovery check with the
-host's read of its flag, the warm graph, the clones) and the eager call:
+``RecoveryConfig(levels=3)``; one replay per step, the state donated),
+each piece of the captured call (the key; the graph's replay alone and
+with the copy-in; for the step the frame's copy-in, the replay of the
+graph that reads the passed state's buffer set, and the flow's clone) and
+the eager call:
 
 - host enqueue: wall time per call of 200 back-to-back calls, the device
   not awaited;
@@ -71,7 +73,6 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     import cuda_optical_flow_2_torch as of
-    from cuda_optical_flow_2_torch import capture
     from cuda_optical_flow_2_torch.models import streaming
     from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
 
@@ -108,19 +109,19 @@ def main() -> int:
         name = type(scfg).__name__
         state = of.init_state(frames[0], scfg, rec)
         state, _ = of.step(state, frames[1], scfg, True, rec)
-        nxt = frames[2]
-        of.step(state, nxt, scfg, True, rec)
-        check, warm, _cold = list(streaming._recovery_graphs.entries.values())[-1]
-        _, tensors = capture.flatten((state, nxt, scfg, True, rec))
+        # the first warm step copies the state into set 0 and returns set 1
+        state, _ = of.step(state, frames[2], scfg, True, rec)
+        nxt = frames[3]
+        entry = streaming._step_graphs.cache.entries[streaming._step_graphs.key(
+            state, nxt, scfg, True, rec)]
+        graph = entry.graphs[1]  # reads set 1, the passed state's
+        frame_buffer = [t for t, donated in zip(graph.inputs, entry.mask) if not donated][0]
         for label, fn in {
             f"step {name} warm with recovery": lambda: of.step(state, nxt, scfg, True, rec),
-            "  key": lambda: capture.flatten((state, nxt, scfg, True, rec)),
-            "  check replay with the copy-in": lambda: check.replay(tensors),
-            "  check + the host's read of its flag": lambda: bool(check.replay(tensors)[2]),
-            "  warm replay": lambda: warm.replay(),
-            "  check + flag + warm": lambda: (bool(check.replay(tensors)[2]), warm.replay()),
-            "  clones of the state and flow": lambda: capture.clone_outputs(
-                (streaming.FlowState(check.outputs[0], warm.outputs), warm.outputs)),
+            "  key": lambda: streaming._step_graphs.key(state, nxt, scfg, True, rec),
+            "  frame copy-in": lambda: frame_buffer.copy_(nxt),
+            "  replay (counters included)": lambda: graph.replay(),
+            "  flow clone": lambda: graph.outputs[1].clone(),
             f"_step {name} (eager)": lambda: streaming._step(state, nxt, scfg, True, rec),
         }.items():
             report(label, fn)
