@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port on one CUDA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 8p   # phase 8p alone, on every card present
 
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``cuda_optical_flow_2_torch/csrc`` (one nvcc per source, in parallel) and
@@ -180,6 +181,24 @@ then, in order:
    nodes, pool MB and capture seconds; every band kernel launched inside a
    replay.  The plain references of phases 8f and 9 for the TP and tracking
    paths run the eager bodies, as before these entries were captured;
+8p. every multi-device entry over the cards present (on one card over
+   meshes that name it ``cuda`` and ``cuda:0`` in turn, which the
+   placement rule counts as two devices): DP (``sharded_flow`` of the five
+   family defaults, 8 pairs at 1080x1920 over 4 mesh entries;
+   ``sharded_pyramidal_lk``; ``chunked_flow`` on each card), spatial TP at
+   2160x3840 (``HSConfig()`` and ``FBConfig()`` over 4, phase 8o's LK,
+   TV-L1 and DIS entries over 3), ``grid_pyramidal_lk`` (``REFERENCE_GPU``)
+   and ``grid_pyramidal_flow`` (``TVL1_REALTIME``) over 2 x 2, one warm LK
+   and FB serving stream with recovery per mesh entry, the ``sharded_batch``
+   and ``spatial_tp`` examples, and one NCCL process per card: each
+   ``torch.equal`` to its eager body and to the same entry with its shards
+   on one card, launches the eager call's, every TP / grid graph spanning
+   its axis's cards, no host read in a warm call, TP bit-equal to the
+   unsharded path (DIS within ``DIS_TP_MAX_ERR``), DP's cards running at
+   once; ms captured and eager on the cards and on one card, device busy
+   per card, the copies between cards, pool MB per card, capture seconds.
+   ``python3 chip_smoke.py --phase 8p`` runs it alone after the build, on
+   every card of the machine (its last line the ok line, no kernel line);
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K; host time included; ``consistent_flow`` with the fill off
    and on, the fill alone, ``good_features`` and ``track_sequence`` per
@@ -598,18 +617,27 @@ profile_lead = PROFILE_LEAD
 lost_traces = 0  # traces taken again because a spin or its leads were lost
 
 
+def sync_all() -> None:
+    """Wait for every card."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def traced(fn, calls: int) -> tuple[list, float]:
-    """The device events ``(start_us, end_us, name)`` of ``calls`` calls of
-    ``fn`` in time order, and the host's wall seconds for those calls, from
-    a trace whose two spins arrived with a lead kernel outside each (after
-    one unprofiled call)."""
+    """The device events ``(start_us, end_us, name, card)`` of ``calls``
+    calls of ``fn`` in time order, every card's, and the host's wall seconds
+    for those calls (every card awaited), from a trace whose two spins (on
+    the current card) arrived with a lead kernel outside each (after one
+    unprofiled call)."""
     global lost_traces, profile_lead
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
+    sync_all()
     lead = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -617,20 +645,20 @@ def traced(fn, calls: int) -> tuple[list, float]:
             for _ in range(profile_lead):
                 lead.add_(1)
             torch.cuda._sleep(PROFILE_MARK_CYCLES)
-            torch.cuda.synchronize()
+            sync_all()
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
+            sync_all()
             wall = time.perf_counter() - t0
             torch.cuda._sleep(PROFILE_MARK_CYCLES)
             for _ in range(profile_lead):
                 lead.add_(1)
-            torch.cuda.synchronize()
+            sync_all()
             time.sleep(PROFILE_PAD_S)
-        dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                     if e.device_type == DeviceType.CUDA)
-        spins = [i for i, (_, _, name) in enumerate(dev) if "spin_kernel" in name]
+        dev = sorted((e.time_range.start, e.time_range.end, e.name, e.device_index)
+                     for e in prof.events() if e.device_type == DeviceType.CUDA)
+        spins = [i for i, (_, _, name, _) in enumerate(dev) if "spin_kernel" in name]
         if len(spins) == 2 and spins[0] > 0 and spins[1] < len(dev) - 1:
             return dev[spins[0] + 1:spins[1]], wall
         lost_traces += 1
@@ -653,7 +681,7 @@ def profile_path(fn, pairs: int) -> dict:
     dev, wall = traced(fn, pairs)
     busy, end = 0.0, -math.inf
     by_name: dict[str, float] = {}
-    for s, e, name in dev:
+    for s, e, name, _ in dev:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
         by_name[name] = by_name.get(name, 0.0) + (e - s)
@@ -1361,7 +1389,7 @@ def back_to_back_ms(fn, n: int) -> float:
 def device_names(fn) -> list:
     """The device events (kernels, copies, memsets) of one call of ``fn``,
     after one unprofiled call."""
-    return [name for _, _, name in traced(fn, 1)[0]]
+    return [name for _, _, name, _ in traced(fn, 1)[0]]
 
 
 def phase_8n(of, dev, run_path, card: str) -> dict:
@@ -1904,7 +1932,492 @@ def phase_8o(of, dev, run_path, card: str) -> dict:
     return out
 
 
-def main() -> int:
+# --- phase 8p: every multi-device entry on the cards present ----------------
+
+# px: DIS under spatial TP against the unsharded path, max |d|: PERF.md §6
+# states "within 2.9e-4 px" to two figures (the refinement's window means sum
+# from each band's first row); the card shows 2.91e-4 at 4K for
+# DISConfig(levels=4) on 3 shards, so the limit is what rounds to 2.9e-4.
+# Spatial TP of LK, HS, TV-L1 and FB is bit-equal to the unsharded path.
+DIS_TP_MAX_ERR = 2.95e-4
+REPS_8P = 5
+# DP over several cards: the device's busy time on any card at most this
+# share of the cards' summed busy time (1 when they take turns, 1 / n when
+# all n run at once): every shard is enqueued before the gather
+OVERLAP_SHARE = 0.9
+NCCL_PAIRS = 8
+NCCL_TIMEOUT = 300  # s, for all worker processes
+
+
+def mesh_cards(n_cards: int, k: int) -> list:
+    """``k`` mesh entries over the cards present: ``cuda:0``, ``cuda:1``, ...
+    in turn, or on one card ``cuda`` and ``cuda:0`` in turn (two devices to
+    ``parallel.spatial.one_device``, one card)."""
+    import torch
+
+    if n_cards == 1:
+        return [torch.device("cuda") if i % 2 == 0 else torch.device("cuda", 0) for i in range(k)]
+    return [torch.device("cuda", i % n_cards) for i in range(k)]
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host ms of one call of ``fn`` from every card idle to every
+    card done (after one call outside the clock)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        sync_all()
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def profile_cards(fn, calls: int) -> dict:
+    """torch.profiler over ``calls`` calls: device busy ms per call on each
+    card (merged kernel and copy intervals) and on any card (the union: it
+    falls below the cards' sum as far as they run at once), and the copies
+    between cards per call (the peer memcpy events, ``Memcpy PtoP``): their
+    ms and count."""
+    dev, _ = traced(fn, calls)
+    busy: dict = {}
+    end: dict = {}
+    union, last = 0.0, -math.inf
+    peer_ms = peer_n = 0
+    for s, e, name, card in dev:
+        busy[card] = busy.get(card, 0.0) + max(0.0, e - max(s, end.get(card, -math.inf)))
+        end[card] = max(end.get(card, -math.inf), e)
+        union += max(0.0, e - max(s, last))
+        last = max(last, e)
+        if "PtoP" in name:
+            peer_ms += e - s
+            peer_n += 1
+    return {"busy_ms": {card: b / 1e3 / calls for card, b in sorted(busy.items())},
+            "union_ms": union / 1e3 / calls,
+            "peer_ms": peer_ms / 1e3 / calls, "peer_copies": peer_n / calls}
+
+
+def nccl_worker(rank: int, nproc: int, port: int, out_dir: str) -> int:
+    """One process of phase 8p's multihost run, one per card: join the
+    NCCL group (``multihost.initialize`` with the default backend picks the
+    process's own card), feed this process's slice of the 8-pair batch
+    through ``sharded_flow_from_local``, save the flow, gather every
+    process's checksum over NCCL, print the ms per pair."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    import cuda_optical_flow_2_torch as of
+    from cuda_optical_flow_2_torch.parallel import multihost
+    from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
+
+    multihost.initialize(f"localhost:{port}", nproc, rank)
+    backend = dist.get_backend()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = multihost.make_global_mesh()
+    per, off = multihost.host_local_batch(NCCL_PAIRS, mesh)
+    fr = synthetic_sequence(NCCL_PAIRS + 1, 1080, 1920, velocity=(2.0, 1.0), period=48)
+    prev = np.stack(fr[off:off + per]).astype(np.float32)
+    nxt = np.stack(fr[off + 1:off + per + 1]).astype(np.float32)
+
+    def run():
+        return multihost.sharded_flow_from_local(prev, nxt, of.PAPER_1080P, mesh)
+
+    flow = run()
+    ms = cuda_ms(run, reps=10) / per
+    torch.save(flow.cpu(), Path(out_dir) / f"nccl{rank}.pt")
+    total = flow.double().sum().float()
+    sums = [torch.zeros((), device=dev) for _ in range(nproc)]
+    dist.all_gather(sums, total)  # the group's one collective: every process's checksum
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "backend": backend, "card": dev.index, "pairs": per,
+                      "offset": off, "ms_per_pair": ms, "mesh": str(mesh),
+                      "checksums": [float(x) for x in sums]}))
+    print("NCCL_OK", flush=True)
+    return 0
+
+
+def phase_8p(of, dev, run_path, card: str) -> dict:
+    """Every multi-device entry on distinct cards (on one card: over meshes
+    that name it ``cuda`` and ``cuda:0`` in turn) against the same entry
+    with its shards on one card: DP, spatial TP, grid, serving per card,
+    the two mesh examples and NCCL multihost; print one line per path;
+    return the numbers for PERF.md."""
+    import contextlib
+    import io
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+
+    from cuda_optical_flow_2_torch import capture, parallel
+    from cuda_optical_flow_2_torch.examples import sharded_batch, spatial_tp
+    from cuda_optical_flow_2_torch.models import _jit_entry, streaming
+    from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                          timeout=60)
+    topo = (topo.stdout + topo.stderr).rstrip()
+    print(f"phase 8p distinct cards {n_cards}: "
+          + "; ".join(torch.cuda.get_device_name(i) for i in range(n_cards))
+          + ("" if n_cards > 1 else "; the meshes name the one card as cuda and cuda:0 in turn "
+             "(two devices to one_device, so the several-devices path runs; no copy crosses "
+             "cards)"))
+    print(f"phase 8p cards (name, power limit):\n{smi}")
+    print(f"phase 8p nvidia-smi topo -m:\n{topo}")
+    peers = {(a, b): torch.cuda.can_device_access_peer(a, b)
+             for a in range(n_cards) for b in range(n_cards) if a != b}
+    print("phase 8p peer access: " + ("; ".join(f"{a}->{b} {ok}" for (a, b), ok in peers.items())
+                                      or "one card, no pair"))
+    captures = parallel.spatial.peer_access(cards)
+    require(captures == all(peers.values()),
+            "8p: spatial.peer_access disagrees with can_device_access_peer")
+    if not captures:
+        print("phase 8p: a pair of cards lacks peer access, so a TP or grid entry over them "
+              "runs its eager body (parallel.spatial.peer_access): a graph cannot hold a copy "
+              "between them")
+
+    def cuda(a):
+        return torch.as_tensor(a, device=dev).float()
+
+    def reserved() -> list:
+        sync_all()
+        torch.cuda.empty_cache()
+        return [torch.cuda.memory_reserved(c) for c in cards]
+
+    def no_sync(fn) -> str:
+        sync_all()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            return ""
+        except RuntimeError as exc:
+            return str(exc).splitlines()[0][:160]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def graphs_of(caches) -> list:
+        return [g for c in caches for g in c.entries.values()]
+
+    out: dict = {}
+
+    def run(label, jit, eager, args_n, args_1, caches, span, extra=None, overlap=False):
+        """One entry: captured against eager over the mesh of distinct cards
+        (``args_n``) and against the same entry with its shards on one card
+        (``args_1``); every graph of the call spans ``span`` cards (None:
+        the call runs eagerly, no graph); with ``overlap`` the cards must
+        run at once."""
+        capture.clear()
+        want, counts = run_path(f"8p eager {label}", lambda: eager(*args_n), ())
+        require(counts, f"8p {label}: the eager call launched no kernel")
+        before = reserved()
+        graphs = capture.graphs_captured()
+        t0 = time.perf_counter()
+        got, c_counts = run_path(f"8p captured {label}", lambda: jit(*args_n), ())
+        first_s = time.perf_counter() - t0
+        n_graphs = capture.graphs_captured() - graphs
+        pool = [(r - b) / 2**20 for r, b in zip(reserved(), before)]
+        require(c_counts == counts, f"8p {label}: captured launches {c_counts}, eager {counts}")
+        require(torch.equal(got, want), f"8p {label}: captured not torch.equal to eager")
+        held = graphs_of(caches)
+        spans = sorted({len({g.device, *g.peers}) for g in held})
+        require(n_graphs == len(held) and spans == ([] if span is None else [span]),
+                f"8p {label}: {n_graphs} graphs captured, {len(held)} held, spanning {spans} "
+                f"cards, not {span}")
+        capture_s = sum(g.seconds for g in held)
+        again, a_counts = run_path(f"8p captured again {label}", lambda: jit(*args_n), ())
+        require(torch.equal(again, want) and a_counts == counts
+                and capture.graphs_captured() == graphs + n_graphs,
+                f"8p {label}: a second call differs, launched otherwise or captured again")
+        synced = no_sync(lambda: jit(*args_n))
+        require(not synced, f"8p {label}: a warm call synchronised: {synced}")
+        want1 = eager(*args_1)
+        got1, counts1 = run_path(f"8p captured one card {label}", lambda: jit(*args_1), ())
+        require(torch.equal(want1, want) and torch.equal(got1, got) and counts1 == counts,
+                f"8p {label}: not torch.equal to the same entry with its shards on one card")
+        what = ""
+        if extra is not None:
+            ok, what = extra(got)
+            require(ok, f"8p {label}: {what}")
+        ms = {name: wall_ms(fn, REPS_8P) for name, fn in (
+            ("captured", lambda: jit(*args_n)), ("eager", lambda: eager(*args_n)),
+            ("captured one card", lambda: jit(*args_1)), ("eager one card", lambda: eager(*args_1)))}
+        prof = profile_cards(lambda: jit(*args_n), 3)
+        total = sum(prof["busy_ms"].values())
+        if overlap and len(prof["busy_ms"]) > 1:
+            require(prof["union_ms"] <= OVERLAP_SHARE * total,
+                    f"8p {label}: the cards did not run at once: busy on any card "
+                    f"{prof['union_ms']:.3f} ms of their sum {total:.3f}")
+        row = out[label] = {"ms": ms, "busy_ms": prof["busy_ms"], "union_ms": prof["union_ms"],
+                            "peer_ms": prof["peer_ms"],
+                            "peer_copies": prof["peer_copies"], "pool_mb": pool,
+                            "capture_s": capture_s, "first_call_s": first_s, "graphs": n_graphs,
+                            "launches": counts}
+        print(f"phase 8p {label} [{card}]: captured torch.equal to eager and to the shards on "
+              f"one card, launches {counts} = eager; {n_graphs} graph(s) of {span} card(s) "
+              f"each, captured once, no sync in a warm call{'; ' + what if what else ''}; ms "
+              f"per call captured {ms['captured']:.3f} / eager {ms['eager']:.3f} over "
+              f"[{', '.join(args_devices(args_n))}], captured {ms['captured one card']:.3f} "
+              f"/ eager {ms['eager one card']:.3f} with the shards on one card (host clock, "
+              f"median of {REPS_8P}); device busy per card "
+              + ", ".join(f"{c}: {b:.3f}" for c, b in row["busy_ms"].items())
+              + f" ms (any card {prof['union_ms']:.3f} of their sum {total:.3f}); copies "
+              f"between cards {prof['peer_ms']:.3f} ms in "
+              f"{prof['peer_copies']:.0f} peer memcpys per call; pool MB per card "
+              + ", ".join(f"{p:.1f}" for p in pool)
+              + f"; capture {capture_s:.3f} s (first call {first_s:.3f} s)")
+        return got
+
+    def args_devices(args) -> list:
+        mesh = next(a for a in args if isinstance(a, parallel.Mesh))
+        return [str(d) for d in mesh.devices.reshape(-1)]
+
+    # DP: an 8-pair 1080x1920 batch over 4 mesh entries, two pairs each
+    fr = synthetic_sequence(9, 1080, 1920, velocity=(2.0, 1.0), period=48)
+    bp = torch.from_numpy(np.stack(fr[:-1]).astype(np.float32)).to(dev)
+    bn = torch.from_numpy(np.stack(fr[1:]).astype(np.float32)).to(dev)
+    del fr
+    dp_n = parallel.Mesh(mesh_cards(n_cards, 4), ("batch",))
+    dp_1 = parallel.Mesh([dev] * 4, ("batch",))
+    dp_families = {"PAPER_1080P": of.PAPER_1080P, "HSConfig()": of.HSConfig(),
+                   "FBConfig()": of.FBConfig(), "TVL1_REALTIME": of.TVL1_REALTIME,
+                   "DISConfig()": of.DISConfig()}
+    for name, cfg in dp_families.items():
+        run(f"DP sharded_flow {name} 8 x 1080x1920 over 4", parallel.sharded_flow,
+            parallel.sharded_flow.eager, (bp, bn, cfg, dp_n), (bp, bn, cfg, dp_1),
+            [_jit_entry(cfg).cache], 1, overlap=True)
+    capture.clear()
+    lk_alias = parallel.sharded_pyramidal_lk(bp, bn, of.PAPER_1080P, dp_n)
+    require(torch.equal(lk_alias, parallel.sharded_flow(bp, bn, of.PAPER_1080P, dp_1)),
+            "8p sharded_pyramidal_lk differs from sharded_flow on one card")
+    chunked = [parallel.chunked_flow(bp.to(c), bn.to(c), of.PAPER_1080P, 2) for c in cards]
+    one = parallel.chunked_flow.eager(bp, bn, of.PAPER_1080P, 2)
+    require(all(torch.equal(f.to(dev), one) for f in chunked),
+            "8p chunked_flow on a card differs from the eager call on card 0")
+    require(len(parallel.chunked_flow.cache.entries) == n_cards,
+            f"8p chunked_flow: {len(parallel.chunked_flow.cache.entries)} keys for {n_cards} "
+            "card(s)")
+    print(f"phase 8p DP sharded_pyramidal_lk PAPER_1080P over 4 [{card}]: torch.equal to "
+          f"sharded_flow with the shards on one card; chunked_flow (8 pairs, chunk 2) on each "
+          f"of {n_cards} card(s), one graph per card, torch.equal to the eager call on card 0")
+    del lk_alias, chunked, one, bp, bn
+    capture.clear()
+
+    # spatial TP at 2160x3840: HS and FB over 4 mesh entries, the other four
+    # over 3 (phase 8o's shapes), each against its shards on one card and the
+    # unsharded path
+    a = synthetic_sequence(2, 2160, 3840, velocity=(2.0, 1.0), period=48)
+    b = synthetic_sequence(2, 2160, 3840, velocity=(-1.0, 1.5), period=48, seed=1)
+    ua, va, ub, vb = cuda(a[0]), cuda(a[1]), cuda(b[0]), cuda(b[1])
+    del a, b
+
+    def unsharded(cfg, limit):
+        def check(flow):
+            e = err_stats(flow, of.pyramidal_flow(ua, va, cfg))
+            return e["max"] <= limit, f"vs unsharded max |d| {e['max']:.3g} (limit {limit})"
+        return check
+
+    tp = {
+        "HSConfig()": (parallel.spatial_pyramidal_hs, of.HSConfig(), 4, 0.0),
+        "FBConfig()": (parallel.spatial_pyramidal_fb, of.FBConfig(), 4, 0.0),
+        "PAPER_1080P": (parallel.spatial_pyramidal_lk, of.PAPER_1080P, 3, 0.0),
+        "REFERENCE_GPU": (parallel.spatial_pyramidal_lk, of.REFERENCE_GPU, 3, 0.0),
+        "TVL1_REALTIME": (parallel.spatial_pyramidal_tvl1, of.TVL1_REALTIME, 3, 0.0),
+        "DISConfig(levels=4)": (parallel.spatial_pyramidal_dis, of.DISConfig(levels=4), 3,
+                                DIS_TP_MAX_ERR),
+    }
+    for name, (entry, cfg, k, limit) in tp.items():
+        mesh_n = parallel.make_mesh(axis_name="space", devices=mesh_cards(n_cards, k))
+        mesh_1 = parallel.make_mesh(axis_name="space", devices=[dev] * k)
+        span = min(k, n_cards) if captures else None
+        run(f"TP {name} 2160x3840 over {k}", entry, entry.eager, (ua, va, cfg, mesh_n),
+            (ua, va, cfg, mesh_1), [entry.cache], span, unsharded(cfg, limit))
+
+    # grid: 2 (batch) x 2 (space) mesh entries, one TP group per batch index
+    pg, ng = torch.stack([ua, ub]), torch.stack([va, vb])
+    grid_n = parallel.Mesh(np.array(mesh_cards(n_cards, 4), dtype=object).reshape(2, 2),
+                           ("batch", "space"))
+    grid_1 = parallel.Mesh([[dev] * 2] * 2, ("batch", "space"))
+    grid_span = min(2, n_cards) if captures else None
+    run("grid_pyramidal_lk REFERENCE_GPU 2 x 2160x3840 over 2 x 2", parallel.grid_pyramidal_lk,
+        parallel.grid_pyramidal_lk.eager, (pg, ng, of.REFERENCE_GPU, grid_n),
+        (pg, ng, of.REFERENCE_GPU, grid_1), [parallel.spatial_pyramidal_lk.cache], grid_span)
+    run("grid_pyramidal_flow TVL1_REALTIME 2 x 2160x3840 over 2 x 2",
+        parallel.grid_pyramidal_flow, parallel.grid_pyramidal_flow.eager,
+        (pg, ng, of.TVL1_REALTIME, grid_n), (pg, ng, of.TVL1_REALTIME, grid_1),
+        [parallel.spatial_pyramidal_tvl1.cache], grid_span)
+    del ua, va, ub, vb, pg, ng
+    capture.clear()
+
+    # serving: one stream per mesh entry, its frames a sharded batch, the
+    # captured init_state / step on each card's shard with recovery, against
+    # the eager loop of each stream on card 0
+    recovery = of.RecoveryConfig(levels=3)
+    k = max(n_cards, 2)
+    serve_mesh = parallel.Mesh(mesh_cards(n_cards, k), ("batch",))
+    base = scene_frames(1080, 1920)
+    # stream c: phase 6's frames shifted 40 c px across (another scene per stream)
+    batches = [None if f is None else torch.stack([cuda(np.roll(f, 40 * c, axis=1))
+                                                   for c in range(k)]) for f in base]
+    for label, cfg in (("LK levels=1", of.LKConfig(levels=1, window=15)),
+                       ("FB levels=1 iterations=1", of.FBConfig(levels=1, iterations=1))):
+        def eager_loop():
+            flows = {}
+            for c in range(k):
+                state = streaming._init_state(batches[0][c:c + 1], cfg, recovery)
+                for t, f in enumerate(batches[1:], start=1):
+                    if f is None:
+                        state = streaming.FlowState(state.pyramid, None)
+                        continue
+                    state, flows[c, t] = streaming._step(state, f[c:c + 1], cfg, True, recovery)
+            return flows
+
+        def loop(mesh):
+            shards = [None if f is None else parallel.shard_batch(f, mesh) for f in batches]
+            states = [of.init_state(s, cfg, recovery) for s in shards[0]]
+            flows = {}
+            for t, f in enumerate(shards[1:], start=1):
+                for c in range(k):
+                    if f is None:
+                        states[c] = streaming.FlowState(states[c].pyramid, None)
+                        continue
+                    states[c], flows[c, t] = of.step(states[c], f[c], cfg, True, recovery)
+            return flows, states
+
+        capture.clear()
+        want, counts = run_path(f"8p eager serving {label}", eager_loop, ())
+        graphs = capture.graphs_captured()
+        (got, states), c_counts = run_path(f"8p captured serving {label}",
+                                           lambda: loop(serve_mesh), ())
+        n_graphs = capture.graphs_captured() - graphs
+        require(sorted(got) == sorted(want)
+                and all(torch.equal(got[key].to(dev), want[key]) for key in want),
+                f"8p serving {label}: a card's step differs from one card's eager step")
+        require(c_counts == counts, f"8p serving {label}: launches after settle() {c_counts}, "
+                                    f"eager {counts}")
+        capture.settle()
+        entries = list(streaming._step_graphs.cache.entries.values())
+        replays = sum(g.replays for e in entries
+                      for g in [*e.graphs, *([e.plain] if e.plain is not None else [])])
+        steps = len(got)
+        require(replays == steps, f"8p serving {label}: {replays} replays for {steps} steps")
+        cards_used = sorted({f.device.index for f in got.values()})
+        # a warm step on each card's stream, under the sync check
+        nxt = parallel.shard_batch(batches[3], serve_mesh)
+        for c in range(k):
+            states[c], _ = of.step(states[c], nxt[c], cfg, True, recovery)
+        synced = no_sync(lambda: [of.step(states[c], nxt[c], cfg, True, recovery)
+                                  for c in range(k)])
+        require(not synced, f"8p serving {label}: a warm step synchronised: {synced}")
+        ms = wall_ms(lambda: [of.step(states[c], nxt[c], cfg, True, recovery) for c in range(k)],
+                     REPS_8P * 2)
+        eager_ms = wall_ms(lambda: [streaming._step(states[c], nxt[c], cfg, True, recovery)
+                                    for c in range(k)], REPS_8P * 2)
+        prof = profile_cards(lambda: [of.step(states[c], nxt[c], cfg, True, recovery)
+                                      for c in range(k)], 3)
+        # the same streams with every shard on one card
+        (got1, states1), _ = run_path(f"8p captured serving one card {label}",
+                                      lambda: loop(parallel.Mesh([dev] * k, ("batch",))), ())
+        require(all(torch.equal(got1[key], want[key]) for key in want),
+                f"8p serving {label}: the streams on one card differ from the eager steps")
+        nxt1 = parallel.shard_batch(batches[3], parallel.Mesh([dev] * k, ("batch",)))
+        ms1 = wall_ms(lambda: [of.step(states1[c], nxt1[c], cfg, True, recovery)
+                               for c in range(k)], REPS_8P * 2)
+        capture_s = sum(g.seconds for e in entries for g in e.graphs)
+        out[f"serving {label}"] = {"ms": ms, "eager_ms": eager_ms, "ms_one_card": ms1,
+                                   "busy_ms": prof["busy_ms"], "graphs": n_graphs,
+                                   "capture_s": capture_s, "launches": counts}
+        print(f"phase 8p serving {label} {k} streams x 8 frames 1080x1920 [{card}]: each "
+              f"stream's steps on its card (cards {cards_used}) torch.equal to its eager steps "
+              f"on card 0, across the cut; launches {counts} = eager after settle(); {replays} "
+              f"replays for {steps} steps; {n_graphs} graphs captured; no sync in a warm step "
+              f"of any card; one step on every stream {ms:.3f} ms captured vs {eager_ms:.3f} "
+              f"eager, {ms1:.3f} captured with every stream on one card (host clock, median of "
+              f"{REPS_8P * 2}); device busy per card "
+              + ", ".join(f"{c}: {b:.3f}" for c, b in prof["busy_ms"].items())
+              + f" ms per lockstep; capture {capture_s:.3f} s")
+        del got, got1, want, states, states1, nxt, nxt1
+    del batches
+    capture.clear()
+
+    # the two mesh examples on every card
+    expect = example_launches(n_cards)
+    for name, mod in (("sharded_batch", sharded_batch), ("spatial_tp", spatial_tp)):
+        buf = io.StringIO()
+        tmp = tempfile.mkdtemp(prefix="of2_8p_")
+        try:
+            with contextlib.redirect_stdout(buf):
+                res, counts = run_path(f"8p example {name}",
+                                       lambda: mod.main(device="cuda", out_dir=tmp), ())
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        require(counts == expect[name], f"8p example {name} launches {counts}, predicted "
+                                        f"{expect[name]} for {n_cards} card(s)")
+        print(f"phase 8p example {name} [{card}]: launches {counts} (example_launches("
+              f"{n_cards})); printed: " + " | ".join(x.strip() for x in buf.getvalue().splitlines()))
+    capture.clear()
+
+    # multihost: one NCCL process per card, each its slice of 8 PAPER_1080P pairs
+    nproc = max(p for p in (1, 2, 4) if p <= n_cards)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="of2_8p_")
+    try:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--nccl-worker", str(rank),
+             str(nproc), str(port), tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for rank in range(nproc)]
+        try:
+            outs = [proc.communicate(timeout=NCCL_TIMEOUT)[0] for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        for rank, (proc, text) in enumerate(zip(procs, outs)):
+            require(proc.returncode == 0 and "NCCL_OK" in text,
+                    f"NCCL worker {rank} failed ({proc.returncode}):\n{text[-3000:]}")
+        fr = synthetic_sequence(NCCL_PAIRS + 1, 1080, 1920, velocity=(2.0, 1.0), period=48)
+        gp = torch.from_numpy(np.stack(fr[:-1]).astype(np.float32)).to(dev)
+        gn = torch.from_numpy(np.stack(fr[1:]).astype(np.float32)).to(dev)
+        want = parallel.sharded_flow(gp, gn, of.PAPER_1080P, parallel.make_mesh(devices=[dev]))
+        recs = [json_records(text)[-1] for text in outs]
+        sums = [float(want[r["offset"]:r["offset"] + r["pairs"]].double().sum().float())
+                for r in recs]
+        for rank, rec in enumerate(recs):
+            got = torch.load(Path(tmp) / f"nccl{rank}.pt").to(dev)
+            lo = rec["offset"]
+            require(rec["backend"] == "nccl" and rec["card"] == rank,
+                    f"NCCL rank {rank}: backend {rec['backend']}, card {rec['card']}")
+            require(torch.equal(got, want[lo:lo + rec["pairs"]]),
+                    f"NCCL rank {rank}: flow not bit-equal to one process's sharded_flow")
+            require(rec["checksums"] == sums, f"NCCL rank {rank}: gathered checksums "
+                                              f"{rec['checksums']}, expected {sums}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["multihost NCCL ms per pair"] = [r["ms_per_pair"] for r in recs]
+    print(f"phase 8p multihost [{card}]: {nproc} NCCL process(es), one per card (cards "
+          f"{[r['card'] for r in recs]}), {NCCL_PAIRS} PAPER_1080P pairs at 1080x1920, each "
+          f"its {recs[0]['pairs']}: bit-equal to one process's sharded_flow, checksums gathered "
+          f"over NCCL; ms per pair per process "
+          + ", ".join(f"{r['ms_per_pair']:.3f}" for r in recs)
+          + f"; {time.perf_counter() - t0:.1f} s")
+    print(f"phase 8p [{card}]: {time.perf_counter() - t_phase:.1f} s; profiler: "
+          f"{profiler_note()}")
+    return out
+
+
+def main(only: str | None = None) -> int:
     if not (ROOT / "cuda_optical_flow_2_torch" / "csrc").is_dir():
         print("chip_smoke: cuda_optical_flow_2_torch/ not found beside this script", file=sys.stderr)
         return 2
@@ -1954,6 +2467,38 @@ def main() -> int:
     _build.library()
     print(f"phase 2 build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds():.1f} s, "
           "one process per source)")
+
+    path_launches: dict[str, dict[str, int]] = {}
+
+    def run_path(label: str, fn, needs: tuple[str, ...]):
+        """Zero the counters, drive one path, read them: each kernel in
+        ``needs`` must have launched."""
+        capture.settle()  # replays before the path count before the zero
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        for name in CENTERED:
+            wrappers[name].launches_centered = 0
+        lk_step_fused.lk_level_step.launches_half = 0
+        out = fn()
+        torch.cuda.synchronize()
+        capture.settle()  # the cond branches that replays ran count here
+        counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
+        counts |= {f"{name} centered": wrappers[name].launches_centered for name in CENTERED}
+        counts[HALF] = lk_step_fused.lk_level_step.launches_half
+        for name in needs:
+            require(counts[name] > 0, f"path {label} did not launch {name}: {counts}")
+        path_launches[label] = counts
+        return out, {k: v for k, v in counts.items() if v}
+
+    if only == "8p":
+        # 8p alone: every multi-device entry on the cards present
+        phase_8p(of, dev, run_path, card)
+        print(f"chip_smoke --phase 8p: {time.perf_counter() - t_start:.1f} s in all")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
 
     def cuda(a):
         return torch.as_tensor(a, device=dev)
@@ -2327,28 +2872,6 @@ def main() -> int:
                     f"{cfg.winsize}x{cfg.winsize} poly_n={cfg.poly_n} "
                     f"{'first' if first else 'warm'}"))
         print(f"phase 3 kernels {h}x{w} Farnebäck: " + "; ".join(parts))
-
-    path_launches: dict[str, dict[str, int]] = {}
-
-    def run_path(label: str, fn, needs: tuple[str, ...]):
-        """Zero the counters, drive one path, read them: each kernel in
-        ``needs`` must have launched."""
-        capture.settle()  # replays before the path count before the zero
-        for wrapper in wrappers.values():
-            wrapper.launches = 0
-        for name in CENTERED:
-            wrappers[name].launches_centered = 0
-        lk_step_fused.lk_level_step.launches_half = 0
-        out = fn()
-        torch.cuda.synchronize()
-        capture.settle()  # the cond branches that replays ran count here
-        counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
-        counts |= {f"{name} centered": wrappers[name].launches_centered for name in CENTERED}
-        counts[HALF] = lk_step_fused.lk_level_step.launches_half
-        for name in needs:
-            require(counts[name] > 0, f"path {label} did not launch {name}: {counts}")
-        path_launches[label] = counts
-        return out, {k: v for k, v in counts.items() if v}
 
     # 4. path PAPER_1080P at 1080x1920
     # Period 48 px: 3 px at the fifth level.  The default 16 px is 1 px there,
@@ -3149,6 +3672,9 @@ def main() -> int:
     # 8o. the parallel/ entries, tracking and the evaluate tool's step, captured
     phase_8o(of, dev, run_path, card)
 
+    # 8p. every multi-device entry over the cards present
+    phase_8p(of, dev, run_path, card)
+
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
     for name, n_launch in launches.items():
@@ -3395,4 +3921,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-worker"]:
         sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
-    sys.exit(main())
+    if sys.argv[1:2] == ["--nccl-worker"]:
+        sys.exit(nccl_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
+    if sys.argv[1:] not in ([], ["--phase", "8p"]):
+        print(f"usage: python3 {Path(__file__).name} [--phase 8p]", file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main(only=sys.argv[2] if sys.argv[1:] else None))

@@ -25,8 +25,31 @@ there), and when autograd records and an input requires grad (a replay
 records no autograd graph, while ``jax.jit`` is transparent to
 ``jax.grad``; the kernels refuse such inputs as before).  An entry may add
 its own rule through ``prepare`` (the spatial-TP entries run eagerly on a
-mesh over several cards).  A capture or a replay that fails raises with
-its key and the CUDA error; nothing falls back to the eager body.
+mesh over cards that cannot reach each other's memory).  A capture or a
+replay that fails raises with its key and the CUDA error; nothing falls
+back to the eager body.
+
+A call whose tensors lie on several cards (a TP entry whose row blocks
+were placed on their cards) is ONE multi-device graph, as JAX's jitted
+``shard_map`` is one program: the capture begins on the first card's
+stream, each other card's capture stream joins it through an event, its
+allocations go to a pool of that card (``torch.cuda.use_mem_pool``), and
+it joins back before the capture ends.  PyTorch orders a copy between
+cards against both cards' current streams with an event pair, and in the
+capture those pairs become the graph's edges between the cards.  A replay
+is launched on the first card's current stream after that stream waits
+for every other card's current stream (where the inputs were copied in),
+and every other card's stream then waits for it (its next copy-in must not
+overwrite what the replay reads); successive replays of one graph are
+ordered by CUDA.  This is the design the card's torch and CUDA support
+with no code of our own.  The other, one graph per card linked by
+external events, needs every copy between cards issued outside PyTorch
+(its copy enqueues on the source card's stream behind an event from the
+destination card's, which would join the two captures), and on two H100s
+(torch 2.11, CUDA 12.8, ``torch.cuda.Event(external=True)``) a graph's
+wait on the other card's external record ran before that card's record of
+the same replay: each of 20 replays of a toy band exchange copied the
+previous replay's halo.
 
 ``cond(pred, true_fn, false_fn, *operands)`` is the port's ``lax.cond``:
 eagerly it runs the branch ``bool(pred)`` picks; inside a capture both
@@ -100,6 +123,7 @@ _mode: contextvars.ContextVar = contextvars.ContextVar("capture_mode", default=N
 # graphs with conds replayed since the last settle()
 _pending: dict[int, Graph] = {}
 _branch_streams: dict[int, torch.cuda.ExternalStream] = {}
+_capture_streams: dict[int, torch.cuda.Stream] = {}
 
 
 # --- launch counters -------------------------------------------------------
@@ -253,6 +277,18 @@ def _as_mode(mode):
         _mode.reset(token)
 
 
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream that ``device``'s graphs are captured on, one per card.
+    ``torch.cuda.graph``'s own default is one stream for the process, made
+    on the card current at the first capture: a capture on another card
+    then captures nothing (its body runs eagerly there, and every replay of
+    the empty graph hands back the first call's outputs)."""
+    stream = _capture_streams.get(device.index)
+    if stream is None:
+        stream = _capture_streams[device.index] = torch.cuda.Stream(device)
+    return stream
+
+
 def _branch_stream(device: torch.device) -> torch.cuda.ExternalStream:
     """The stream that ``device``'s branch bodies are captured on: one of
     its own (a pooled stream of PyTorch's may be the capturing one),
@@ -305,7 +341,9 @@ def cond(pred: torch.Tensor, true_fn: Callable, false_fn: Callable, *operands) -
 
 
 class Graph:
-    """One captured call of ``body(*inputs)`` on ``device``.
+    """One captured call of ``body(*inputs)`` on ``device`` and the cards
+    in ``peers`` (the other cards its inputs lie on: one multi-device
+    graph, module docstring).
 
     With ``copy`` the inputs are copied into static buffers of the graph,
     which :meth:`replay` refills; without it they are used as they are
@@ -325,9 +363,9 @@ class Graph:
     class's on any device."""
 
     def __init__(self, body: Callable, inputs, device: torch.device, name: str, key,
-                 copy: bool = True):
+                 copy: bool = True, peers: tuple[torch.device, ...] = ()):
         global _captured
-        self.name, self.key, self.device = name, key, device
+        self.name, self.key, self.device, self.peers = name, key, device, tuple(peers)
         self.inputs = [t.clone(memory_format=torch.contiguous_format) for t in inputs] if copy \
             else list(inputs)
         self.replays = self.copied = 0
@@ -358,24 +396,35 @@ class Graph:
         _captured += 1
 
     def _warm_up(self, body: Callable) -> None:
-        """``WARMUP`` eager runs of the body on a side stream (the kernels
-        build, the allocator settles, outside any capture)."""
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP):
-                    body(*self.inputs)
-            torch.cuda.current_stream(self.device).wait_stream(side)
+        """``WARMUP`` eager runs of the body on a side stream of each card
+        (the kernels build and load on every card, peer access is enabled,
+        the allocator settles, outside any capture)."""
+        cards = (self.device, *self.peers)
+        sides = [torch.cuda.Stream(d) for d in cards]
+        for d, side in zip(cards, sides):
+            side.wait_stream(torch.cuda.current_stream(d))
+        with contextlib.ExitStack() as stack:
+            for side in sides:
+                stack.enter_context(torch.cuda.stream(side))
+            stack.enter_context(torch.cuda.device(self.device))
+            for _ in range(WARMUP):
+                body(*self.inputs)
+        for d, side in zip(cards, sides):
+            torch.cuda.current_stream(d).wait_stream(side)
 
     def _capture(self, body: Callable) -> Any:
         """Capture the body into ``self.graph``; returns its static outputs."""
         with torch.cuda.device(self.device):
             self.graph = torch.cuda.CUDAGraph()
             pool = torch.cuda.graph_pool_handle()  # a new pool, as without one
+            self._peer_pools = []
+            for d in self.peers:
+                torch.cuda.synchronize(d)  # a joining stream starts with nothing pending
+                with torch.cuda.device(d):  # a MemPool belongs to the card current at its making
+                    self._peer_pools.append(torch.cuda.MemPool())
             try:
-                with torch.cuda.graph(self.graph, pool=pool):
-                    return body(*self.inputs)
+                with torch.cuda.graph(self.graph, pool=pool, stream=_capture_stream(self.device)):
+                    return self._across_peers(body)
             except Exception:
                 # A capture that the CUDA runtime ended in error leaves the
                 # caching allocator recording into the graph's pool, and a
@@ -387,18 +436,42 @@ class Graph:
                     pass
                 raise
 
+    def _across_peers(self, body: Callable) -> Any:
+        """Run the body inside the capture with every peer's capture stream
+        joined to it and its memory in that card's pool."""
+        if not self.peers:
+            return body(*self.inputs)
+        origin = torch.cuda.current_stream(self.device)
+        streams = [_capture_stream(d) for d in self.peers]
+        with contextlib.ExitStack() as stack:
+            for d, stream, pool in zip(self.peers, streams, self._peer_pools):
+                stream.wait_stream(origin)  # the fork: this card's stream joins the capture
+                stack.enter_context(torch.cuda.stream(stream))
+                stack.enter_context(torch.cuda.use_mem_pool(pool, d))
+            stack.enter_context(torch.cuda.device(self.device))
+            out = body(*self.inputs)
+        for stream in streams:
+            origin.wait_stream(stream)  # the join
+        return out
+
     def _launch(self) -> None:
-        """Replay the graph on the current stream."""
+        """Replay the graph on the current stream, after every peer's
+        current stream and before their next work."""
         with torch.cuda.device(self.device):
+            origin = torch.cuda.current_stream(self.device)
+            for d in self.peers:
+                origin.wait_stream(torch.cuda.current_stream(d))
             self.graph.replay()
+            for d in self.peers:
+                torch.cuda.current_stream(d).wait_stream(origin)
 
     def _open_cond(self, pred: torch.Tensor) -> tuple[int, int]:
         """Capture the kernel that sets a true and a false IF handle from
         ``pred``; returns the two handles."""
-        if self._branch_pool is None:
-            self._branch_pool = torch.cuda.MemPool()
         handles = (ctypes.c_ulonglong * 2)()
         with torch.cuda.device(self.device):
+            if self._branch_pool is None:
+                self._branch_pool = torch.cuda.MemPool()
             status = _build.library().of2_cond_open(
                 pred.data_ptr(), ctypes.addressof(handles),
                 torch.cuda.current_stream(self.device).cuda_stream)
@@ -652,7 +725,8 @@ def captured(fn: Callable, prepare: Callable | None = None,
         spec, tensors = key(*args, **kwargs)
         if runs_eagerly(tensors):
             return fn(*args, **kwargs)
-        device = next((t.device for t in tensors if t.is_cuda), tensors[0].device)
+        cards = list(dict.fromkeys(t.device for t in tensors if t.is_cuda))
+        device = cards[0] if cards else tensors[0].device
         if donate_argnums:
             entry = cache.get(spec, lambda: DonatingGraphs(fn, spec, tensors, donate_argnums,
                                                            device, fn.__qualname__))
@@ -661,7 +735,8 @@ def captured(fn: Callable, prepare: Callable | None = None,
         def body(*static):
             return fn(*unflatten(spec, static))
 
-        graph = cache.get(spec, lambda: Graph(body, tensors, device, fn.__qualname__, spec))
+        graph = cache.get(spec, lambda: Graph(body, tensors, device, fn.__qualname__, spec,
+                                              peers=tuple(cards[1:])))
         return clone_outputs(graph.replay(tensors))
 
     call.eager = fn

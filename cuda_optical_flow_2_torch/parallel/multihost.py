@@ -21,6 +21,7 @@ its own block of them.
 
 from __future__ import annotations
 
+import os
 from collections.abc import Sequence
 
 import numpy as np
@@ -50,7 +51,10 @@ def initialize(
     group reads ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and
     ``RANK`` from the environment.  ``backend`` defaults to ``nccl`` when
     CUDA is present, else ``gloo``; pass ``"gloo"`` for processes that
-    share one card (NCCL refuses two ranks on one GPU).
+    share one card (NCCL refuses two ranks on one GPU).  Under NCCL the
+    process's current card becomes its own, one process per card
+    (``LOCAL_RANK``, else the rank modulo this host's cards): its default
+    global mesh and the group's collectives use it.
     """
     if dist.is_initialized():
         return
@@ -65,6 +69,16 @@ def initialize(
         world_size=-1 if num_processes is None else num_processes,
         rank=-1 if process_id is None else process_id,
     )
+    if backend == "nccl":
+        torch.cuda.set_device(_own_card(dist.get_rank()))
+
+
+def _own_card(rank: int) -> int:
+    """The card of process ``rank`` under one process per card: the
+    ``LOCAL_RANK`` a launcher such as ``torchrun`` sets, else the rank
+    modulo this host's card count (ranks numbered host by host)."""
+    local = os.environ.get("LOCAL_RANK")
+    return int(local) if local is not None else rank % torch.cuda.device_count()
 
 
 def _process() -> tuple[int, int]:
@@ -93,7 +107,8 @@ def make_global_mesh(
     """Global mesh over ALL processes' devices, in process order.
 
     ``devices`` are this process's devices (default: its current CUDA
-    device, one process per card); every process passes its own.  The
+    device, one process per card, which :func:`initialize` sets under
+    NCCL); every process passes its own.  The
     batch axis spans processes (DP has no collectives); when ``space_axis``
     is given, the spatial axis is sized to one process's device count, so
     every halo exchange stays inside a process.

@@ -14,16 +14,21 @@ throughput over many pairs prefer batch sharding (``parallel/batching.py``).
 
 Captured entries: the JAX package jits each TP entry, so here each public
 entry replays a CUDA graph (``capture.captured``) keyed on the config, the
-mesh (by value), the axis names, the tiles and the frames' shapes, with
-its eager body as ``.eager``.  The frames go to the space axis's device
-before the graph, as JAX's ``in_shardings`` place them: a capture cannot
-copy from pageable host memory, and inside the graph each block's ``.to``
-is then a no-op.  Only a space axis that lists ONE device is captured (a
-mesh over one card, several times or once); a space axis over several
-cards runs the eager body, since its halo exchanges are copies between
-cards that one graph on one card cannot hold.  The grid entries capture per
-batch group: each group is one TP call on its own space devices.  On CPU
-tensors every entry runs its eager body.
+mesh (by value), the axis names, the tiles and the frames' shapes and
+devices, with its eager body as ``.eager``.  The frames are placed before
+the graph, as JAX's ``in_shardings`` place them (a capture cannot copy from
+pageable host memory): on a space axis that lists ONE device (a mesh over
+one card, several times or once) each whole frame goes to it; on a space
+axis over several devices (:func:`one_device` is None: ``cuda:0`` and
+``cuda:1``, or ``cuda`` and ``cuda:0``, which name one card twice) each
+row block goes to its device, and the body takes the blocks as they lie.
+A call over several cards is then one multi-device graph (``capture.py``):
+its halo exchanges and the gather are copies between cards inside the
+graph.  The one exception: a space axis over cards of which two cannot
+reach each other's memory (:func:`peer_access` is False) runs the eager
+body, since a graph cannot hold a copy between them.  The grid entries
+capture per batch group: each group is one TP call on its own space
+devices.  On CPU tensors every entry runs its eager body.
 
 Exactness: away from the global top and bottom edges the sharded result is
 the unsharded computation (same zero-padded stencils, same warp fallback),
@@ -63,6 +68,7 @@ from cuda_optical_flow_2_torch.parallel.batching import Mesh
 __all__ = [
     "halo_exchange",
     "one_device",
+    "peer_access",
     "spatial_pyramidal_lk",
     "grid_pyramidal_lk",
     "validate_spatial",
@@ -376,35 +382,64 @@ def _local_pipeline(prev: Blocks, nxt: Blocks, config: LKConfig, h: int) -> Bloc
     return _local_family_pipeline(prev, nxt, config, h, level_fn)
 
 
-def _run_sharded(
-    prev: torch.Tensor, nxt: torch.Tensor, devices: list, local: Callable
-) -> torch.Tensor:
-    """Split the rows of (..., H, W) frames over ``devices``, run ``local``
-    on the blocks, and gather the (..., H, W, 2) flow on the first device."""
-    if prev.shape != nxt.shape:
-        raise ValueError(f"frame shapes differ: {tuple(prev.shape)} vs {tuple(nxt.shape)}")
-    n = len(devices)
-    blocks = [
-        [b.to(d) for b, d in zip(x.chunk(n, dim=-2), devices)] for x in (prev, nxt)
-    ]
+Frame = torch.Tensor | Blocks
+
+
+def _place(x: Frame, devices: list) -> Blocks:
+    """The row blocks of a (..., H, W) frame, each on its device of
+    ``devices``: a frame is split, a frame given as its blocks (what a
+    captured entry's placement made) is taken as it lies."""
+    blocks = list(x) if isinstance(x, (list, tuple)) else x.chunk(len(devices), dim=-2)
+    return [b.to(d) for b, d in zip(blocks, devices)]
+
+
+def _frame_hw(x: Frame) -> tuple[int, int]:
+    """(H, W) of a frame, whole or as its row blocks."""
+    if isinstance(x, (list, tuple)):
+        return sum(b.shape[-2] for b in x), x[0].shape[-1]
+    return tuple(x.shape[-2:])
+
+
+def _run_sharded(prev: Frame, nxt: Frame, devices: list, local: Callable) -> torch.Tensor:
+    """Split the rows of (..., H, W) frames over ``devices`` (or take them
+    as placed), run ``local`` on the blocks, and gather the (..., H, W, 2)
+    flow on the first device."""
+    blocks = [_place(x, devices) for x in (prev, nxt)]
+    if [b.shape for b in blocks[0]] != [b.shape for b in blocks[1]]:
+        shapes = [(*x[0].shape[:-2], *_frame_hw(x)) for x in blocks]
+        raise ValueError(f"frame shapes differ: {shapes[0]} vs {shapes[1]}")
     flow = local(*blocks)
     return torch.cat([f.to(devices[0]) for f in flow], dim=-3)
 
 
 def one_device(devices: Sequence[torch.device]) -> torch.device | None:
     """The device that every entry of ``devices`` names, or None when they
-    name more than one: the rule for a TP entry's capture (module
-    docstring).  Devices compare as ``torch.device`` does, so ``cuda`` and
-    ``cuda:0`` count as two."""
+    name more than one: whether a TP entry's frames go whole to one device
+    or as row blocks to theirs (module docstring).  Devices compare as
+    ``torch.device`` does, so ``cuda`` and ``cuda:0`` count as two."""
     first = devices[0]
     return first if all(d == first for d in devices) else None
 
 
+def _card(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def peer_access(devices: Sequence[torch.device]) -> bool:
+    """Whether every two distinct cards among ``devices`` can reach each
+    other's memory (``torch.cuda.can_device_access_peer``): the rule for a
+    TP entry over several cards, which runs its eager body when they cannot
+    (module docstring).  One card named twice, and other devices, need
+    nothing."""
+    cards = sorted({_card(d) for d in devices if d.type == "cuda"})
+    return all(torch.cuda.can_device_access_peer(a, b) for a in cards for b in cards if a != b)
+
+
 def _captured_tp(fn: Callable) -> Callable:
     """A TP entry ``fn`` (frames, ``config``, ``mesh``, ``axis_name``, ...) as
-    a captured entry whose frames are placed on the space axis's one device
-    first, or that runs eagerly when the axis lists several (module
-    docstring)."""
+    a captured entry whose frames are placed first: whole on the space
+    axis's one device, or as row blocks on its devices; it runs eagerly
+    over cards without peer access (module docstring)."""
     signature = inspect.signature(fn)
 
     def prepare(*args, **kwargs):
@@ -413,12 +448,14 @@ def _captured_tp(fn: Callable) -> Callable:
         mesh, axis = bound.arguments["mesh"], bound.arguments["axis_name"]
         if axis not in mesh.axis_names:
             return None  # the eager body raises as it always has
-        device = one_device(mesh.axis_devices(axis))
-        if device is None:
+        devices = mesh.axis_devices(axis)
+        device = one_device(devices)
+        if device is None and not peer_access(devices):
             return None
         for name, value in bound.arguments.items():
             if isinstance(value, torch.Tensor):
-                bound.arguments[name] = value.to(device)
+                bound.arguments[name] = (value.to(device) if device is not None
+                                         else _place(value, devices))
         return bound.args, bound.kwargs
 
     return captured(fn, prepare)
@@ -434,14 +471,15 @@ def spatial_pyramidal_lk(
 ) -> torch.Tensor:
     """Dense flow for ONE frame pair row-sharded over ``mesh``.
 
-    A captured entry when the space axis lists one card (module docstring).
+    A captured entry (module docstring): one graph per key, across cards
+    where the space axis lists several.
 
     Args:
       prev / nxt: (H, W) planar grayscale, H divisible by
         n_shards * 2^(levels-1).
     Returns: (H, W, 2) flow on the mesh's first device.
     """
-    h, w = prev.shape[-2:]
+    h, w = _frame_hw(prev)
     n = mesh.shape[axis_name]
     validate_spatial(h, w, config, n)
     return _run_sharded(
@@ -484,8 +522,8 @@ def grid_pyramidal_lk(
 
     The batch axis is data-parallel (no communication) and each pair's rows
     are sharded over the space axis with halo exchange: each batch group is
-    one :func:`spatial_pyramidal_lk` call, a replay where the group's space
-    devices are one card (``.eager`` runs every group eagerly).
+    one :func:`spatial_pyramidal_lk` call, a replay on the group's space
+    devices (``.eager`` runs every group eagerly).
 
     Args:
       prev_batch / nxt_batch: (B, H, W), B divisible by the batch axis size,

@@ -27,8 +27,9 @@ Counterpart of ``cuda_optical_flow_2_tpu.parallel.spatial_models``:
   ``it_offset`` per chunk).  Levels below ``finest_level`` are 2x upsamples.
 
 Each family's TP entry is a captured entry, as ``spatial_pyramidal_lk`` is
-(``parallel/spatial.py``'s docstring: one graph per key where the space
-axis lists one card, else the eager body, which stays as ``.eager``).
+(``parallel/spatial.py``'s docstring: one graph per key, across cards where
+the space axis lists several, the eager body over cards without peer
+access; the eager body stays as ``.eager``).
 
 With ``use_pallas`` every coarse-to-fine warp outside the fused FB step is
 one call of ``kernels.warp_select.warp_bilinear_select_band``; without it
@@ -72,6 +73,7 @@ from cuda_optical_flow_2_torch.parallel.spatial import (
     Blocks,
     _captured_tp,
     _crop_rows,
+    _frame_hw,
     _grid,
     _local_family_pipeline,
     _local_lk_level,
@@ -268,7 +270,7 @@ def spatial_pyramidal_hs(
     exchanges, wider halos).  Returns (H, W, 2) flow on the mesh's first
     device.
     """
-    h, w = prev.shape[-2:]
+    h, w = _frame_hw(prev)
     n = mesh.shape[axis_name]
     validate_spatial_hs(h, w, config, n, sweep_tile)
     return _run_sharded(prev, nxt, mesh.axis_devices(axis_name),
@@ -436,7 +438,7 @@ def spatial_pyramidal_fb(
 ) -> torch.Tensor:
     """Pyramidal Farnebäck for ONE pair, rows sharded over ``mesh``.
     Returns (H, W, 2) flow on the mesh's first device."""
-    h, w = prev.shape[-2:]
+    h, w = _frame_hw(prev)
     validate_spatial_fb(h, w, config, mesh.shape[axis_name])
     return _run_sharded(prev, nxt, mesh.axis_devices(axis_name), _family_local(config, h, 8, 8))
 
@@ -562,7 +564,7 @@ def spatial_pyramidal_tvl1(
     """Pyramidal TV-L1 for ONE pair, rows sharded over ``mesh``;
     ``iter_tile`` primal-dual iterations run per halo exchange.  Returns
     (H, W, 2) flow on the mesh's first device."""
-    h, w = prev.shape[-2:]
+    h, w = _frame_hw(prev)
     validate_spatial_tvl1(h, w, config, mesh.shape[axis_name], iter_tile)
     return _run_sharded(prev, nxt, mesh.axis_devices(axis_name),
                         _family_local(config, h, 8, iter_tile))
@@ -731,7 +733,7 @@ def spatial_pyramidal_dis(
     of the way shard-locally, in 2x steps.  Under the Charbonnier penalty
     ``sweep_tile`` is also the IRLS cadence (see the module docstring).
     Returns (H, W, 2) flow on the mesh's first device."""
-    h, w = prev.shape[-2:]
+    h, w = _frame_hw(prev)
     validate_spatial_dis(h, w, config, mesh.shape[axis_name], sweep_tile)
     return _run_sharded(prev, nxt, mesh.axis_devices(axis_name),
                         _family_local(config, h, sweep_tile, 8))
@@ -823,8 +825,8 @@ def grid_pyramidal_flow(
     """Combined DP x TP for the ported families: a frame-pair batch over a
     2-D mesh, batch-data-parallel x row-sharded with halo exchange (the
     model-generic form of ``spatial.grid_pyramidal_lk``): each batch group
-    is one call of the family's TP entry, a replay where the group's space
-    devices are one card (``.eager`` runs every group eagerly).
+    is one call of the family's TP entry, a replay on the group's space
+    devices (``.eager`` runs every group eagerly).
 
     Args:
       prev_batch / nxt_batch: (B, H, W), B divisible by the batch axis size,

@@ -13,8 +13,9 @@ inputs, captures once per key, replays the eager call's launch counts, and
 agrees with its JAX counterpart within the tolerance of the parity test of
 its family (tests/test_torch_spatial.py, test_torch_tracking.py,
 test_torch_capture.py).  Also: equal meshes share a key, and a space axis
-over more than one device runs the eager body.  The CUDA capture itself
-runs in chip_smoke.py phase 8o.
+over more than one device is captured with its frames placed as row
+blocks (eagerly only over cards without peer access).  The CUDA capture
+itself runs in chip_smoke.py phases 8o and 8p.
 
 Sizes are tests/test_torch_spatial.py's: 256x48 (256x64 for DIS) on CPU
 meshes of 8 (FB and DIS: 4) shards.
@@ -265,30 +266,243 @@ def test_equal_meshes_share_a_key(stand_in):
     assert StandInGraph.built == 1 and len(parallel.spatial_pyramidal_lk.cache.entries) == 1
 
 
-def test_one_device_rule():
+def test_one_device_rule(monkeypatch):
+    """``one_device`` decides whether the frames go whole to one device or
+    as row blocks to theirs; ``peer_access`` whether a several-cards axis
+    is captured: one card named twice needs nothing, two cards need peer
+    access both ways (asked of ``torch.cuda.can_device_access_peer``)."""
     cuda0, cuda1 = torch.device("cuda", 0), torch.device("cuda", 1)
     assert spatial.one_device([cuda0] * 3) == cuda0
     assert spatial.one_device([cuda0]) == cuda0
     assert spatial.one_device([cuda0, cuda1, cuda0]) is None
     assert spatial.one_device([torch.device("cuda"), cuda0]) is None
     assert spatial.one_device(CPU8) == torch.device("cpu")
+    assert spatial.one_device([torch.device("cpu"), torch.device("cpu:0")]) is None
+
+    asked = []
+
+    def can_access(a, b):
+        asked.append((a, b))
+        return {a, b} != {1, 2}  # cards 1 and 2 cannot reach each other
+
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", can_access)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert spatial.peer_access(CPU8 + [torch.device("cpu:0")]) and not asked
+    assert spatial.peer_access([torch.device("cuda"), cuda0] * 2) and not asked
+    assert spatial.peer_access([torch.device("cuda"), cuda1, torch.device("cuda", 3)])
+    assert sorted(asked) == [(0, 1), (0, 3), (1, 0), (1, 3), (3, 0), (3, 1)]
+    assert not spatial.peer_access([cuda0, cuda1, torch.device("cuda", 2)])
 
 
-def test_space_axis_over_several_devices_runs_eagerly(stand_in):
-    """``cpu`` and ``cpu:0`` are two devices to the rule, as ``cuda:0`` and
-    ``cuda:1`` are: such a TP call runs its eager body, nothing captured;
-    in a grid only the group whose space devices are one device captures."""
-    p, n = _pair(64, 32)
-    cfg = tof.LKConfig(levels=1, window=9, max_displacement=4)
-    mixed = parallel.make_mesh(axis_name="space", devices=["cpu", "cpu:0"] * 2)
-    got = parallel.spatial_pyramidal_lk(p, n, cfg, mixed)
-    assert StandInGraph.built == 0
-    assert torch.equal(got, parallel.spatial_pyramidal_lk.eager(p, n, cfg, _space(4)))
-    grid = parallel.Mesh([["cpu"] * 4, ["cpu", "cpu:0"] * 2], ("batch", "space"))
-    pb, nb = torch.stack([p, n]), torch.stack([n, p])
-    assert torch.equal(parallel.grid_pyramidal_lk(pb, nb, cfg, grid),
-                       parallel.grid_pyramidal_lk.eager(pb, nb, cfg, grid))
+def _mixed(n):
+    """A space mesh of ``n`` entries that alternate ``cpu`` and ``cpu:0``:
+    several devices to ``one_device``, as ``cuda`` and ``cuda:0`` are on a
+    machine with one card."""
+    return parallel.make_mesh(axis_name="space", devices=["cpu", "cpu:0"] * (n // 2))
+
+
+def test_space_axis_over_several_devices_runs_eagerly(stand_in, monkeypatch, counting):
+    """A space axis over several devices is captured: the frames go to the
+    graph as their row blocks, one per device (JAX's ``in_shardings``), the
+    call is torch.equal to the eager body with its launches and within the
+    LK limit of JAX's TP; in a mixed grid both groups capture (one key
+    each).  It runs eagerly, nothing captured, only over cards without peer
+    access (``spatial.peer_access`` False)."""
+    entry, jentry, jcfg, convert, (h, w), *_ = TP["lk"]
+    cfg = dataclasses.replace(convert(jcfg), use_pallas=True)
+    (pa, na), (pb, nb) = _pairs(h, w)
+    mixed = _mixed(4)
+    a, _ = _held_to_eager(entry, [(pa, na, cfg, mixed), (pb, nb, cfg, mixed)], counting)
     assert StandInGraph.built == 1
+    (graph,) = entry.cache.entries.values()
+    assert [tuple(t.shape) for t in graph.inputs] == [(h // 4, w)] * 8  # 2 frames x 4 blocks
+    assert torch.equal(a, entry.eager(pa, na, cfg, _space(4)))
+    want = jentry(jnp.asarray(pa.numpy()), jnp.asarray(na.numpy()), jcfg, _jspace(4))
+    _close(a, want, LK_PYRAMID_TOL)
+
+    grid = parallel.Mesh([["cpu"] * 4, ["cpu", "cpu:0"] * 2], ("batch", "space"))
+    pg, ng = torch.stack([pa, pb]), torch.stack([na, nb])
+    _held_to_eager(parallel.grid_pyramidal_lk, [(pg, ng, cfg, grid)], counting)
+    assert StandInGraph.built == 3 and len(entry.cache.entries) == 3
+
+    capture.clear()
+    StandInGraph.built = 0
+    monkeypatch.setattr(spatial, "peer_access", lambda devices: False)
+    assert torch.equal(entry(pa, na, cfg, mixed), a)
+    assert torch.equal(parallel.grid_pyramidal_lk(pg, ng, cfg, grid),
+                       parallel.grid_pyramidal_lk.eager(pg, ng, cfg, grid))
+    assert StandInGraph.built == 1  # the grid's one-device group alone
+
+
+@pytest.mark.parametrize("name", list(TP))
+def test_tp_entry_over_several_devices_captured(name, stand_in, counting):
+    """Every family's TP entry on a space mesh of several devices (``cpu``
+    and ``cpu:0`` in turn) captures once with its frames as placed row
+    blocks, is torch.equal to its eager body over the same mesh and to the
+    one-device mesh's result, and within the family's TP limit of JAX."""
+    entry, jentry, jcfg, convert, (h, w), shards, tiles, tol = TP[name]
+    cfg = dataclasses.replace(convert(jcfg), use_pallas=True)
+    pa, na = _pair(h, w)
+    mixed = _mixed(shards)
+    (got,) = _held_to_eager(entry, [(pa, na, cfg, mixed, "space", *tiles.values())], counting)
+    assert StandInGraph.built == 1
+    (graph,) = entry.cache.entries.values()
+    assert len(graph.inputs) == 2 * shards
+    assert torch.equal(got, entry.eager(pa, na, cfg, _space(shards), "space", *tiles.values()))
+    want = jentry(jnp.asarray(pa.numpy()), jnp.asarray(na.numpy()), jcfg, _jspace(shards),
+                  **tiles)
+    _close(got, want, tol)
+
+
+class _FakeCuda:
+    """Stand-ins for the ``torch.cuda`` calls of ``capture.Graph``'s CUDA
+    methods, logging what each does to which card's stream: the order of a
+    multi-device capture and replay, checked without a card."""
+
+    class Stream:
+        def __init__(self, device, log, name):
+            self.device, self.log, self.name = torch.device(device), log, name
+
+        def wait_stream(self, other):
+            self.log.append(("wait", self.name, other.name))
+
+        def __repr__(self):
+            return self.name
+
+    def __init__(self, monkeypatch):
+        import contextlib
+
+        self.log, self.current, self.card = [], {}, [0]
+        fake = self
+
+        def stream(device=None):
+            d = torch.device(device)
+            return fake.Stream(d, fake.log, f"capture{d.index}")
+
+        def current_stream(device=None):
+            i = torch.device(device).index
+            return fake.current.setdefault(i, fake.Stream(torch.device("cuda", i), fake.log,
+                                                          f"current{i}"))
+
+        @contextlib.contextmanager
+        def use_stream(s):
+            before = current_stream(s.device)
+            fake.current[s.device.index] = s
+            try:
+                yield
+            finally:
+                fake.current[s.device.index] = before
+
+        @contextlib.contextmanager
+        def device(d):
+            before = fake.card[0]
+            fake.card[0] = torch.device(d).index
+            try:
+                yield
+            finally:
+                fake.card[0] = before
+
+        @contextlib.contextmanager
+        def graph(g, pool=None, stream=None):
+            fake.log.append(("begin", stream.name if stream is not None else None, fake.card[0]))
+            with use_stream(stream if stream is not None else fake.Stream(
+                    torch.device("cuda", 0), fake.log, "default")):
+                yield
+            fake.log.append(("end",))
+
+        @contextlib.contextmanager
+        def use_mem_pool(pool, d):
+            fake.log.append(("pool", pool.card, torch.device(d).index))
+            yield
+
+        class MemPool:
+            def __init__(self):
+                self.card = fake.card[0]
+
+        class CUDAGraph:
+            def replay(self):
+                fake.log.append(("replay", fake.current[fake.card[0]].name))
+
+        for name, value in (("Stream", stream), ("current_stream", current_stream),
+                            ("stream", use_stream), ("device", device), ("graph", graph),
+                            ("use_mem_pool", use_mem_pool), ("MemPool", MemPool),
+                            ("CUDAGraph", CUDAGraph), ("graph_pool_handle", object),
+                            ("synchronize", lambda d=None: fake.log.append(("sync", d.index)))):
+            monkeypatch.setattr(torch.cuda, name, value)
+        monkeypatch.setattr(capture, "_capture_streams", {})
+
+
+def test_capture_on_several_cards_is_one_graph(monkeypatch):
+    """The order of a multi-device capture and replay (the design in
+    ``capture.py``'s docstring), through stand-ins of the ``torch.cuda``
+    calls: the capture begins on the first card's own capture stream (not
+    ``torch.cuda.graph``'s one default stream of the process, which lies on
+    whichever card captured first); each peer's capture stream waits on it
+    (the fork) and is that card's current stream for the body, with a pool
+    made on that card; the first card's stream waits on each peer's after
+    the body (the join).  A replay waits on every peer's current stream
+    (where the inputs were copied in) and each peer's current stream then
+    waits on the replay's."""
+    cards = [torch.device("cuda", i) for i in range(3)]
+    fake = _FakeCuda(monkeypatch)
+    graph = object.__new__(capture.Graph)
+    graph.device, graph.peers, graph.inputs = cards[0], tuple(cards[1:]), []
+
+    def body():
+        fake.log.append(("body", fake.card[0], fake.current[1].name, fake.current[2].name))
+        return "out"
+
+    assert graph._capture(body) == "out"
+    assert fake.log == [
+        ("sync", 1), ("sync", 2), ("begin", "capture0", 0),
+        ("wait", "capture1", "capture0"), ("pool", 1, 1),
+        ("wait", "capture2", "capture0"), ("pool", 2, 2),
+        ("body", 0, "capture1", "capture2"),
+        ("wait", "capture0", "capture1"), ("wait", "capture0", "capture2"), ("end",)]
+
+    fake.log.clear()
+    graph._launch()
+    assert fake.log == [("wait", "current0", "current1"), ("wait", "current0", "current2"),
+                        ("replay", "current0"),
+                        ("wait", "current1", "current0"), ("wait", "current2", "current0")]
+
+    # one card: no peer, and the capture begins on that card's own stream
+    fake.log.clear()
+    single = object.__new__(capture.Graph)
+    single.device, single.peers, single.inputs = cards[2], (), []
+    assert single._capture(lambda: "one") == "one"
+    assert fake.log == [("begin", "capture2", 2), ("end",)]
+
+
+def test_captured_call_spans_the_cards_of_its_tensors(monkeypatch):
+    """``captured`` gives a graph its first tensor's card as ``device`` and
+    every other card its tensors lie on as ``peers``, once each, in order."""
+    built = []
+
+    class Recording:
+        def __init__(self, body, tensors, device, name, key, peers=()):
+            built.append((device, peers))
+            self.outputs = body(*tensors)
+
+        def replay(self, tensors):
+            return self.outputs
+
+    class OnCard(torch.Tensor):
+        pass
+
+    def on(t, index):
+        t = t.as_subclass(OnCard)
+        t.card = torch.device("cuda", index)
+        return t
+
+    monkeypatch.setattr(capture, "Graph", Recording)
+    monkeypatch.setattr(capture, "runs_eagerly", lambda tensors: False)
+    monkeypatch.setattr(OnCard, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(OnCard, "device", property(lambda self: self.card))
+    entry = capture.captured(lambda blocks: sum(b.as_subclass(torch.Tensor) for b in blocks))
+    x = torch.ones(2)
+    entry([on(x, 2), on(x, 0), on(x, 2), on(x, 1)])
+    assert built == [(torch.device("cuda", 2), (torch.device("cuda", 0), torch.device("cuda", 1)))]
 
 
 def test_tp_entries_on_cpu_run_eagerly():

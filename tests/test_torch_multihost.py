@@ -1,10 +1,13 @@
 """The port's ``parallel.multihost`` across real process boundaries (CPU).
 
-Two processes join a ``gloo`` group on a free localhost port, each with a
-mesh of two CPU devices; each feeds its own two pairs of a four-pair batch
-(velocity from the GLOBAL pair index, so a placement mistake changes the
-answer) and holds its flow ``torch.equal`` to the single-process flow of
-the whole batch.  This file is also the worker:
+Two (or four) processes join a ``gloo`` group on a free localhost port,
+each with a mesh of two CPU devices; each feeds its own two pairs of a
+four- (eight-) pair batch (velocity from the GLOBAL pair index, so a
+placement mistake changes the answer), takes the slice the JAX module's
+``host_local_batch`` gives (``global // processes`` pairs at ``that x
+rank``), and holds its flow ``torch.equal`` to the single-process flow of
+the whole batch; an ``all_gather`` of every process's flow checksum shows
+the group itself works.  This file is also the worker:
 
     python tests/test_torch_multihost.py <process_id> <num_processes> <port>
 
@@ -51,15 +54,16 @@ def worker(pid: int, nproc: int, port: int) -> None:
     assert mesh2.shape == {"batch": nproc, "space": 2}, mesh2.shape
     # a process whose device count does not divide the global count
     odd = [torch.device("cpu")] * (1 if pid == 0 else 3)
+    total = 1 + 3 * (nproc - 1)
     if pid == 0:
         assert multihost.make_global_mesh(space_axis="space", devices=odd).shape == {
-            "batch": 4, "space": 1}
+            "batch": total, "space": 1}
     else:
         try:
             multihost.make_global_mesh(space_axis="space", devices=odd)
-            raise AssertionError("no error for 4 devices over a local count of 3")
+            raise AssertionError(f"no error for {total} devices over a local count of 3")
         except ValueError as e:  # JAX's message (multihost.py:96-98)
-            assert str(e) == "4 devices not divisible by local count 3", str(e)
+            assert str(e) == f"{total} devices not divisible by local count 3", str(e)
 
     global_batch = 2 * nproc
     per, off = multihost.host_local_batch(global_batch, mesh)
@@ -76,9 +80,10 @@ def worker(pid: int, nproc: int, port: int) -> None:
         assert torch.equal(flow, want[off:off + per])
         assert torch.equal(flow, of.pyramidal_lk(torch.from_numpy(local_prev),
                                                  torch.from_numpy(local_nxt), cfg))
-    ok = torch.ones(())
-    dist.all_reduce(ok)  # both processes got here
-    assert int(ok) == nproc
+    sums = [torch.zeros(()) for _ in range(nproc)]
+    dist.all_gather(sums, flow.double().sum().float())  # every process got here, in rank order
+    for rank, got in enumerate(sums):
+        assert torch.equal(got, want[2 * rank:2 * rank + 2].double().sum().float()), rank
     dist.destroy_process_group()
     print("MULTIHOST_OK", flush=True)
 
@@ -89,15 +94,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_two_process_gloo_dp():
+@pytest.mark.parametrize("nproc", [2, 4])
+def test_two_process_gloo_dp(nproc):
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     procs = [
-        subprocess.Popen([sys.executable, os.path.abspath(__file__), str(pid), "2", str(port)],
+        subprocess.Popen([sys.executable, os.path.abspath(__file__), str(pid), str(nproc),
+                          str(port)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                          env=env, cwd=REPO)
-        for pid in range(2)
+        for pid in range(nproc)
     ]
     outs = []
     try:
@@ -111,6 +118,35 @@ def test_two_process_gloo_dp():
     for p, out in zip(procs, outs):
         assert p.returncode == 0, f"worker failed:\n{out}"
         assert "MULTIHOST_OK" in out, out
+
+
+def test_nccl_process_takes_its_own_card(monkeypatch):
+    """Under NCCL each process takes its own card before the first
+    collective (``initialize`` calls ``_own_card``): ``LOCAL_RANK`` when a
+    launcher sets it, else the rank modulo the host's cards; on a 4-card
+    host ranks 0-7 of two hosts take cards 0-3 twice."""
+    import torch
+
+    from cuda_optical_flow_2_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert [multihost._own_card(r) for r in range(8)] == [0, 1, 2, 3, 0, 1, 2, 3]
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    assert multihost._own_card(7) == 2
+
+    chosen, inits = [], []
+    monkeypatch.setattr(multihost.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(multihost.dist, "init_process_group",
+                        lambda backend, **kw: inits.append((backend, kw)))
+    monkeypatch.setattr(multihost.dist, "get_rank", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_device", chosen.append)
+    monkeypatch.delenv("LOCAL_RANK")
+    multihost.initialize("localhost:1", 4, 3)
+    assert inits[0][0] == "nccl" and chosen == [3]
+    multihost.initialize("localhost:1", 4, 3, backend="gloo")  # gloo leaves the card alone
+    assert inits[1][0] == "gloo" and chosen == [3]
 
 
 def test_error_messages_match_jax():
