@@ -28,6 +28,9 @@ then, in order:
    1, 15 and 33 (also on the ragged batch); ``fb_level_step`` at winsize 33,
    ``poly_n`` 31 on the ragged batch no farther from a float64 run of the
    plain version than the float32 plain version is;
+   ``fill_occluded_flow_kernel`` bitwise equal to the plain fill (NaN and
+   -0.0 included) on the ragged batch of random disks at 0, 1, 7, 8, 9 and
+   96 sweeps, beta 0 and 1, the matched pixels bitwise the input;
 4. path ``PAPER_1080P``: ``pyramidal_lk`` on a 1080x1920 pair translating at
    (2, 1) px, against the plain path (``use_pallas=False``, the same plain
    ops without the budget clamp, which (2, 1) never reaches);
@@ -105,8 +108,9 @@ then, in order:
    (2, 1) seeded by those points (points 64 px or more inside within 0.35 px
    of p0 + t (2, 1)), and ``track_points`` within 1e-5 px of it; launch
    counts checked against the predicted ones (``consistent_flow``: twice a
-   pair's and one cycle warp; the fill, ``good_features`` and the plain
-   paths none);
+   pair's and one cycle warp, with the fill also one call of the occlusion
+   fill kernel, which is held bitwise to its plain version on the path's
+   flow and mask; ``good_features`` and the plain paths none);
 8l. the reference-exact profiles and the four command-line tools:
    ``models.compat.pyramidal_lk_exact`` (both profiles) on the golden 64x64
    pair against ``tests/golden/`` and at 480x640 and 1080x1920 against a
@@ -118,7 +122,8 @@ then, in order:
    Sintel tree at 1080x1920 (two ``synthetic_sequence`` sequences of five
    frames and phase 8k's disk scene with its ``occ/`` truth): the
    ``paper_1080p`` preset, ``tvl1_realtime`` on the disk with and without
-   ``--fill-occlusions`` (tests/test_evaluate.py's bounds), warm streaming
+   ``--fill-occlusions`` (tests/test_evaluate.py's bounds; the fill runs the
+   occlusion fill kernel, ``--no-pallas`` its plain version), warm streaming
    with recovery and DIS, each summary within 1e-3 px of ``--no-pallas``;
    ``utils.debug.stage_report`` of every family at 1080x1920 (kernel,
    banded and oracle against plain; each kernel row within its kernel's
@@ -201,8 +206,10 @@ then, in order:
    every card of the machine (its last line the ok line, no kernel line);
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K; host time included; ``consistent_flow`` with the fill off
-   and on, the fill alone, ``good_features`` and ``track_sequence`` per
-   frame), each kernel, its plain version and,
+   and on, the fill alone and its plain version, ``good_features`` and
+   ``track_sequence`` per frame), each kernel (the occlusion fill on phase
+   8k's disk mask and on occluded stripes that leave no tile idle, the
+   stripes first held to its plain version), its plain version and,
    where one PyTorch call computes the same function, that call, in device
    time (the card waits in a sleep kernel while the host enqueues the
    calls, so a wrapper's launch cost does not hide a faster kernel);
@@ -277,6 +284,10 @@ KERNELS = [
     ("median_filter_kernel", "median_select", "median_filter_plain",
      "cuda_optical_flow_2_torch/csrc/median_select.cu",
      "cuda_optical_flow_2_tpu/ops/median.py:27"),
+    # the occlusion fill's 96 sweeps: a lax.fori_loop in JAX, no pallas_call
+    ("fill_occluded_flow_kernel", "occlusion_fill", "fill_occluded_flow_plain",
+     "cuda_optical_flow_2_torch/csrc/occlusion_fill.cu",
+     "cuda_optical_flow_2_tpu/models/consistency.py:124"),
     # the spatial-TP band entries: the same sources with the band's global rows
     ("lk_band_step", "lk_step_fused", "lk_band_step_plain",
      "cuda_optical_flow_2_torch/csrc/lk_step_fused.cu",
@@ -335,6 +346,11 @@ TVL1_MEDIAN_ERR, TVL1_P999_ERR = 1e-6, 1e-5
 # cancels and 1/det amplifies it; the card showed median 0, p99.9 1.9e-6 and
 # max 2.9e-6 px (same card), so 1e-5 / 1e-4
 CENTERED_MEDIAN_ERR, CENTERED_P999_ERR = 1e-5, 1e-4
+# px, the occlusion fill kernel vs its plain version at the filled pixels,
+# should it stop being bit-equal (exp, division and sqrt round as the plain
+# ops do on the card; an H100 80GB HBM3, 700 W, showed it bit-equal); the
+# matched pixels are held bitwise to the input always
+FILL_MAX_ERR = 1e-5
 PATH_MEDIAN_ERR = 1e-3   # px, whole pipeline, kernel vs plain path
 PATH_P99_ERR = 1e-2
 TRANSLATION_TOL = 0.1    # px, LK inner median flow vs the true (2, 1)
@@ -398,6 +414,47 @@ def textured_pair(h: int, w: int, seed: int):
     v = 15.0 * np.cos(2 * np.pi * xs / w) * np.sin(np.pi * ys / h) - 4.0
     flow = np.stack([u, v], -1).astype(np.float32)
     return fr[0].astype(np.float32), fr[1].astype(np.float32), flow
+
+
+def fill_scene(b: int, h: int, w: int, kind: str, seed: int):
+    """A random flow (b, h, w, 2) and an occlusion mask (b, h, w): random
+    disks ("blobs") or occluded stripes 3 px wide every 12 px ("stripes",
+    every tile active), with a NaN and -0.0 under the mask and a NaN at a
+    kept pixel."""
+    rng = np.random.default_rng(seed)
+    flow = rng.normal(0, 2, (b, h, w, 2)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    occ = np.zeros((b, h, w), bool)
+    if kind == "stripes":
+        occ[:] = (xx // 3) % 4 == 0
+    else:
+        for i in range(b):
+            for _ in range(60):
+                cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(3, 20)
+                occ[i] |= (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+    under = np.argwhere(occ)
+    flow[tuple(under[0])] = [np.nan, 1.0]
+    flow[tuple(under[1])] = [-0.0, -0.0]
+    flow[tuple(under[len(under) // 2])] = [-0.0, 2.0]
+    kept = np.argwhere(~occ)
+    flow[tuple(kept[len(kept) // 3])] = [0.5, np.nan]
+    return flow, occ
+
+
+def fill_active_tiles(occ, wt: int, t: int) -> tuple[int, int]:
+    """(sweep tiles that run, all sweep tiles) in a launch of the occlusion
+    fill on an (H, W) mask: a t x t output tile runs when a wt x wt block of
+    the weights launch under it holds an occluded pixel."""
+    o = np.asarray(occ.cpu())
+    h, w = o.shape
+    fh, fw = -(-h // wt), -(-w // wt)
+    padded = np.zeros((fh * wt, fw * wt), bool)
+    padded[:h, :w] = o
+    flags = padded.reshape(fh, wt, fw, wt).any(axis=(1, 3))
+    active = sum(bool(flags[y // wt:(min(y + t, h) - 1) // wt + 1,
+                            x // wt:(min(x + t, w) - 1) // wt + 1].any())
+                 for y in range(0, h, t) for x in range(0, w, t))
+    return active, -(-h // t) * -(-w // t)
 
 
 def scene_frames(h: int, w: int) -> list:
@@ -566,6 +623,18 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
         # and unless first the clipped four-tap warp (21)
         ops = (18 * cfg.poly_n + 60) + 32 + 10 * (cfg.winsize - 1) + 12 + (0 if first else 21)
         return (32.0 if first else 40.0) * px, float(ops * px), 0.0
+    if name == "fill_occluded_flow_kernel":
+        occ = args[1]
+        it = args[2] if len(args) > 2 else kw.get("iterations", 96)
+        px, n_occ = occ.numel(), int(occ.sum())
+        # bytes: the flow (8), the mask (1) and the output (8) per pixel.
+        # Operations: the weights at every pixel, four blur rounds (12 each),
+        # the two stencils (8), the norm (4), the projection (3), clip and
+        # scale (3), the trust weight (2), the state (2): 70, with a square
+        # root, a division and an exp; then per sweep at each occluded pixel
+        # alone (the others keep their state), three averages (9 each), the
+        # test and the weight floor: 29, with two divisions
+        return 17.0 * px, float(70 * px + 29 * it * n_occ), float(3 * px + 2 * it * n_occ)
     if name in ("hs_relax", "hs_relax_band"):
         prev, _nxt, flow_init = args[:3]
         px = prev.numel()
@@ -933,7 +1002,7 @@ def phase_8l(of, dev, run_path, big, card: str) -> dict:
             "lk preset paper_1080p": ([full, "--model", "lk", "--preset", "paper_1080p"], lk_needs),
             "tvl1_realtime disk": ([disk, "--preset", "tvl1_realtime"], tvl1_needs),
             "tvl1_realtime disk fill": ([disk, "--preset", "tvl1_realtime", "--fill-occlusions"],
-                                        tvl1_needs),
+                                        tvl1_needs + ("fill_occluded_flow_kernel",)),
             "streaming warm levels=1 recover 3": (
                 [full, "--streaming", "--warm-start", "--levels", "1", "--recover-levels", "3"],
                 ("lk_residual", "lk_level_step", "pyr_down", "warp_bilinear_select")),
@@ -2436,7 +2505,7 @@ def main(only: str | None = None) -> int:
     from cuda_optical_flow_2_torch.constants import BINOMIAL_1D
     from cuda_optical_flow_2_torch.kernels import (
         _build, bilateral_tap, fb_step_fused, hs_sweep, lk_fused, lk_step_fused, median_select,
-        poly_exp_fused, pyr_down, tvl1_sweep, warp_select, win_solve,
+        occlusion_fill, poly_exp_fused, pyr_down, tvl1_sweep, warp_select, win_solve,
     )
     from cuda_optical_flow_2_torch.models.dis import _lk_like as dis_lk_like
     from cuda_optical_flow_2_torch.models.farneback import fb_normal_eq_products
@@ -2448,7 +2517,7 @@ def main(only: str | None = None) -> int:
             "pyr_down": pyr_down, "bilateral_tap": bilateral_tap, "hs_sweep": hs_sweep,
             "poly_exp_fused": poly_exp_fused, "win_solve": win_solve,
             "fb_step_fused": fb_step_fused, "tvl1_sweep": tvl1_sweep,
-            "median_select": median_select}
+            "median_select": median_select, "occlusion_fill": occlusion_fill}
     wrappers = {name: getattr(mods[m], name) for name, m, *_ in KERNELS}
     plains = {name: getattr(mods[m], plain) for name, m, plain, *_ in KERNELS}
 
@@ -2552,6 +2621,29 @@ def main(only: str | None = None) -> int:
         require(e["median"] <= median and e["p999"] <= p999, f"{what}: {e}")
         return (f"{name}{' ' + label if label else ''} median {e['median']:.3g} "
                 f"p99.9 {e['p999']:.3g} max {e['max']:.3g}")
+
+    def as_bits(x):
+        return x.contiguous().view(torch.int32)
+
+    def check_fill(flow, occ, label, iterations=96, beta=1.0):
+        """The occlusion fill kernel against its plain version on the same
+        inputs: bitwise equal, NaN and -0.0 included, or the filled pixels
+        within FILL_MAX_ERR; the matched pixels bitwise the input."""
+        name = "fill_occluded_flow_kernel"
+        got = occlusion_fill.fill_occluded_flow_kernel(flow, occ, iterations, beta)
+        want = occlusion_fill.fill_occluded_flow_plain(flow, occ, iterations, beta)
+        torch.cuda.synchronize()
+        what = f"{name} {label} iterations {iterations} beta {beta}"
+        require(torch.equal(as_bits(got[~occ]), as_bits(flow.float()[~occ])),
+                f"{what}: a matched pixel is not bitwise the input")
+        nan = want.isnan()
+        require(torch.equal(got.isnan(), nan), f"{what}: NaN at other positions")
+        if torch.equal(as_bits(got[~nan]), as_bits(want[~nan])):
+            return f"{label} {iterations} sweeps beta {beta} bit-equal"
+        d = float((got - want)[~nan].abs().max())
+        max_err[name] = max(max_err[name], d)
+        require(d <= FILL_MAX_ERR, f"{what}: max |d| {d} > {FILL_MAX_ERR}")
+        return f"{label} {iterations} sweeps beta {beta} max |d| {d:.3g} (not bit-equal)"
 
     cases = [
         ((1080, 1920), of.PAPER_1080P),
@@ -2772,6 +2864,13 @@ def main(only: str | None = None) -> int:
                                median_select.median_filter_plain(x, size), *x.shape[-2:],
                                f"{size}x{size} {label}"))
     print("phase 3 kernels median_filter_kernel: " + "; ".join(parts))
+    # the occlusion fill on a ragged batch of random disks (no tile divides
+    # it; a NaN and -0.0 under the mask, a NaN at a kept pixel) at sweep
+    # counts that split into launches of 1, 7, 8, 5 + 4 and 12 x 8, and 0
+    rflow, rocc = (cuda(a) for a in fill_scene(2, 479, 641, "blobs", 13))
+    parts = [check_fill(rflow, rocc, "batch 2", n, beta)
+             for beta in (0.0, 1.0) for n in (0, 1, 7, 8, 9, 96)]
+    print("phase 3 kernels ragged 2x479x641 fill_occluded_flow_kernel: " + "; ".join(parts))
     # the window solve bit-equal on the ragged batch (no tile divides it) at
     # windows 1, 15 (compiled in) and 33; FB at winsize 33, poly_n 31 there
     # is off its float32 plain version by the expansion's conditioning
@@ -3568,16 +3667,26 @@ def main(only: str | None = None) -> int:
     (fraw, occ_b), counts_raw = run_path("consistent_flow TVL1_REALTIME 1080x1920",
                                          lambda: of.consistent_flow(bp, bn, of.TVL1_REALTIME),
                                          tuple(expect))
+    # the fill: one call of the occlusion fill kernel (its weights launch and
+    # ceil(96 / 8) = 12 sweep launches of one C call)
+    fill_expect = {"fill_occluded_flow_kernel": 1}
     (ffill, occ_f), counts_fill = run_path("consistent_flow TVL1_REALTIME fill 1080x1920", lambda: (
-        of.consistent_flow(bp, bn, of.TVL1_REALTIME, fill=True)), tuple(expect))
-    require(counts_raw == expect and counts_fill == expect,
+        of.consistent_flow(bp, bn, of.TVL1_REALTIME, fill=True)), tuple(expect | fill_expect))
+    require(counts_raw == expect and counts_fill == expect | fill_expect,
             f"consistent_flow TVL1_REALTIME launches {counts_raw}, with the fill {counts_fill}, "
-            f"predicted {expect}")
+            f"predicted {expect} and with the fill also {fill_expect}")
     require(torch.equal(occ_f, occ_b) and torch.equal(ffill[~occ_b], fraw[~occ_b]),
             "fill=True changed the mask or a matched pixel")
     filled, counts = run_path("fill_occluded_flow 1080x1920",
-                              lambda: consistency.fill_occluded_flow(fraw, occ_b), ())
-    require(not counts and torch.equal(filled, ffill), f"the fill alone: launches {counts}")
+                              lambda: consistency.fill_occluded_flow(fraw, occ_b),
+                              tuple(fill_expect))
+    require(counts == fill_expect and torch.equal(filled, ffill),
+            f"the fill alone: launches {counts}, predicted {fill_expect}")
+    # the kernel against its plain version on the path's own flow and mask
+    fill_line = check_fill(fraw, occ_b, "the path's flow and mask")
+    sweep_ring = occlusion_fill.ring(occlusion_fill.SWEEPS_PER_LAUNCH)
+    active, tiles = fill_active_tiles(occ_b, 64 - 2 * occlusion_fill.WEIGHTS_RING,
+                                      64 - 2 * sweep_ring)
     (fplain, occ_p), plain_counts = run_path("consistent_flow TVL1_REALTIME fill 1080x1920 plain",
                                              lambda: of.consistent_flow(bp, bn, rt_plain, fill=True),
                                              ())
@@ -3597,8 +3706,10 @@ def main(only: str | None = None) -> int:
           f"fill vs plain path at matched pixels median {e['median']:.3g} p99 {e['p99']:.3g} max "
           f"{e['max']:.3g} (all pixels: median {e_all['median']:.3g} p99 {e_all['p99']:.3g} "
           f"p99.9 {e_all['p999']:.3g} max {e_all['max']:.3g}), mask differs at "
-          f"{100 * differ:.4f} % of pixels; launches {counts_fill} (as predicted, "
-          "fill and plain path none; matched pixels unchanged by the fill)")
+          f"{100 * differ:.4f} % of pixels; launches {counts_fill} (as predicted; the fill "
+          f"alone {counts}, the plain path none; matched pixels unchanged by the fill); "
+          f"fill_occluded_flow_kernel vs its plain version on {fill_line}; {active} of "
+          f"{tiles} sweep tiles hold an occluded pixel under their flags")
     # the cycle warp: #3 on both planes against the plain warp, and the residual
     bw_b = of.pyramidal_tvl1(bn, bp, of.TVL1_REALTIME)
     planes = bw_b.movedim(-1, -3)
@@ -3762,7 +3873,7 @@ def main(only: str | None = None) -> int:
               f"path {p_ms:.3f} ms/pair (median of {r} and {r_plain})")
     label = "track_sequence PAPER_1080P 8 frames 1080x1920"
     print(f"phase 9 timing [{card}] {label}: {path_ms[label] / 7:.3f} ms per tracked frame")
-    # no kernel runs in these (plain torch on the card)
+    # the fill (the occlusion fill kernel) and good_features (plain torch)
     singles = {
         "fill_occluded_flow 1080x1920": lambda: consistency.fill_occluded_flow(fraw, occ_b),
         "good_features 500 LKConfig(window=15) 1080x1920": (
@@ -3770,8 +3881,7 @@ def main(only: str | None = None) -> int:
     }
     for label, fn in singles.items():
         path_ms[label] = cuda_ms(fn, 10)
-        print(f"phase 9 timing [{card}] {label}: {path_ms[label]:.3f} ms/call (median of 10; no "
-              "kernel)")
+        print(f"phase 9 timing [{card}] {label}: {path_ms[label]:.3f} ms/call (median of 10)")
     # the benchmark tool's configs (phase 8l) as direct calls on its inputs
     from cuda_optical_flow_2_torch.cli import benchmark as cli_bench
 
@@ -3815,6 +3925,15 @@ def main(only: str | None = None) -> int:
         ("lk_level_step", "9x9 box centered flow_half", (p0, n0, half0, dis_lk),
          {"centered": True, "flow_half": True}),
     ]
+    # the occlusion fill at 1080x1920: on phase 8k's disk flow and detected
+    # mask (held to its plain version there; the tiles away from the disk's
+    # occlusion band return at once), and on occluded stripes that leave no
+    # tile idle
+    sflow, socc = (cuda(a[0]) for a in fill_scene(1, 1080, 1920, "stripes", 17))
+    print("phase 9 fill_occluded_flow_kernel vs plain: "
+          + check_fill(sflow, socc, "stripes 1080x1920"))
+    timed += [("fill_occluded_flow_kernel", "disk mask 96 sweeps", (fraw, occ_b), {}),
+              ("fill_occluded_flow_kernel", "stripes 96 sweeps", (sflow, socc), {})]
     # the band kernels at their interior 4K band (rows 720-1440 and halos)
     for name, label in (("lk_band_step", "15x15 tri"), ("warp_bilinear_select_band", ""),
                         ("bilateral_kernel_band", "9x9 stacked pair"),
@@ -3866,7 +3985,7 @@ def main(only: str | None = None) -> int:
                                         lambda: stacked.median(dim=0))}
     timing = {}
     for name, label, args, kw in timed:
-        slow = name in ("hs_relax", "tvl1_relax")
+        slow = name in ("hs_relax", "tvl1_relax", "fill_occluded_flow_kernel")
         k_ms = cuda_ms(lambda: wrappers[name](*args, **kw), 10 if slow else reps, device=True,
                        inner=1 if slow else 10)
         p_ms = cuda_ms(lambda: plains[name](*args, **kw), 3 if slow else 10, warmup=1,

@@ -14,18 +14,18 @@ max(H, W): a component beyond it leaves the image both before and after the
 clip, and an out-of-image sample keeps the source pixel either way, so the
 budget changes no output and the kernel computes the plain ``warp_bilinear``
 (``tests/test_torch_consistency.py`` pins the identity).  On CPU tensors, or
-with ``use_pallas=False``, the plain warp runs.  The fill is plain torch: 4
-blur steps, then ``iterations`` diffusion sweeps.
+with ``use_pallas=False``, the plain warp runs.  The fill is the
+``occlusion_fill`` kernel on CUDA tensors (one weights launch, then
+``iterations`` diffusion sweeps time-tiled in shared memory), and its plain
+version, 4 blur steps and the sweeps in plain torch, on CPU tensors or with
+``use_pallas=False``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cuda_optical_flow_2_torch.kernels import warp_select
-from cuda_optical_flow_2_torch.models.horn_schunck import _DXC, _DYC, _avg3x3
-from cuda_optical_flow_2_torch.ops.clip import clip
-from cuda_optical_flow_2_torch.ops.conv import stencil2d
+from cuda_optical_flow_2_torch.kernels import occlusion_fill, warp_select
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
 
 __all__ = [
@@ -110,8 +110,9 @@ def consistent_flow(
 
     Runs the configured family (any of the five, by config type) in both
     directions and applies :func:`occlusion_mask`; the cycle warp follows
-    ``config.use_pallas``.  With ``fill=True`` the masked pixels are replaced
-    by :func:`fill_occluded_flow` (single frame pair only).
+    ``config.use_pallas``, and so does the fill.  With ``fill=True`` the
+    masked pixels are replaced by :func:`fill_occluded_flow` (single frame
+    pair only).
 
     Returns (flow, occluded): (..., H, W, 2) and boolean (..., H, W).
     """
@@ -121,7 +122,7 @@ def consistent_flow(
     flow_bw = pyramidal_flow(nxt, prev, config)
     occ = occlusion_mask(flow_fw, flow_bw, alpha=alpha, beta=beta, use_pallas=config.use_pallas)
     if fill:
-        flow_fw = fill_occluded_flow(flow_fw, occ)
+        flow_fw = fill_occluded_flow(flow_fw, occ, use_pallas=config.use_pallas)
     return flow_fw, occ
 
 
@@ -130,6 +131,8 @@ def fill_occluded_flow(
     occ: torch.Tensor,
     iterations: int = 96,
     beta: float = 1.0,
+    *,
+    use_pallas: bool = True,
 ) -> torch.Tensor:
     """Replace occluded flow with a side-aware diffusion fill.
 
@@ -141,9 +144,12 @@ def fill_occluded_flow(
     module's docstring gives the measurements behind the defaults.  Matched
     pixels are returned bit-identical.
 
-    Each sweep averages the two weighted flow planes and the weight as one
-    stacked (3, H, W) :func:`_avg3x3`, which is per plane: bit-identical to
-    three calls, a third of the device ops.
+    On CUDA tensors the ``occlusion_fill`` kernel computes it (a bool mask;
+    it raises on what it does not take); on CPU tensors, or with
+    ``use_pallas=False``, its plain version
+    (``occlusion_fill.fill_occluded_flow_plain``), whose sweep averages the
+    two weighted flow planes and the weight as one stacked (3, H, W)
+    ``_avg3x3``.
 
     Args:
       flow: (H, W, 2) dense flow.
@@ -151,29 +157,9 @@ def fill_occluded_flow(
       iterations: diffusion sweeps; the fill front advances one pixel per
         sweep.
       beta: inward-projection penalty (1/px); 0 = plain two-sided diffusion.
+      use_pallas: False takes the plain fill on any device.
     Returns: (H, W, 2) flow with occluded pixels filled.
     """
-    u = flow.to(torch.float32)
-    occf = occ.to(torch.float32)
-    m = occf
-    for _ in range(4):
-        m = 0.5 * _avg3x3(m) + 0.5 * occf
-    gx = -stencil2d(m, _DXC)
-    gy = -stencil2d(m, _DYC)
-    norm = torch.sqrt(gx * gx + gy * gy) + 1e-6
-    proj = (u[..., 0] * gx + u[..., 1] * gy) / norm
-    src_w = torch.exp(-beta * clip(proj, 0.0, 30.0))
-    trusted = (1.0 - occf) * src_w
-    keep = (1.0 - occf) > 0
-    grow = ~keep
-    # planes: the weighted flow (u, v) and its weight
-    state = torch.stack([u[..., 0] * trusted, u[..., 1] * trusted, trusted])
-    for _ in range(iterations):
-        avg = _avg3x3(state)
-        den = avg[2]
-        filled = den > 1e-9
-        # a newly reached pixel takes the normalized average and a weight of
-        # at least 1; the rest keep theirs
-        reached = torch.cat([avg[:2] / clip(den, 1e-9), clip(state[2:], 1.0)])
-        state = torch.where(grow & filled, reached, state)
-    return torch.where(keep[..., None], u, state[:2].movedim(0, -1))
+    if use_pallas:
+        return occlusion_fill.fill_occluded_flow_kernel(flow, occ, iterations, beta)
+    return occlusion_fill.fill_occluded_flow_plain(flow, occ, iterations, beta)

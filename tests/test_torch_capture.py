@@ -204,9 +204,10 @@ def test_counter_registry_holds_every_wrapper_counter():
                  "median_select.median_filter_kernel.launches", "win_solve.window_solve.launches",
                  "fb_step_fused.fb_band_step.launches", "bilateral_tap.bilateral_kernel.launches",
                  "poly_exp_fused.poly_expansion_kernel.launches",
-                 "warp_select.warp_bilinear_select_band.launches"):
+                 "warp_select.warp_bilinear_select_band.launches",
+                 "occlusion_fill.fill_occluded_flow_kernel.launches"):
         assert name in names
-    assert len(names) == 21
+    assert len(names) == 22
 
 
 @pytest.mark.parametrize("replays", [1, 3, 10])
