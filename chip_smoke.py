@@ -167,7 +167,8 @@ then, in order:
    ``capture.settle()`` the eager loop's, both branches replayed as the
    eager loop took them (device counts), only the frame copied in after
    the first warm step (the general pool refilled with NaN between steps),
-   no sync under ``torch.cuda.set_sync_debug_mode("error")``, ms between
+   no sync under ``torch.cuda.set_sync_debug_mode("error")`` with the
+   program's spans off and recorded under a profiler, ms between
    events and back to back, busy share, device ops per branch and the warm
    key's memory; a grad input running the eager plain path; a failing
    capture raising;
@@ -235,6 +236,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1677,22 +1679,36 @@ def phase_8n(of, dev, run_path, card: str) -> dict:
                                                          "changed in a later step")
         del kept, state, eager_state
 
-        # no host read: a warm step with CUDA frames under the sync check
+        # no host read: a warm step with CUDA frames under the sync check,
+        # with the program's spans off, then recorded (a profiler active)
+        from torch.profiler import ProfilerActivity, profile
+
+        from cuda_optical_flow_2_torch.utils import profiling
+
         state = of.init_state(cf[0], cfg, recovery)
         state, _ = of.step(state, cf[1], cfg, True, recovery)
         state, _ = of.step(state, cf[2], cfg, True, recovery)
         nxt = cf[3]
         of.step(state, nxt, cfg, True, recovery)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            of.step(state, nxt, cfg, True, recovery)
-            synced = ""
-        except RuntimeError as exc:
-            synced = str(exc).splitlines()[0][:160]
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        require(not synced, f"8n serving {label}: a warm step synchronised: {synced}")
+        for recording in (False, True):
+            torch.cuda.synchronize()
+            profiling.clear_spans()
+            tracing = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                       if recording else contextlib.nullcontext())
+            with tracing:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    of.step(state, nxt, cfg, True, recovery)
+                    synced = ""
+                except RuntimeError as exc:
+                    synced = str(exc).splitlines()[0][:160]
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            names = sorted({sp.name for sp in profiling.spans()})
+            require(not synced, f"8n serving {label}: a warm step synchronised (spans recorded: "
+                                f"{recording}): {synced}")
+            require(("capture.launch" in names) == recording,
+                    f"8n serving {label}: spans {names} with recording {recording}")
 
         # the warm step from a state of the key's buffers, captured and eager
         ms = cuda_ms(lambda: of.step(state, nxt, cfg, True, recovery), STEP_REPS)

@@ -82,6 +82,25 @@ cond, one add in each branch), since the host does not know which branch a
 replay ran: :func:`settle` reads those pairs once and adds each branch's
 launches times the replays that took it.  :func:`snapshot` and
 :func:`restore` settle first.
+
+Spans and counters.  While ``torch.profiler`` is active, every call of a
+captured entry records its spans (``utils/profiling.span``, in memory, on
+the profiler's clock; none otherwise): the root ``capture.call`` (attributes
+``entry``, the function's ``__qualname__``, and ``path``: ``replay``,
+``capture``, ``eager`` or ``plain``) and under it ``capture.key``
+(``prepare``, binding, :func:`flatten`, the cache lookup and, for a donating
+entry, the choice of buffer set and the held checks), ``capture.capture``
+(warm-up and capture on a miss, eviction included), ``capture.copy_in`` (the
+static-input copies of :meth:`Graph.replay`), ``capture.launch``
+(:meth:`Graph._launch`), ``capture.clone`` (the output clones and the donated
+views), ``capture.plain`` (a donating key's copy-in, clone-out graph) and
+``capture.eager`` (a call that ran its body eagerly); ``capture.settle`` is
+the host sync of :func:`settle`.  The counters are always on: per entry
+(:class:`GraphCache`) the calls, captures, evictions, eager and plain calls;
+per graph its replays, copies, ``seconds``, the conds' ``taken`` counts and
+``pool_bytes`` (its private pool's, its cond branch pool's and its peer
+pools' segments per card, from the allocator's snapshot once it is
+captured).  :func:`stats` settles once and returns them all.
 """
 
 from __future__ import annotations
@@ -102,11 +121,12 @@ import torch
 
 from cuda_optical_flow_2_torch import kernels
 from cuda_optical_flow_2_torch.kernels import _build
+from cuda_optical_flow_2_torch.utils.profiling import span as _span
 
 __all__ = [
     "CACHE_SIZE", "WARMUP", "Graph", "DonatingGraphs", "GraphCache", "captured", "clear",
     "graphs_captured", "cond", "settle", "counters", "snapshot", "delta", "add_counts", "restore",
-    "flatten", "unflatten", "clone_outputs", "runs_eagerly",
+    "flatten", "unflatten", "clone_outputs", "runs_eagerly", "stats", "pool_bytes",
 ]
 
 CACHE_SIZE = 8  # graphs kept per entry
@@ -191,9 +211,12 @@ def settle() -> None:
     last settle: wait for the device and read each such graph's taken
     counts once.  Call it before reading the counters' attributes directly
     (:func:`snapshot` and :func:`restore` do)."""
-    while _pending:
-        _, graph = _pending.popitem()
-        graph._settle()
+    if not _pending:
+        return
+    with _span("capture.settle"):
+        while _pending:
+            _, graph = _pending.popitem()
+            graph._settle()
 
 
 # --- arguments and outputs -------------------------------------------------
@@ -351,14 +374,17 @@ class Graph:
     error.  ``outputs`` are the static outputs, ``delta`` the counters'
     change over the captured call outside its conds' branches, ``seconds``
     the warm-up and capture time, ``replays`` the replays so far, ``copied``
-    the tensors copied into the static inputs so far, and ``taken``, per
+    the tensors copied into the static inputs so far, ``taken``, per
     cond, how many replays ran its true and its false branch (as of the
-    last :func:`settle`).  The device counts behind ``taken`` live in a
-    buffer made before the capture: memory allocated during it may be
-    memory that earlier nodes of every replay write.
+    last :func:`settle`), and ``pool_bytes`` the bytes of its pools'
+    segments per card index once it was captured (:func:`pool_bytes`).
+    The device counts behind ``taken`` live in a buffer made before the
+    capture: memory allocated during it may be memory that earlier nodes
+    of every replay write.
 
-    The CUDA work is in five methods (:meth:`_warm_up`, :meth:`_capture`,
-    :meth:`_launch`, and a cond's :meth:`_open_cond` and :meth:`_branch`);
+    The CUDA work is in six methods (:meth:`_warm_up`, :meth:`_capture`,
+    :meth:`_launch`, :meth:`_pool_bytes`, and a cond's :meth:`_open_cond`
+    and :meth:`_branch`);
     the bookkeeping around them (buffers, counters, conds, errors) is this
     class's on any device."""
 
@@ -374,7 +400,8 @@ class Graph:
         self._conds = 0
         self._branch_deltas: list[tuple[dict, dict]] = []
         self._in_branch = False
-        self._branch_pool = None
+        self._pool = self._branch_pool = None  # set by a capture on the card
+        self._peer_pools = []
         before = _counts()
         t0 = time.perf_counter()
         try:
@@ -393,6 +420,7 @@ class Graph:
             _set_counts(before)
         self.taken = [[0, 0] for _ in range(self._conds)]
         self.seconds = time.perf_counter() - t0
+        self.pool_bytes = self._pool_bytes()
         _captured += 1
 
     def _warm_up(self, body: Callable) -> None:
@@ -416,7 +444,7 @@ class Graph:
         """Capture the body into ``self.graph``; returns its static outputs."""
         with torch.cuda.device(self.device):
             self.graph = torch.cuda.CUDAGraph()
-            pool = torch.cuda.graph_pool_handle()  # a new pool, as without one
+            pool = self._pool = torch.cuda.graph_pool_handle()  # a new pool, as without one
             self._peer_pools = []
             for d in self.peers:
                 torch.cuda.synchronize(d)  # a joining stream starts with nothing pending
@@ -453,6 +481,16 @@ class Graph:
         for stream in streams:
             origin.wait_stream(stream)  # the join
         return out
+
+    def _pool_bytes(self) -> dict[int, int]:
+        """Bytes of the segments of this graph's pools (its private pool,
+        its cond branch pool, its peer pools) per card index."""
+        if self._pool is None:
+            return {}
+        ids = {tuple(self._pool)} | {tuple(p.id) for p in self._peer_pools}
+        if self._branch_pool is not None:
+            ids.add(tuple(self._branch_pool.id))
+        return pool_bytes(torch.cuda.memory._snapshot()["segments"], ids)
 
     def _launch(self) -> None:
         """Replay the graph on the current stream, after every peer's
@@ -534,12 +572,14 @@ class Graph:
         stream and count its launches; returns the static outputs, which the
         next replay overwrites."""
         if inputs is not None:
-            for dst, src in zip(self.inputs, inputs, strict=True):
-                if src is not dst:
-                    dst.copy_(src)
-                    self.copied += 1
+            with _span("capture.copy_in"):
+                for dst, src in zip(self.inputs, inputs, strict=True):
+                    if src is not dst:
+                        dst.copy_(src)
+                        self.copied += 1
         try:
-            self._launch()
+            with _span("capture.launch"):
+                self._launch()
         except Exception as exc:
             raise RuntimeError(f"replay of {self.name} failed for key {self.key}: {exc}") from exc
         add_counts(self.delta)
@@ -557,6 +597,17 @@ class Graph:
             add_counts(dt, t - t0)
             add_counts(df, f - f0)
         self.taken = now
+
+
+def pool_bytes(segments, pool_ids) -> dict[int, int]:
+    """Bytes per card index of the allocator's ``segments`` (the
+    ``segments`` of ``torch.cuda.memory._snapshot()``) whose pool is one
+    of ``pool_ids``."""
+    out: dict[int, int] = {}
+    for seg in segments:
+        if tuple(seg["segment_pool_id"]) in pool_ids:
+            out[seg["device"]] = out.get(seg["device"], 0) + seg["total_size"]
+    return out
 
 
 def _copy_into(dst_tree, src_tree) -> None:
@@ -630,47 +681,76 @@ class DonatingGraphs:
     def _held(self, k: int) -> bool:
         return any(ref() is not None for ref in self.handed[k])
 
-    def __call__(self, tensors: list[torch.Tensor]) -> Any:
+    def choose(self, tensors: list[torch.Tensor]) -> tuple[int, list] | None:
+        """``(k, inputs)``: a call on ``tensors`` replays ``graphs[k]`` on
+        ``inputs``; None when it would write a set the caller still holds
+        (the plain graph runs instead)."""
         if len(self.graphs) == 1:
-            return clone_outputs(self.graphs[0].replay(tensors))
+            return 0, tensors
         passed = [t for t, d in zip(tensors, self.mask) if d]
         k = next((k for k in (0, 1) if all(map(_same, passed, self.sets[k]))), None)
         if k is None:  # another key's, or the caller's: copied into set 0
-            if self._held(0) or self._held(1):
-                return self._plain(tensors)
-            k, inputs = 0, tensors
-        elif self._held(1 - k):
-            return self._plain(tensors)
-        else:
-            inputs = self._with_set(tensors, k)
-        out = self.graphs[k].replay(inputs)
-        views = [t.detach() for t in self.sets[1 - k]]  # tensors of their own, to track
-        self.handed[1 - k][:] = [weakref.ref(v) for v in views]
-        return (*unflatten(self.donated_spec, views), *clone_outputs(tuple(out[self.n_donated:])))
+            return None if self._held(0) or self._held(1) else (0, tensors)
+        return None if self._held(1 - k) else (k, self._with_set(tensors, k))
 
-    def _plain(self, tensors: list[torch.Tensor]) -> Any:
+    def run(self, choice: tuple[int, list], tensors: list[torch.Tensor]) -> Any:
+        """Replay the graph :meth:`choose` picked; returns the donated
+        arguments' new values as views of the set just written, then
+        clones of the other outputs."""
+        k, inputs = choice
+        out = self.graphs[k].replay(inputs)
+        with _span("capture.clone"):
+            if len(self.graphs) == 1:
+                return clone_outputs(out)
+            views = [t.detach() for t in self.sets[1 - k]]  # tensors of their own, to track
+            self.handed[1 - k][:] = [weakref.ref(v) for v in views]
+            return (*unflatten(self.donated_spec, views),
+                    *clone_outputs(tuple(out[self.n_donated:])))
+
+    def run_plain(self, tensors: list[torch.Tensor]) -> Any:
+        """The copy-in, clone-out graph of the key, captured at its first use."""
         if self.plain is None:
-            self.plain = Graph(lambda *static: self.fn(*unflatten(self.spec, static)), tensors,
-                               self.device, f"{self.name} (a held value)", self.spec)
-        return clone_outputs(self.plain.replay(tensors))
+            with _span("capture.capture"):
+                self.plain = Graph(lambda *static: self.fn(*unflatten(self.spec, static)),
+                                   tensors, self.device, f"{self.name} (a held value)", self.spec)
+        out = self.plain.replay(tensors)
+        with _span("capture.clone"):
+            return clone_outputs(out)
+
+    def all_graphs(self) -> list[Graph]:
+        return self.graphs + ([self.plain] if self.plain is not None else [])
 
 
 class GraphCache:
     """Key -> what one key captured, least recently used dropped first when
     more than ``CACHE_SIZE`` keys would be held (before the new capture, so
-    its pool can reuse the freed memory)."""
+    its pool can reuse the freed memory).
 
-    def __init__(self):
+    It also holds the entry's counters: ``calls``, ``captures`` (graphs),
+    ``evictions`` (keys dropped), ``eager`` (calls that ran the body
+    eagerly) and ``plain`` (calls of a donating key that ran its plain
+    graph).  ``name`` is the entry's ``module.qualname``."""
+
+    def __init__(self, name: str):
+        self.name = name
         self.entries: collections.OrderedDict = collections.OrderedDict()
+        self.calls = self.captures = self.evictions = self.eager = self.plain = 0
         _caches.append(self)
 
-    def get(self, key, build: Callable[[], Any]) -> Any:
-        if key in self.entries:
+    def lookup(self, key) -> Any:
+        """What ``key`` captured, made the most recently used; None on a miss."""
+        value = self.entries.get(key)
+        if value is not None:
             self.entries.move_to_end(key)
-            return self.entries[key]
+        return value
+
+    def put(self, key, build: Callable[[], Any]) -> Any:
+        """Drop the least recently used keys to make room, then ``build()``
+        the value of ``key``."""
         while len(self.entries) >= CACHE_SIZE:
             settle()
             self.entries.popitem(last=False)
+            self.evictions += 1
         value = self.entries[key] = build()
         return value
 
@@ -691,6 +771,37 @@ def graphs_captured() -> int:
     return _captured
 
 
+def _graphs(value) -> list[Graph]:
+    return value.all_graphs() if isinstance(value, DonatingGraphs) else [value]
+
+
+def stats() -> dict:
+    """The capture counters, after one :func:`settle`: ``entries``, one dict
+    per entry that was called (``name``, ``calls``, ``replays`` (summed over
+    its graphs), ``captures``, ``evictions``, ``eager``, ``plain``, and
+    ``graphs``: per cached graph its ``replays``, ``copied``, ``seconds``,
+    ``pool_bytes`` and ``taken``); ``graphs_captured``; ``seconds`` and
+    ``pool_bytes`` (per card index) summed over the cached graphs."""
+    settle()
+    entries, seconds, pools = [], 0.0, {}
+    for cache in _caches:
+        if not cache.calls:
+            continue
+        graphs = [{"replays": g.replays, "copied": g.copied, "seconds": g.seconds,
+                   "pool_bytes": dict(g.pool_bytes), "taken": [list(t) for t in g.taken]}
+                  for value in cache.entries.values() for g in _graphs(value)]
+        for g in graphs:
+            seconds += g["seconds"]
+            for card, n in g["pool_bytes"].items():
+                pools[card] = pools.get(card, 0) + n
+        entries.append({"name": cache.name, "calls": cache.calls,
+                        "replays": sum(g["replays"] for g in graphs), "captures": cache.captures,
+                        "evictions": cache.evictions, "eager": cache.eager, "plain": cache.plain,
+                        "graphs": graphs})
+    return {"entries": entries, "graphs_captured": _captured, "seconds": seconds,
+            "pool_bytes": pools}
+
+
 def captured(fn: Callable, prepare: Callable | None = None,
              donate_argnums: tuple[int, ...] = ()) -> Callable:
     """``fn`` as a captured entry (module docstring).  The wrapper keeps
@@ -707,7 +818,7 @@ def captured(fn: Callable, prepare: Callable | None = None,
     values are donated (:class:`DonatingGraphs`); ``fn`` then returns a
     tuple that starts with their new values."""
     signature = inspect.signature(fn)
-    cache = GraphCache()
+    cache = GraphCache(f"{fn.__module__}.{fn.__qualname__}")
     donate_argnums = tuple(donate_argnums)
 
     def key(*args, **kwargs) -> tuple:
@@ -715,29 +826,63 @@ def captured(fn: Callable, prepare: Callable | None = None,
         bound.apply_defaults()
         return flatten(tuple(bound.arguments.values()))
 
-    @functools.wraps(fn)
-    def call(*args, **kwargs):
+    def find(args, kwargs):
+        """``(args, kwargs, spec, tensors)`` of a call, ``spec`` None for
+        one that runs ``fn`` eagerly on ``args`` and ``kwargs``."""
         if prepare is not None:
             prepared = prepare(*args, **kwargs)
             if prepared is None:
-                return fn(*args, **kwargs)
+                return args, kwargs, None, None
             args, kwargs = prepared
         spec, tensors = key(*args, **kwargs)
         if runs_eagerly(tensors):
-            return fn(*args, **kwargs)
+            return args, kwargs, None, None
+        return args, kwargs, spec, tensors
+
+    def build(spec, tensors):
         cards = list(dict.fromkeys(t.device for t in tensors if t.is_cuda))
         device = cards[0] if cards else tensors[0].device
         if donate_argnums:
-            entry = cache.get(spec, lambda: DonatingGraphs(fn, spec, tensors, donate_argnums,
-                                                           device, fn.__qualname__))
-            return entry(tensors)
+            return DonatingGraphs(fn, spec, tensors, donate_argnums, device, fn.__qualname__)
 
         def body(*static):
             return fn(*unflatten(spec, static))
 
-        graph = cache.get(spec, lambda: Graph(body, tensors, device, fn.__qualname__, spec,
-                                              peers=tuple(cards[1:])))
-        return clone_outputs(graph.replay(tensors))
+        return Graph(body, tensors, device, fn.__qualname__, spec, peers=tuple(cards[1:]))
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        cache.calls += 1
+        with _span("capture.call", entry=fn.__qualname__) as root:
+            with _span("capture.key"):
+                args, kwargs, spec, tensors = find(args, kwargs)
+                entry = cache.lookup(spec) if spec is not None else None
+                choice = entry.choose(tensors) if donate_argnums and entry is not None else None
+            if spec is None:
+                cache.eager += 1
+                root.set("path", "eager")
+                with _span("capture.eager"):
+                    return fn(*args, **kwargs)
+            if entry is None:
+                root.set("path", "capture")
+                with _span("capture.capture"):
+                    entry = cache.put(spec, lambda: build(spec, tensors))
+                cache.captures += len(_graphs(entry))
+                if donate_argnums:
+                    choice = entry.choose(tensors)
+            else:
+                root.set("path", "replay")
+            if not donate_argnums:
+                out = entry.replay(tensors)
+                with _span("capture.clone"):
+                    return clone_outputs(out)
+            if choice is not None:
+                return entry.run(choice, tensors)
+            cache.plain += 1
+            cache.captures += entry.plain is None
+            root.set("path", "plain")
+            with _span("capture.plain"):
+                return entry.run_plain(tensors)
 
     call.eager = fn
     call.cache = cache
