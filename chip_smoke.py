@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 8p   # phase 8p alone, on every card present
+    python3 chip_smoke.py --phase 8q   # phase 8q alone (the handoff kernel)
 
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``cuda_optical_flow_2_torch/csrc`` (one nvcc per source, in parallel) and
@@ -205,6 +206,24 @@ then, in order:
    per card, the copies between cards, pool MB per card, capture seconds.
    ``python3 chip_smoke.py --phase 8p`` runs it alone after the build, on
    every card of the machine (its last line the ok line, no kernel line);
+8q. the coarse-to-fine handoff kernel (``kernels/upsample_flow``):
+   ``torch.equal`` (every bit, NaN, inf and -0.0 included) to
+   ``upsample_flow_plain`` at each ``PAPER_1080P`` handoff at 1080x1920
+   (67x120 -> 135x240 up to 540x960 -> 1080x1920) at batches 1, 8 and 54,
+   on ragged shapes (odd W: the float2-store path; 1x1 -> 3x3) and on a
+   transposed and an offset view; 4 launches per captured ``PAPER_1080P``
+   and ``TVL1Config()`` call (the replay ``torch.equal`` to the capturing
+   call and to eager) and per warm serving step (4 streams,
+   ``RecoveryConfig()``), none with ``use_pallas=False``, levels - 1 per
+   ``HSConfig()``, ``FBConfig()``, ``DISConfig()`` and ``TVL1_REALTIME``
+   call and no octave handoff of theirs on the plain stencil; the captured
+   ``PAPER_1080P`` replay's device ops; the kernel's, the plain version's,
+   ``F.interpolate``'s and the bound's ms at 540x960 -> 1080x1920 and over
+   a pair's four handoffs; its largest |d| at the plain version's finite
+   values is the kernel's ``max_abs_err`` in the kernels line (its
+   launches there are those of the paths of phases 4-8p, its times phase
+   9's).  ``python3 chip_smoke.py --phase 8q`` runs it alone after the
+   build;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K; host time included; ``consistent_flow`` with the fill off
    and on, the fill alone and its plain version, ``good_features`` and
@@ -290,6 +309,10 @@ KERNELS = [
     ("fill_occluded_flow_kernel", "occlusion_fill", "fill_occluded_flow_plain",
      "cuda_optical_flow_2_torch/csrc/occlusion_fill.cu",
      "cuda_optical_flow_2_tpu/models/consistency.py:124"),
+    # the coarse-to-fine flow handoff: plain XLA in JAX, no pallas_call
+    ("upsample_flow", "upsample_flow", "upsample_flow_plain",
+     "cuda_optical_flow_2_torch/csrc/upsample_flow.cu",
+     "cuda_optical_flow_2_tpu/ops/resize.py:49"),
     # the spatial-TP band entries: the same sources with the band's global rows
     ("lk_band_step", "lk_step_fused", "lk_band_step_plain",
      "cuda_optical_flow_2_torch/csrc/lk_step_fused.cu",
@@ -612,6 +635,12 @@ def work(name: str, args, kw) -> tuple[float, float, float]:
         px, window = args[0].numel(), args[5]
         # two box passes over five planes, then det, numerators, one divide
         return 28.0 * px, float((10 * (window - 1) + 12) * px), 0.0
+    if name == "upsample_flow":
+        # the coarse flow read once, the fine flow written once; per value
+        # two products and a sum on each axis (rows, then columns), then x 2
+        (h, w), (th, tw) = args[0].shape[-3:-1], args[1]
+        n = args[0].numel() // (2 * h * w)
+        return 8.0 * n * (h * w + th * tw), float(n * (6 * 2 * h * w + 6 * th * tw + 2 * th * tw)), 0.0
     if name == "median_filter_kernel":
         # a selection: each plane element read once and written once; the
         # network's exchanges depend on the algorithm and are not counted
@@ -1180,11 +1209,13 @@ def example_launches(n_cards: int) -> dict[str, dict[str, int]]:
     coarsest level and one ``lk_level_step`` per other level, each level
     ``iterations`` passes; an FB image pair is L - 1 ``pyr_down``, L
     expansions and L x iterations steps; a downsampled flow one
-    ``pyr_down`` per plane per level."""
+    ``pyr_down`` per plane per level; every pyramid of L levels L - 1
+    ``upsample_flow`` handoffs."""
     return {
-        "basic": {"pyr_down": 3, "lk_residual": 1, "lk_level_step": 3},
+        "basic": {"pyr_down": 3, "lk_residual": 1, "lk_level_step": 3, "upsample_flow": 3},
         # cold LKConfig(levels=3) over 10 frames: 2 pyr_down per frame, 9 pairs
-        "streaming_video": {"pyr_down": 20, "lk_residual": 9, "lk_level_step": 18},
+        "streaming_video": {"pyr_down": 20, "lk_residual": 9, "lk_level_step": 18,
+                            "upsample_flow": 18},
         # warm levels=1, 120 flows: the first pair cold, then one step each
         "live_stream": {"lk_residual": 1, "lk_level_step": 119},
         # 9 pairs twice, iterations=2.  Plain warm: residual + step, then 2
@@ -1192,18 +1223,19 @@ def example_launches(n_cards: int) -> dict[str, dict[str, int]]:
         # residual + 5 steps) at the first pair and at the two pairs after
         # the cut, 2 steps at the other six; one check warp per warm pair;
         # pyr_down 4 at the first pair (both frames' 2 levels), 6 at each
-        # later pair (the frame's 2 levels, the seed's 2 levels x 2 planes)
+        # later pair (the frame's 2 levels, the seed's 2 levels x 2 planes);
+        # 2 handoffs in each of the 3 cold solves
         "scene_cut_recovery": {"lk_residual": 4, "lk_level_step": 44, "pyr_down": 52,
-                               "warp_bilinear_select": 8},
+                               "warp_bilinear_select": 8, "upsample_flow": 6},
         # FBConfig(levels=3, iterations=2): 2 pyr_down, 3 expansions and 6
         # steps per flow, two flows; one cycle warp per fb_consistency
         "flow_quality": {"pyr_down": 4, "poly_expansion_kernel": 6, "fb_level_step": 12,
-                         "warp_bilinear_select": 1},
+                         "warp_bilinear_select": 1, "upsample_flow": 4},
         "frame_interpolation": {"pyr_down": 4, "poly_expansion_kernel": 6, "fb_level_step": 12,
-                                "warp_bilinear_select": 2},
+                                "warp_bilinear_select": 2, "upsample_flow": 4},
         # two pairs per card, one batched LKConfig(levels=3) call each
         "sharded_batch": {"pyr_down": 2 * n_cards, "lk_residual": n_cards,
-                          "lk_level_step": 2 * n_cards},
+                          "lk_level_step": 2 * n_cards, "upsample_flow": 2 * n_cards},
         # the FB part on 3 shards, FBConfig(levels=2, iterations=2): per
         # shard 1 pyr_down, 2 expansions, 4 band steps; the LK part is plain
         "spatial_tp": {"pyr_down": 3, "poly_expansion_kernel": 6, "fb_band_step": 12},
@@ -2502,6 +2534,180 @@ def phase_8p(of, dev, run_path, card: str) -> dict:
     return out
 
 
+# --- phase 8q: the coarse-to-fine handoff kernel -----------------------------
+
+# PAPER_1080P's four handoffs at 1080x1920, coarse (h, w) -> fine (H, W): the
+# levels floor-halve 1080 to 67 rows, so the first handoff has an odd target
+HANDOFFS_1080P = [((67, 120), (135, 240)), ((135, 240), (270, 480)), ((270, 480), (540, 960)),
+                  ((540, 960), (1080, 1920))]
+HANDOFF_BATCHES = (1, 8, 54)  # one pair, a video batch, the camera streams' S
+# ragged handoffs: odd sources and targets, an odd W (the float2-store path)
+HANDOFFS_RAGGED = [(2, (239, 320), (479, 641)), (3, (120, 161), (240, 322)),
+                   (1, (1, 1), (3, 3))]
+
+
+def phase_8q(of, dev, card: str) -> dict:
+    """The coarse-to-fine handoff kernel (``kernels/upsample_flow``):
+    ``torch.equal`` (every bit: NaN, inf and -0.0) to ``upsample_flow_plain``
+    at every ``PAPER_1080P`` handoff shape at batches 1, 8 and 54 and on
+    ragged shapes; its launches per captured ``PAPER_1080P`` and
+    ``TVL1Config()`` call and per warm serving step, and none on the plain
+    path nor a plain octave on any family's kernel path; the captured
+    ``PAPER_1080P`` replay's device ops; the kernel table's times.  Print one
+    line per check; return the numbers for PERF.md."""
+    import torch
+    import torch.nn.functional as F
+
+    from cuda_optical_flow_2_torch import capture
+    from cuda_optical_flow_2_torch.kernels import upsample_flow as uk
+    from cuda_optical_flow_2_torch.models import lucas_kanade, tvl1
+    from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def flow(b, h, w):
+        f = torch.randn((b, h, w, 2), generator=gen, device=dev) * 8.0
+        k = min(3, f.numel())
+        f.view(-1)[:k] = torch.tensor([math.nan, math.inf, -0.0])[:k]
+        return f
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    cases = [(b, hw, HW) for b in HANDOFF_BATCHES for hw, HW in HANDOFFS_1080P] + HANDOFFS_RAGGED
+    max_abs_err = 0.0  # at the finite values of the plain version
+    for b, (h, w), (th, tw) in cases:
+        f = flow(b, h, w)
+        got = uk.upsample_flow(f, (th, tw))
+        want = uk.upsample_flow_plain(f, (th, tw))
+        torch.cuda.synchronize()
+        require(torch.equal(bits(got), bits(want)),
+                f"8q upsample_flow {b}x{h}x{w} -> {th}x{tw}: not torch.equal to the plain version")
+        d = (got - want)[torch.isfinite(want)].abs()
+        if d.numel():  # 1x1 -> 3x3 holds only the NaN and the inf
+            max_abs_err = max(max_abs_err, float(d.max()))
+        del f, got, want, d
+    # views: a strided flow is copied in, an 8-byte-aligned offset read as it is
+    f = flow(2, 135, 241)
+    for label, v in (("transposed", f.transpose(1, 2)), ("offset", f.view(-1)[2:].view(-1)[
+            :2 * 134 * 241 * 2].view(2, 134, 241, 2))):
+        want = uk.upsample_flow_plain(v, (2 * v.shape[1], 2 * v.shape[2] + 1))
+        require(torch.equal(bits(uk.upsample_flow(v, tuple(want.shape[1:3]))), bits(want)),
+                f"8q upsample_flow {label} view: not torch.equal to the plain version")
+    torch.cuda.synchronize()
+    print(f"phase 8q upsample_flow [{card}]: torch.equal (bits) to upsample_flow_plain at "
+          f"PAPER_1080P's handoffs {[f'{h}x{w}->{H}x{W}' for (h, w), (H, W) in HANDOFFS_1080P]} "
+          f"at batches {HANDOFF_BATCHES}, ragged {[(b, hw, HW) for b, hw, HW in HANDOFFS_RAGGED]}, "
+          "a transposed and an offset view")
+
+    # launches: 4 per captured PAPER_1080P / TVL1Config() call and warm step
+    def launches(fn):
+        capture.settle()
+        n0 = uk.upsample_flow.launches
+        out = fn()
+        torch.cuda.synchronize()
+        capture.settle()
+        return uk.upsample_flow.launches - n0, out
+
+    seq = synthetic_sequence(6, 1080, 1920, velocity=(2.0, 1.0), period=48)
+    frames = [torch.as_tensor(a, device=dev).float() for a in seq]
+    p, q = frames[0], frames[1]
+    capture.clear()
+    counts = {}
+    for label, jit, cfg in (("PAPER_1080P", lucas_kanade.pyramidal_lk_jit, of.PAPER_1080P),
+                            ("TVL1Config()", tvl1.pyramidal_tvl1_jit, of.TVL1Config())):
+        n_first, want = launches(lambda: jit(p, q, cfg))
+        n_replay, got = launches(lambda: jit(p, q, cfg))
+        eager = jit.eager(p, q, cfg)
+        require(n_first == n_replay == 4, f"8q {label}: upsample_flow launches {n_first} "
+                                          f"(capturing call), {n_replay} (replay); predicted 4")
+        require(torch.equal(got, want) and torch.equal(got, eager),
+                f"8q {label}: the replay is not torch.equal to the eager call")
+        counts[label] = n_replay
+    lk_jit = lucas_kanade.pyramidal_lk_jit
+    graph = lk_jit.cache.entries[lk_jit.key(p, q, of.PAPER_1080P)]
+    nodes = device_names(graph.replay)
+    n_plain, _ = launches(lambda: of.pyramidal_lk(
+        p, q, dataclasses.replace(of.PAPER_1080P, use_pallas=False)))
+    require(n_plain == 0, f"8q PAPER_1080P use_pallas=False launched upsample_flow {n_plain}x")
+    # warm serving steps: 4 streams of PAPER_1080P with recovery, as the benchmark's
+    rec = of.RecoveryConfig()
+    batch = [torch.stack([fr.roll(40 * s, dims=-1) for s in range(4)]) for fr in frames]
+    state = of.init_state(batch[0], of.PAPER_1080P, rec)
+    step_counts = []
+    for fr in batch[1:]:
+        n, (state, _flow) = launches(lambda: of.step(state, fr, of.PAPER_1080P, True, rec))
+        step_counts.append(n)
+    require(step_counts[1:] == [4] * (len(step_counts) - 1),
+            f"8q serving: upsample_flow launches per step {step_counts}; predicted 4 per warm "
+            "step")
+    # every family's kernel path: its octave handoffs all launch the kernel
+    plain_octaves = []
+    plain = uk.upsample_flow_plain
+
+    def plain_spy(f, shape):
+        if f.is_cuda and uk.is_octave(f.shape, shape):
+            plain_octaves.append(tuple(f.shape))
+        return plain(f, shape)
+
+    family = {"pyramidal_hs HSConfig()": (of.pyramidal_hs, of.HSConfig(), 2),
+              "pyramidal_farneback FBConfig()": (of.pyramidal_farneback, of.FBConfig(), 2),
+              "pyramidal_dis DISConfig()": (of.pyramidal_dis, of.DISConfig(), 4),
+              "pyramidal_tvl1 TVL1_REALTIME": (of.pyramidal_tvl1, of.TVL1_REALTIME, 3)}
+    uk.upsample_flow_plain = plain_spy
+    try:
+        for label, (entry, cfg, n_want) in family.items():
+            n, _ = launches(lambda: entry(p, q, cfg))
+            require(n == n_want, f"8q {label}: upsample_flow launches {n}, predicted {n_want}")
+            counts[label] = n
+    finally:
+        uk.upsample_flow_plain = plain
+    require(not plain_octaves, f"8q: octave handoffs on a kernel path took the plain stencil: "
+                               f"{plain_octaves}")
+    print(f"phase 8q upsample_flow launches [{card}]: {counts} per call, warm serving steps "
+          f"(4 streams, RecoveryConfig()) {step_counts}; PAPER_1080P use_pallas=False 0; no "
+          f"octave handoff of a kernel path on the plain stencil; the captured PAPER_1080P "
+          f"replay: {sum('of2_' in n for n in nodes)} of2 kernels of {len(nodes)} device ops")
+    capture.clear()
+
+    # the kernel table's row: one 540x960 -> 1080x1920 handoff and a pair's four
+    fs = [torch.randn((1, *hw, 2), generator=gen, device=dev) * 8.0 for hw, _ in HANDOFFS_1080P]
+    fs_nchw = [f.permute(0, 3, 1, 2).contiguous() for f in fs]
+    (h, w), fine = HANDOFFS_1080P[-1]
+
+    def all4(fn):
+        return lambda: [fn(f, HW) for f, (_, HW) in zip(fs, HANDOFFS_1080P)]
+
+    def interp(x, size):
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False) * 2.0
+
+    # the library call computes the same function for an even target, in
+    # another rounding (a yardstick only: the port never calls it)
+    d = float((interp(fs_nchw[3], fine).permute(0, 2, 3, 1)
+               - uk.upsample_flow(fs[3], fine)).abs().max())
+    require(d <= 1e-4, f"F.interpolate is not upsample_flow's function: max |d| {d}")
+    nbytes = [8 * (h * w + H * W) for (h, w), (H, W) in HANDOFFS_1080P]
+    out = {}
+    for label, kernel, plain_fn, lib, n in (
+            (f"{h}x{w} -> {fine[0]}x{fine[1]}", lambda: uk.upsample_flow(fs[3], fine),
+             lambda: uk.upsample_flow_plain(fs[3], fine),
+             lambda: interp(fs_nchw[3], fine), nbytes[3]),
+            ("a PAPER_1080P pair's 4 handoffs", all4(uk.upsample_flow),
+             all4(uk.upsample_flow_plain),
+             lambda: [interp(x, HW) for x, (_, HW) in zip(fs_nchw, HANDOFFS_1080P)], sum(nbytes))):
+        row = {"ms": cuda_ms(kernel, 30, inner=10, device=True),
+               "plain_ms": cuda_ms(plain_fn, 30, inner=3, device=True),
+               "library_ms": cuda_ms(lib, 30, inner=10, device=True),
+               "bound_ms": n / HBM_BYTES_PER_S * 1e3}
+        out[label] = row
+        print(f"phase 8q timing [{card}] upsample_flow {label}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, F.interpolate(bilinear) x 2 {row['library_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.4f} ms by bytes ({100 * row['bound_ms'] / row['ms']:.1f}"
+              " % of the kernel's time)")
+    return {"launches": counts, "step_launches": step_counts, "replay_ops": len(nodes),
+            "timing": out, "max_abs_err": max_abs_err}
+
+
 def main(only: str | None = None) -> int:
     if not (ROOT / "cuda_optical_flow_2_torch" / "csrc").is_dir():
         print("chip_smoke: cuda_optical_flow_2_torch/ not found beside this script", file=sys.stderr)
@@ -2523,6 +2729,7 @@ def main(only: str | None = None) -> int:
         _build, bilateral_tap, fb_step_fused, hs_sweep, lk_fused, lk_step_fused, median_select,
         occlusion_fill, poly_exp_fused, pyr_down, tvl1_sweep, warp_select, win_solve,
     )
+    from cuda_optical_flow_2_torch.kernels import upsample_flow as upsample_kernel
     from cuda_optical_flow_2_torch.models.dis import _lk_like as dis_lk_like
     from cuda_optical_flow_2_torch.models.farneback import fb_normal_eq_products
     from cuda_optical_flow_2_torch.ops.poly_exp import gaussian_1d, mixing_matrix
@@ -2533,7 +2740,8 @@ def main(only: str | None = None) -> int:
             "pyr_down": pyr_down, "bilateral_tap": bilateral_tap, "hs_sweep": hs_sweep,
             "poly_exp_fused": poly_exp_fused, "win_solve": win_solve,
             "fb_step_fused": fb_step_fused, "tvl1_sweep": tvl1_sweep,
-            "median_select": median_select, "occlusion_fill": occlusion_fill}
+            "median_select": median_select, "occlusion_fill": occlusion_fill,
+            "upsample_flow": upsample_kernel}
     wrappers = {name: getattr(mods[m], name) for name, m, *_ in KERNELS}
     plains = {name: getattr(mods[m], plain) for name, m, plain, *_ in KERNELS}
 
@@ -2574,6 +2782,15 @@ def main(only: str | None = None) -> int:
             require(counts[name] > 0, f"path {label} did not launch {name}: {counts}")
         path_launches[label] = counts
         return out, {k: v for k, v in counts.items() if v}
+
+    if only == "8q":
+        # 8q alone: the handoff kernel against its plain version, its launches, its times
+        phase_8q(of, dev, card)
+        print(f"chip_smoke --phase 8q: {time.perf_counter() - t_start:.1f} s in all")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
 
     if only == "8p":
         # 8p alone: every multi-device entry on the cards present
@@ -2994,7 +3211,7 @@ def main(only: str | None = None) -> int:
     fr = synthetic_sequence(2, 1080, 1920, velocity=(2.0, 1.0), period=48)
     prev, nxt = cuda(fr[0]).float(), cuda(fr[1]).float()
     flow, counts = run_path("PAPER_1080P", lambda: of.pyramidal_lk(prev, nxt, of.PAPER_1080P),
-                            ("lk_residual", "lk_level_step", "pyr_down"))
+                            ("lk_residual", "lk_level_step", "pyr_down", "upsample_flow"))
     plain_cfg = dataclasses.replace(of.PAPER_1080P, use_pallas=False)
     flow_plain = of.pyramidal_lk(prev, nxt, plain_cfg)
     require(tuple(flow.shape) == (1080, 1920, 2), f"flow shape {tuple(flow.shape)}")
@@ -3025,7 +3242,7 @@ def main(only: str | None = None) -> int:
     flows, counts = run_path("serving", lambda: dict(of.process_sequence(
         (None if f is None else cuda(f) for f in frames), serve_cfg,
         warm_start=True, recovery=recovery,
-    )), ("lk_level_step", "warp_bilinear_select", "pyr_down"))
+    )), ("lk_level_step", "warp_bilinear_select", "pyr_down", "upsample_flow"))
     require(sorted(flows) == [1, 2, 3, 4, 5, 6], f"yielded frames {sorted(flows)}")
     require(all(bool(torch.isfinite(f).all()) for f in flows.values()), "serving flow not finite")
     cold = of.pyramidal_lk(cuda(frames[4]).float(), cuda(frames[5]).float(),
@@ -3110,9 +3327,10 @@ def main(only: str | None = None) -> int:
     fp, fq = cuda(fr[0]).float(), cuda(fr[1]).float()
     fb_cfgs = {"image": of.FBConfig(), "coeff": of.FBConfig(warp_planes="coeff")}
     fb_expect = {
-        "image": {"pyr_down": 2, "poly_expansion_kernel": 3, "fb_level_step": 9},
+        "image": {"pyr_down": 2, "poly_expansion_kernel": 3, "fb_level_step": 9,
+                  "upsample_flow": 2},
         "coeff": {"pyr_down": 2, "poly_expansion_kernel": 6, "warp_bilinear_select": 8,
-                  "window_solve": 9},
+                  "window_solve": 9, "upsample_flow": 2},
     }
     for label, cfg in fb_cfgs.items():
         flow, counts = run_path(f"FB {label}", lambda: of.pyramidal_farneback(fp, fq, cfg),
@@ -3230,9 +3448,9 @@ def main(only: str | None = None) -> int:
     tvl1_cfgs = {"TVL1_REALTIME": of.TVL1_REALTIME, "TVL1Config()": of.TVL1Config()}
     tvl1_expect = {
         "TVL1_REALTIME": {"warp_bilinear_select": 16, "pyr_down": 3, "tvl1_relax": 16,
-                          "median_filter_kernel": 16},
+                          "median_filter_kernel": 16, "upsample_flow": 3},
         "TVL1Config()": {"warp_bilinear_select": 25, "pyr_down": 4, "tvl1_relax": 25,
-                         "median_filter_kernel": 25},
+                         "median_filter_kernel": 25, "upsample_flow": 4},
     }
     for label, cfg in tvl1_cfgs.items():
         flow, counts = run_path(f"TV-L1 {label}", lambda: of.pyramidal_tvl1(tp, tn, cfg),
@@ -3262,11 +3480,13 @@ def main(only: str | None = None) -> int:
     dis_cfgs = {"DISConfig()": of.DISConfig(), "DIS_REALTIME": of.DIS_REALTIME,
                 "charbonnier": of.DISConfig(refine_penalty="charbonnier", refine_alpha=40.0)}
     full = {"pyr_down": 4, "lk_residual": 1, "lk_level_step": 9, "warp_bilinear_select": 5,
-            "hs_relax": 5, "lk_residual centered": 1, "lk_level_step centered": 9}
+            "hs_relax": 5, "lk_residual centered": 1, "lk_level_step centered": 9,
+            "upsample_flow": 4}
     dis_expect = {"DISConfig()": full, "charbonnier": full,
                   "DIS_REALTIME": {"pyr_down": 4, "lk_residual": 1, "lk_level_step": 7,
                                    "warp_bilinear_select": 4, "hs_relax": 4,
-                                   "lk_residual centered": 1, "lk_level_step centered": 7}}
+                                   "lk_residual centered": 1, "lk_level_step centered": 7,
+                                   "upsample_flow": 4}}
     for label, cfg in dis_cfgs.items():
         flow, counts = run_path(f"DIS {label}", lambda: of.pyramidal_dis(tp, tn, cfg),
                                 tuple(dis_expect[label]))
@@ -3508,8 +3728,10 @@ def main(only: str | None = None) -> int:
     # the flag off; the launches as predicted in PERF.md
     half_paths = {
         "PAPER_1080P": (of.PAPER_1080P, of.pyramidal_lk, (prev, nxt),
-                        {"pyr_down": 4, "lk_residual": 1, "lk_level_step": 4, HALF: 3}),
-        "DISConfig()": (of.DISConfig(), of.pyramidal_dis, (tp, tn), full | {HALF: 3}),
+                        {"pyr_down": 4, "lk_residual": 1, "lk_level_step": 4, HALF: 3,
+                         "upsample_flow": 1}),
+        "DISConfig()": (of.DISConfig(), of.pyramidal_dis, (tp, tn),
+                        full | {HALF: 3, "upsample_flow": 1}),
     }
     for label, (cfg, entry, frames_, expect) in half_paths.items():
         on_cfg = dataclasses.replace(cfg, fused_half_upsample=True)
@@ -3626,9 +3848,9 @@ def main(only: str | None = None) -> int:
     tv3 = of.TVL1Config(levels=3)
     cf_expect = {
         "TVL1Config(levels=3)": {"pyr_down": 4, "warp_bilinear_select": 31, "tvl1_relax": 30,
-                                 "median_filter_kernel": 30},
+                                 "median_filter_kernel": 30, "upsample_flow": 4},
         "TVL1_REALTIME": {"pyr_down": 6, "warp_bilinear_select": 33, "tvl1_relax": 32,
-                          "median_filter_kernel": 32},
+                          "median_filter_kernel": 32, "upsample_flow": 6},
     }
     scenes = {
         "disk": layered.layered_scene(192, 256, bg_flow=(-2.0, 1.0), seed=3, layers=[
@@ -3748,7 +3970,7 @@ def main(only: str | None = None) -> int:
     rel = float(((scores.cpu() - cpu_scores).abs() / cpu_scores.abs()).max())
     require(rel <= GF_SCORE_RTOL, f"good_features scores vs the CPU run: max rel {rel}")
     require(bool((scores > 0).all()), "good_features found fewer than 500 points")
-    track_expect = {"pyr_down": 88, "lk_level_step": 35}
+    track_expect = {"pyr_down": 88, "lk_level_step": 35, "upsample_flow": 28}
     (pos, alive), counts = run_path("track_sequence PAPER_1080P 8 frames 1080x1920", lambda: (
         of.track_sequence(tr_frames, pts, of.PAPER_1080P)), tuple(track_expect))
     require(counts == track_expect, f"track_sequence launches {counts}, predicted {track_expect}")
@@ -3762,7 +3984,7 @@ def main(only: str | None = None) -> int:
     require(inner_err <= TRACK_TOL, f"track_sequence interior points: max error {inner_err} px")
     edge = err[:, ~inner][alive[:, ~inner]]
     edge_err = float(edge.max()) if edge.numel() else 0.0
-    tp_expect = {"pyr_down": 80, "lk_residual": 1, "lk_level_step": 34}
+    tp_expect = {"pyr_down": 80, "lk_residual": 1, "lk_level_step": 34, "upsample_flow": 28}
     gen, counts_tp = run_path("track_points PAPER_1080P 8 frames 1080x1920", lambda: list(
         of.track_points(tr_frames, pts, of.PAPER_1080P)), tuple(tp_expect))
     require(counts_tp == tp_expect, f"track_points launches {counts_tp}, predicted {tp_expect}")
@@ -3801,6 +4023,9 @@ def main(only: str | None = None) -> int:
 
     # 8p. every multi-device entry over the cards present
     phase_8p(of, dev, run_path, card)
+
+    # 8q. the coarse-to-fine handoff kernel
+    max_err["upsample_flow"] = phase_8q(of, dev, card)["max_abs_err"]
 
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
@@ -3934,6 +4159,7 @@ def main(only: str | None = None) -> int:
         ("fb_level_step", "15x15 poly_n=7 warm", (n0, exp0, f0, of.FBConfig()), {}),
         ("tvl1_relax", "14 iterations warm", (p0, w0, f0, f0), tvl1_kw),
         ("median_filter_kernel", "5x5 flow view", (f0.movedim(-1, 0), 5), {}),
+        ("upsample_flow", "540x960 -> 1080x1920", (half0, (1080, 1920)), {}),
         ("lk_residual", "9x9 box centered", (p0, n0, dis_lk), {"centered": True}),
         ("lk_level_step", "9x9 box centered", (p0, n0, f0, dis_lk), {"centered": True}),
         ("lk_level_step", "15x15 tri flow_half", (p0, n0, half0, of.PAPER_1080P),
@@ -3995,10 +4221,23 @@ def main(only: str | None = None) -> int:
     require(torch.equal(stacked.median(dim=0).values,
                         median_select.median_filter_kernel(f0.movedim(-1, 0), 5)),
             "torch.median is not median_filter_kernel's function")
+    # and F.interpolate (bilinear, x 2) on the (1, 2, h, w) flow computes
+    # upsample_flow's for an even target, in another rounding (a yardstick
+    # only: the port never calls it)
+    half0_nchw = half0.permute(2, 0, 1)[None].contiguous()
+
+    def interp_flow():
+        return F.interpolate(half0_nchw, size=(1080, 1920), mode="bilinear",
+                             align_corners=False) * 2.0
+
+    d = float((interp_flow()[0].permute(1, 2, 0) - upsample_kernel.upsample_flow(
+        half0, (1080, 1920))).abs().max())
+    require(d <= 1e-4, f"F.interpolate is not upsample_flow's function: max |d| {d}")
     library = {"pyr_down": ("F.conv2d(stride=2)", lambda: conv_pyr_down(pair0)),
                "poly_expansion_kernel": ("F.conv2d 5x1x7x7", lambda: conv_poly(p0)),
                "median_filter_kernel": ("torch.median of 25 stacked slices",
-                                        lambda: stacked.median(dim=0))}
+                                        lambda: stacked.median(dim=0)),
+               "upsample_flow": ("F.interpolate(bilinear) x 2", interp_flow)}
     timing = {}
     for name, label, args, kw in timed:
         slow = name in ("hs_relax", "tvl1_relax", "fill_occluded_flow_kernel")
@@ -4058,7 +4297,7 @@ if __name__ == "__main__":
         sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--nccl-worker"]:
         sys.exit(nccl_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
-    if sys.argv[1:] not in ([], ["--phase", "8p"]):
-        print(f"usage: python3 {Path(__file__).name} [--phase 8p]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--phase", "8p"], ["--phase", "8q"]):
+        print(f"usage: python3 {Path(__file__).name} [--phase 8p | --phase 8q]", file=sys.stderr)
         sys.exit(2)
     sys.exit(main(only=sys.argv[2] if sys.argv[1:] else None))

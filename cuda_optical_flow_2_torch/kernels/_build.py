@@ -65,6 +65,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _F, _F, _F, _P,
     ],
     "of2_occlusion_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "of2_upsample_flow": [_P, _P, _I, _I, _I, _I, _I, _P],
     # conditional graph nodes (capture.cond)
     "of2_stream_create": [_P],
     "of2_cond_open": [_P, _P, _P],

@@ -37,7 +37,9 @@ import torch
 from cuda_optical_flow_2_torch.capture import captured
 from cuda_optical_flow_2_torch.config import BilateralConfig, LKConfig
 from cuda_optical_flow_2_torch.constants import MASKS
-from cuda_optical_flow_2_torch.kernels import hs_sweep, lk_fused, lk_step_fused, warp_select
+from cuda_optical_flow_2_torch.kernels import (
+    hs_sweep, lk_fused, lk_step_fused, upsample_flow, warp_select,
+)
 from cuda_optical_flow_2_torch.models.lucas_kanade import (
     _fused_half_upsample,
     _validate,
@@ -46,7 +48,6 @@ from cuda_optical_flow_2_torch.models.lucas_kanade import (
 from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.conv import stencil2d
 from cuda_optical_flow_2_torch.ops.gradients import SOBEL_GAIN
-from cuda_optical_flow_2_torch.ops.resize import upsample_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
 from cuda_optical_flow_2_torch.ops.window import window_sum
 
@@ -238,7 +239,7 @@ def dis_level(
     lk_like = _lk_like(config)
     flow = flow_init
     if flow_init_half and not _kernels(config):
-        flow = upsample_flow(flow, tuple(prev.shape[-2:]))
+        flow = upsample_flow.handoff(flow, tuple(prev.shape[-2:]), config.use_pallas)
     for it in range(config.iterations):
         if flow is None:
             # Coarsest start: zero displacement, so the "warped" frame is
@@ -280,10 +281,11 @@ def dis_coarse_to_fine(
         if flow is not None:
             half = _fused_half_upsample(prev_pyr[k], flow, lk_like)
             if not half:
-                flow = upsample_flow(flow, tuple(prev_pyr[k].shape[-2:]))
+                flow = upsample_flow.handoff(flow, tuple(prev_pyr[k].shape[-2:]),
+                                             config.use_pallas)
         flow = dis_level(prev_pyr[k], next_pyr[k], flow, config, flow_init_half=half)
     if config.finest_level > 0:
-        flow = upsample_flow(flow, tuple(prev_pyr[0].shape[-2:]))
+        flow = upsample_flow.handoff(flow, tuple(prev_pyr[0].shape[-2:]), config.use_pallas)
     return flow
 
 

@@ -42,6 +42,7 @@ from cuda_optical_flow_2_torch.config import BilateralConfig
 from cuda_optical_flow_2_torch.kernels import (
     fb_step_fused,
     poly_exp_fused,
+    upsample_flow,
     warp_select,
     win_solve,
 )
@@ -50,7 +51,6 @@ from cuda_optical_flow_2_torch.models.lucas_kanade import preprocess
 from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.conv import sep_conv2d
 from cuda_optical_flow_2_torch.ops.poly_exp import gaussian_1d, poly_expansion
-from cuda_optical_flow_2_torch.ops.resize import upsample_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
 from cuda_optical_flow_2_torch.ops.window import window_sum
 
@@ -266,7 +266,7 @@ def fb_coarse_to_fine(
     for k in range(config.levels - 1, -1, -1):
         exp1 = _expand(prev_pyr[k], config)
         if flow is not None:
-            flow = upsample_flow(flow, tuple(prev_pyr[k].shape[-2:]))
+            flow = upsample_flow.handoff(flow, tuple(prev_pyr[k].shape[-2:]), config.use_pallas)
         if config.warp_planes == "image":
             flow = fb_level_image(next_pyr[k], exp1, flow, config)
         else:

@@ -28,11 +28,10 @@ import torch
 
 from cuda_optical_flow_2_torch.capture import captured
 from cuda_optical_flow_2_torch.config import BilateralConfig, LKConfig
-from cuda_optical_flow_2_torch.kernels import hs_sweep, warp_select
+from cuda_optical_flow_2_torch.kernels import hs_sweep, upsample_flow, warp_select
 from cuda_optical_flow_2_torch.models.lucas_kanade import preprocess
 from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.conv import stencil2d
-from cuda_optical_flow_2_torch.ops.resize import upsample_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
 
 __all__ = [
@@ -285,7 +284,7 @@ def hs_coarse_to_fine(
         if flow is None:
             flow = hs_level(p, n, None, config)
             continue
-        flow = upsample_flow(flow, tuple(p.shape[-2:]))
+        flow = upsample_flow.handoff(flow, tuple(p.shape[-2:]), config.use_pallas)
         if config.use_pallas:
             flow = clip(flow, -float(d), float(d))
             warped = warp_select.warp_bilinear_select(n, flow, d)

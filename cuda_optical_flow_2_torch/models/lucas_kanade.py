@@ -7,7 +7,8 @@ tensors.
 
 ``config.use_pallas`` (default True) routes the work through the
 hand-written kernels: the bilateral prefilter (``kernels.bilateral_tap``)
-and each pyramid step (``kernels.pyr_down``) in :func:`preprocess`,
+and each pyramid step (``kernels.pyr_down``) in :func:`preprocess`, each
+coarse-to-fine handoff of the flow (``kernels.upsample_flow.handoff``),
 ``kernels.lk_fused.lk_residual`` at the coarsest level and
 ``kernels.lk_step_fused.lk_level_step`` at each finer level, which clamp
 the flow to ``max_displacement`` before warping and accumulate on the
@@ -32,10 +33,9 @@ import torch
 
 from cuda_optical_flow_2_torch.capture import captured
 from cuda_optical_flow_2_torch.config import LKConfig
-from cuda_optical_flow_2_torch.kernels import bilateral_tap, lk_fused, lk_step_fused
+from cuda_optical_flow_2_torch.kernels import bilateral_tap, lk_fused, lk_step_fused, upsample_flow
 from cuda_optical_flow_2_torch.ops.bilateral import bilateral_filter
 from cuda_optical_flow_2_torch.ops.pyramid import build_pyramid
-from cuda_optical_flow_2_torch.ops.resize import upsample_flow
 from cuda_optical_flow_2_torch.ops.solve import solve_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear, warp_nearest
 
@@ -93,7 +93,7 @@ def lk_level(
             )
         return flow
     if flow_init_half:
-        flow = upsample_flow(flow, tuple(prev.shape[-2:]))
+        flow = upsample_flow.handoff(flow, tuple(prev.shape[-2:]), config.use_pallas)
     if config.warp_mode == "none":
         # Without warping, re-iterating recomputes the same residual.
         return flow + _lk_residual(prev, nxt, config)
@@ -152,7 +152,8 @@ def coarse_to_fine(
         if flow is not None:
             half = _fused_half_upsample(prev_pyr[k], flow, config)
             if not half:
-                flow = upsample_flow(flow, tuple(prev_pyr[k].shape[-2:]))
+                flow = upsample_flow.handoff(flow, tuple(prev_pyr[k].shape[-2:]),
+                                             config.use_pallas)
         flow = lk_level(prev_pyr[k], next_pyr[k], flow, config, flow_init_half=half)
         flows[k] = flow
     return flows  # type: ignore[return-value]

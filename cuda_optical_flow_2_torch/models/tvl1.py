@@ -34,13 +34,12 @@ import torch
 
 from cuda_optical_flow_2_torch.capture import captured
 from cuda_optical_flow_2_torch.config import BilateralConfig
-from cuda_optical_flow_2_torch.kernels import median_select, tvl1_sweep, warp_select
+from cuda_optical_flow_2_torch.kernels import median_select, tvl1_sweep, upsample_flow, warp_select
 from cuda_optical_flow_2_torch.models.horn_schunck import lk_preproc_config
 from cuda_optical_flow_2_torch.models.lucas_kanade import preprocess
 from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.gradients import gradient_magnitude, spatial_gradients
 from cuda_optical_flow_2_torch.ops.median import median_filter
-from cuda_optical_flow_2_torch.ops.resize import upsample_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
 
 __all__ = [
@@ -219,7 +218,7 @@ def tvl1_coarse_to_fine(
         if flow is None:
             flow = torch.zeros(p.shape + (2,), dtype=torch.float32, device=p.device)
         else:
-            flow = upsample_flow(flow, tuple(p.shape[-2:]))
+            flow = upsample_flow.handoff(flow, tuple(p.shape[-2:]), config.use_pallas)
         for _ in range(config.warps):
             if config.use_pallas:
                 flow = clip(flow, -d, d)

@@ -13,7 +13,7 @@ import torch.nn.functional as F
 
 from cuda_optical_flow_2_torch.ops.pyramid import pyr_down
 
-__all__ = ["downsample_flow", "upsample_flow", "upscale_nn"]
+__all__ = ["downsample_flow", "is_octave", "upsample_flow", "upscale_nn"]
 
 
 def _up2x_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -27,6 +27,14 @@ def _up2x_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.stack([even, odd], dim=ax + 1).flatten(ax, ax + 1)
 
 
+def is_octave(flow_shape, shape: tuple[int, int]) -> bool:
+    """Whether a (..., h, w, 2) flow goes to (H, W) = ``shape`` by one
+    pyramid octave: H in (2h, 2h + 1) and W in (2w, 2w + 1)."""
+    h, w = flow_shape[-3:-1]
+    th, tw = shape
+    return th in (2 * h, 2 * h + 1) and tw in (2 * w, 2 * w + 1)
+
+
 def upsample_flow(flow: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
     """Resize (..., h, w, 2) flow to (..., H, W, 2) and scale u by W/w, v by
     H/h.  One pyramid octave (H in (2h, 2h + 1), W in (2w, 2w + 1)) takes the
@@ -38,7 +46,7 @@ def upsample_flow(flow: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
     h, w = flow.shape[-3:-1]
     if (th, tw) == (h, w):
         return flow
-    if th not in (2 * h, 2 * h + 1) or tw not in (2 * w, 2 * w + 1):
+    if not is_octave(flow.shape, shape):
         lead = flow.shape[:-3]
         x = flow.reshape((-1, h, w, 2)).permute(0, 3, 1, 2)
         out = F.interpolate(x, size=(th, tw), mode="bilinear", align_corners=False)

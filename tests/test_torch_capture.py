@@ -205,9 +205,10 @@ def test_counter_registry_holds_every_wrapper_counter():
                  "fb_step_fused.fb_band_step.launches", "bilateral_tap.bilateral_kernel.launches",
                  "poly_exp_fused.poly_expansion_kernel.launches",
                  "warp_select.warp_bilinear_select_band.launches",
-                 "occlusion_fill.fill_occluded_flow_kernel.launches"):
+                 "occlusion_fill.fill_occluded_flow_kernel.launches",
+                 "upsample_flow.upsample_flow.launches"):
         assert name in names
-    assert len(names) == 22
+    assert len(names) == 23
 
 
 @pytest.mark.parametrize("replays", [1, 3, 10])
