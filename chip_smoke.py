@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase 8p   # phase 8p alone, on every card present
     python3 chip_smoke.py --phase 8q   # phase 8q alone (the handoff kernel)
+    python3 chip_smoke.py --phase 8r   # phase 8r alone (OpenCV's DIS PRESET_MEDIUM)
 
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``cuda_optical_flow_2_torch/csrc`` (one nvcc per source, in parallel) and
@@ -224,6 +225,20 @@ then, in order:
    launches there are those of the paths of phases 4-8p, its times phase
    9's).  ``python3 chip_smoke.py --phase 8q`` runs it alone after the
    build;
+8r. OpenCV's DIS PRESET_MEDIUM (the ``fields`` of
+   ``flowbench/configs/dis_opencv_medium_1080p.json``: 7 levels solved from
+   6 to 1, 25 centered steps per level, window 9, Charbonnier refinement)
+   on an 8-pair 1080x1920 uint8 batch: the eager call's launches are
+   ``DIS_MEDIUM_LAUNCHES``; through
+   ``pyramidal_dis_jit`` the capturing call and replays on two batches
+   ``torch.equal`` to the eager calls, the counters moved by the eager
+   call's launches per call, and ``capture.stats()``'s ``launches`` of the
+   one graph equal to them; the spans ``dis.search`` and ``dis.refine``
+   once per solved level in an eager call under the profiler, none in a
+   replay; the replay's device ops, pool MB, capture s, ms per pair
+   captured and eager, and the inner median flow (printed: the preset's 25
+   undamped steps drift on this texture).  ``python3 chip_smoke.py --phase
+   8r`` runs it alone after the build;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K; host time included; ``consistent_flow`` with the fill off
    and on, the fill alone and its plain version, ``good_features`` and
@@ -2708,6 +2723,102 @@ def phase_8q(of, dev, card: str) -> dict:
             "timing": out, "max_abs_err": max_abs_err}
 
 
+# OpenCV's DISOpticalFlow PRESET_MEDIUM at 1080p
+DIS_MEDIUM_FILE = ROOT / "flowbench" / "configs" / "dis_opencv_medium_1080p.json"
+# one PRESET_MEDIUM call's launches: 6 pyr_down (the stacked pair, 7 levels); 1
+# centered residual and 24 + 5 x 25 = 149 centered steps over the 6 solved
+# levels; a warp and an hs_relax per solved level; 5 handoffs between them
+# and 1 to the frame size
+DIS_MEDIUM_LAUNCHES = {
+    "pyr_down.pyr_down.launches": 6,
+    "lk_fused.lk_residual.launches": 1, "lk_fused.lk_residual.launches_centered": 1,
+    "lk_step_fused.lk_level_step.launches": 149,
+    "lk_step_fused.lk_level_step.launches_centered": 149,
+    "warp_select.warp_bilinear_select.launches": 6, "hs_sweep.hs_relax.launches": 6,
+    "upsample_flow.upsample_flow.launches": 6,
+}
+
+
+def phase_8r(of, dev, card: str) -> dict:
+    """OpenCV's DIS PRESET_MEDIUM through the captured entry on an 8-pair
+    1080x1920 uint8 batch: the replays ``torch.equal`` to the eager calls,
+    the launches of one call, ``capture.stats()``'s per-graph ``launches``,
+    the spans, the replay's device ops and the times.  Print one line per
+    check; return the numbers for PERF.md."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuda_optical_flow_2_torch import capture
+    from cuda_optical_flow_2_torch.models import dis
+    from cuda_optical_flow_2_torch.utils import profiling
+    from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
+
+    cfg = dis.DISConfig(**json.loads(DIS_MEDIUM_FILE.read_text())["fields"])
+    seq = torch.as_tensor(synthetic_sequence(10, 1080, 1920, velocity=(2.0, 1.0), period=48),
+                          device=dev)
+    batches = [(seq[0:8], seq[1:9]), (seq[1:9], seq[2:10])]
+    capture.clear()
+    eager, counts = [], []
+    for p, q in batches:
+        before = capture.snapshot()
+        eager.append(dis.pyramidal_dis(p, q, cfg))
+        torch.cuda.synchronize()
+        counts.append(capture.delta(before, capture.snapshot()))
+    require(counts[0] == counts[1] == DIS_MEDIUM_LAUNCHES,
+            f"8r DIS_MEDIUM eager launches {counts[0]}, predicted {DIS_MEDIUM_LAUNCHES}")
+    jit = dis.pyramidal_dis_jit
+    start = capture.snapshot()
+    outs = [jit(*batches[i], cfg) for i in (0, 1, 0, 1)]  # the first call captures
+    moved = capture.delta(start, capture.snapshot())
+    require(all(torch.equal(o, eager[i % 2]) for i, o in enumerate(outs)),
+            "8r DIS_MEDIUM: a captured call is not torch.equal to the eager call")
+    require(moved == {k: 4 * v for k, v in DIS_MEDIUM_LAUNCHES.items()},
+            f"8r DIS_MEDIUM: 4 captured calls moved the counters by {moved}")
+    (entry,) = [e for e in capture.stats()["entries"]
+                if e["name"].endswith("models.dis.pyramidal_dis")]
+    (graph,) = entry["graphs"]
+    require(graph["launches"] == DIS_MEDIUM_LAUNCHES and graph["branch_launches"] == []
+            and graph["replays"] == 4,
+            f"8r DIS_MEDIUM: stats() graph launches {graph['launches']}, replays "
+            f"{graph['replays']}")
+    print(f"phase 8r DIS_MEDIUM [{card}]: 4 captured calls on 2 batches of 8 pairs torch.equal "
+          f"to eager; launches per call {DIS_MEDIUM_LAUNCHES}, stats() launches equal")
+
+    def dis_spans(fn):
+        profiling.clear_spans()
+        with profile(activities=[ProfilerActivity.CPU]):
+            fn()
+            torch.cuda.synchronize()
+        return sorted(((s.start_ns, s.name, s.attrs) for s in profiling.spans()
+                       if s.name.startswith("dis.")), key=lambda t: t[0])
+
+    traced_eager = [(n, a) for _, n, a in dis_spans(lambda: dis.pyramidal_dis(*batches[0], cfg))]
+    want = [pair for k in range(6, 0, -1) for pair in (
+        ("dis.search", {"level": k, "steps": 25}),
+        ("dis.refine", {"level": k, "sweeps": 5, "penalty": "charbonnier"}))]
+    require(traced_eager == want, f"8r DIS_MEDIUM eager spans {traced_eager}")
+    in_replay = dis_spans(lambda: jit(*batches[0], cfg))
+    require(not in_replay, f"8r DIS_MEDIUM: a replay recorded spans {in_replay}")
+    profiling.clear_spans()
+    key_graph = jit.cache.entries[jit.key(*batches[0], cfg)]
+    nodes = device_names(key_graph.replay)
+    captured_ms = back_to_back_ms(lambda: jit(*batches[0], cfg), 20) / 8
+    eager_ms = back_to_back_ms(lambda: dis.pyramidal_dis(*batches[0], cfg), 3) / 8
+    med = [round(float(x), 3) for x in inner_median(eager[0][0])]
+    out = {"replay_ops": len(nodes), "of2_ops": sum("of2_" in n for n in nodes),
+           "captured_ms_per_pair": captured_ms, "eager_ms_per_pair": eager_ms,
+           "pool_mb": sum(graph["pool_bytes"].values()) / 2**20,
+           "capture_s": graph["seconds"], "inner_median": med}
+    print(f"phase 8r DIS_MEDIUM [{card}]: spans dis.search / dis.refine once per solved level "
+          f"eagerly under the profiler, none in a replay; the replay {out['of2_ops']} of2 "
+          f"kernels of {out['replay_ops']} device ops, pool {out['pool_mb']:.1f} MB, capture "
+          f"{out['capture_s']:.2f} s; ms per pair captured {captured_ms:.4f}, eager "
+          f"{eager_ms:.4f} (host clock, 8 pairs per call); inner median flow of pair 0 {med} "
+          "(the texture moves (2, 1))")
+    capture.clear()
+    return out
+
+
 def main(only: str | None = None) -> int:
     if not (ROOT / "cuda_optical_flow_2_torch" / "csrc").is_dir():
         print("chip_smoke: cuda_optical_flow_2_torch/ not found beside this script", file=sys.stderr)
@@ -2787,6 +2898,15 @@ def main(only: str | None = None) -> int:
         # 8q alone: the handoff kernel against its plain version, its launches, its times
         phase_8q(of, dev, card)
         print(f"chip_smoke --phase 8q: {time.perf_counter() - t_start:.1f} s in all")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
+    if only == "8r":
+        # 8r alone: OpenCV's DIS PRESET_MEDIUM through the captured entry
+        phase_8r(of, dev, card)
+        print(f"chip_smoke --phase 8r: {time.perf_counter() - t_start:.1f} s in all")
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -4027,6 +4147,9 @@ def main(only: str | None = None) -> int:
     # 8q. the coarse-to-fine handoff kernel
     max_err["upsample_flow"] = phase_8q(of, dev, card)["max_abs_err"]
 
+    # 8r. OpenCV's DIS PRESET_MEDIUM through the captured entry
+    phase_8r(of, dev, card)
+
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
     for name, n_launch in launches.items():
@@ -4297,7 +4420,8 @@ if __name__ == "__main__":
         sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--nccl-worker"]:
         sys.exit(nccl_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
-    if sys.argv[1:] not in ([], ["--phase", "8p"], ["--phase", "8q"]):
-        print(f"usage: python3 {Path(__file__).name} [--phase 8p | --phase 8q]", file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--phase", "8p"], ["--phase", "8q"], ["--phase", "8r"]):
+        print(f"usage: python3 {Path(__file__).name} [--phase 8p | --phase 8q | --phase 8r]",
+              file=sys.stderr)
         sys.exit(2)
     sys.exit(main(only=sys.argv[2] if sys.argv[1:] else None))

@@ -97,10 +97,11 @@ views), ``capture.plain`` (a donating key's copy-in, clone-out graph) and
 ``capture.eager`` (a call that ran its body eagerly); ``capture.settle`` is
 the host sync of :func:`settle`.  The counters are always on: per entry
 (:class:`GraphCache`) the calls, captures, evictions, eager and plain calls;
-per graph its replays, copies, ``seconds``, the conds' ``taken`` counts and
+per graph its replays, copies, ``seconds``, the conds' ``taken`` counts,
 ``pool_bytes`` (its private pool's, its cond branch pool's and its peer
 pools' segments per card, from the allocator's snapshot once it is
-captured).  :func:`stats` settles once and returns them all.
+captured) and ``launches`` (the counters' change over its captured call, and
+per cond branch).  :func:`stats` settles once and returns them all.
 """
 
 from __future__ import annotations
@@ -780,7 +781,11 @@ def stats() -> dict:
     per entry that was called (``name``, ``calls``, ``replays`` (summed over
     its graphs), ``captures``, ``evictions``, ``eager``, ``plain``, and
     ``graphs``: per cached graph its ``replays``, ``copied``, ``seconds``,
-    ``pool_bytes`` and ``taken``); ``graphs_captured``; ``seconds`` and
+    ``pool_bytes``, ``taken``, ``launches`` (each launch counter's change
+    over the captured call outside its conds' branches, which every replay
+    adds: :attr:`Graph.delta`) and ``branch_launches`` (per cond, the
+    changes of its true and its false branch, which :func:`settle` adds per
+    replay that took it)); ``graphs_captured``; ``seconds`` and
     ``pool_bytes`` (per card index) summed over the cached graphs."""
     settle()
     entries, seconds, pools = [], 0.0, {}
@@ -788,7 +793,9 @@ def stats() -> dict:
         if not cache.calls:
             continue
         graphs = [{"replays": g.replays, "copied": g.copied, "seconds": g.seconds,
-                   "pool_bytes": dict(g.pool_bytes), "taken": [list(t) for t in g.taken]}
+                   "pool_bytes": dict(g.pool_bytes), "taken": [list(t) for t in g.taken],
+                   "launches": dict(g.delta),
+                   "branch_launches": [[dict(t), dict(f)] for t, f in g._branch_deltas]}
                   for value in cache.entries.values() for g in _graphs(value)]
         for g in graphs:
             seconds += g["seconds"]

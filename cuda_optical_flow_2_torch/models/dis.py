@@ -25,6 +25,11 @@ limit (``lk_fused.supported``) takes it for the search steps, decided from
 the config.  ``fused_half_upsample`` lets each level's first search step
 take the coarser flow and upsample it in the kernel (``flow_half``, the same
 flow bit for bit).  Images (..., H, W), flows (..., H, W, 2).
+
+Spans (``utils/profiling.span``, recorded only while a profiler is active:
+in an eager traced call and at a capture, never in a replay): each solved
+level's search is ``dis.search`` (``level``, ``steps``) and its refinement
+``dis.refine`` (``level``, ``sweeps``, ``penalty``).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from cuda_optical_flow_2_torch.ops.conv import stencil2d
 from cuda_optical_flow_2_torch.ops.gradients import SOBEL_GAIN
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear
 from cuda_optical_flow_2_torch.ops.window import window_sum
+from cuda_optical_flow_2_torch.utils.profiling import span
 
 __all__ = [
     "DISConfig",
@@ -231,29 +237,34 @@ def dis_level(
     flow_init: torch.Tensor | None,
     config: DISConfig,
     flow_init_half: bool = False,
+    level: int | None = None,
 ) -> torch.Tensor:
     """One pyramid level: inverse-search GN steps + variational refinement.
     ``flow_init`` is the level-resolution seed (None at a cold coarsest
     level), or with ``flow_init_half`` the coarser level's flow, which the
-    first kernel step upsamples itself (as ``lucas_kanade.lk_level``)."""
+    first kernel step upsamples itself (as ``lucas_kanade.lk_level``).
+    ``level`` is the pyramid level, an attribute of the spans."""
     lk_like = _lk_like(config)
     flow = flow_init
-    if flow_init_half and not _kernels(config):
-        flow = upsample_flow.handoff(flow, tuple(prev.shape[-2:]), config.use_pallas)
-    for it in range(config.iterations):
-        if flow is None:
-            # Coarsest start: zero displacement, so the "warped" frame is
-            # the frame itself: one plain centered residual step.
-            flow = _dis_residual(prev, nxt, config)
-        elif _kernels(config):
-            flow = lk_step_fused.lk_level_step(
-                prev, nxt, flow, lk_like, config.mean_normalize,
-                flow_half=flow_init_half and it == 0,
-            )
-        else:
-            flow = flow + _dis_residual_xla(prev, warp_bilinear(nxt, flow), config)
+    with span("dis.search", level=level, steps=config.iterations):
+        if flow_init_half and not _kernels(config):
+            flow = upsample_flow.handoff(flow, tuple(prev.shape[-2:]), config.use_pallas)
+        for it in range(config.iterations):
+            if flow is None:
+                # Coarsest start: zero displacement, so the "warped" frame is
+                # the frame itself: one plain centered residual step.
+                flow = _dis_residual(prev, nxt, config)
+            elif _kernels(config):
+                flow = lk_step_fused.lk_level_step(
+                    prev, nxt, flow, lk_like, config.mean_normalize,
+                    flow_half=flow_init_half and it == 0,
+                )
+            else:
+                flow = flow + _dis_residual_xla(prev, warp_bilinear(nxt, flow), config)
     if config.refine_iterations > 0:
-        flow = _refine(prev, nxt, flow, config)
+        with span("dis.refine", level=level, sweeps=config.refine_iterations,
+                  penalty=config.refine_penalty):
+            flow = _refine(prev, nxt, flow, config)
     return flow
 
 
@@ -283,7 +294,7 @@ def dis_coarse_to_fine(
             if not half:
                 flow = upsample_flow.handoff(flow, tuple(prev_pyr[k].shape[-2:]),
                                              config.use_pallas)
-        flow = dis_level(prev_pyr[k], next_pyr[k], flow, config, flow_init_half=half)
+        flow = dis_level(prev_pyr[k], next_pyr[k], flow, config, flow_init_half=half, level=k)
     if config.finest_level > 0:
         flow = upsample_flow.handoff(flow, tuple(prev_pyr[0].shape[-2:]), config.use_pallas)
     return flow
