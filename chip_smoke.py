@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase 8p   # phase 8p alone, on every card present
     python3 chip_smoke.py --phase 8q   # phase 8q alone (the handoff kernel)
     python3 chip_smoke.py --phase 8r   # phase 8r alone (OpenCV's DIS PRESET_MEDIUM)
+    python3 chip_smoke.py --phase 8s   # phase 8s alone (the LK kernel's geometry)
 
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``cuda_optical_flow_2_torch/csrc`` (one nvcc per source, in parallel) and
@@ -239,6 +240,19 @@ then, in order:
    captured and eager, and the inner median flow (printed: the preset's 25
    undamped steps drift on this texture).  ``python3 chip_smoke.py --phase
    8r`` runs it alone after the build;
+8s. the LK kernel's geometry (``csrc/of2_lk_tile.cuh``,
+   ``kernels/tile_geometry.lk_launch``): each of the seven instances
+   (``lk_residual``, ``lk_level_step``, its ``flow_half`` mode, each plain
+   and centered, and ``lk_band_step``) at the benchmark's level-0 shapes
+   (``PAPER_1080P`` at 8 x 1080 x 1920, the DIS 9x9 box centered mode at
+   8 x 540 x 960) ``torch.equal`` to the same C entry launched with two
+   forced blocks (the walker: segments of a step's rows and of the whole
+   image; the centered tile: 8 and 24 rows), and ``lk_band_step`` on a band over
+   the middle half of the
+   rows bit-equal to ``lk_level_step``'s rows at least the warp halo from
+   its edges, both modes; the wrappers' ``cells_staged`` /
+   ``cells_out`` (the halo factor) at those shapes.  ``python3
+   chip_smoke.py --phase 8s`` runs it alone after the build;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K; host time included; ``consistent_flow`` with the fill off
    and on, the fill alone and its plain version, ``good_features`` and
@@ -2819,6 +2833,82 @@ def phase_8r(of, dev, card: str) -> dict:
     return out
 
 
+# --- phase 8s: the LK kernel's geometry ---------------------------------------
+
+
+def phase_8s(of, dev, card: str) -> dict:
+    """The LK kernel: every instance ``torch.equal`` to itself at two forced
+    blocks (walker segments, centered tile heights), a band bit-equal to the
+    whole image, and the halo factor the wrappers count.  Print one line per
+    check; return the halo factors."""
+    import torch
+
+    from cuda_optical_flow_2_torch.kernels import _build, lk_fused, lk_step_fused
+    from cuda_optical_flow_2_torch.kernels import tile_geometry as tg
+    from cuda_optical_flow_2_torch.kernels.lk_fused import kernel_constants
+    from cuda_optical_flow_2_torch.models.dis import _lk_like
+
+    dis_lk = _lk_like(of.DISConfig())
+    wrappers = (lk_fused.lk_residual, lk_step_fused.lk_level_step, lk_step_fused.lk_band_step)
+    halo, parts = {}, []
+    for b, h, w, cfg, centered in ((8, 1080, 1920, of.PAPER_1080P, False),
+                                   (8, 540, 960, dis_lk, True)):
+        p0, n0, f0 = (torch.as_tensor(a, device=dev) for a in textured_pair(h, w, seed=h + 3))
+        p, n, f = (torch.stack([torch.roll(x, (k, 2 * k), (0, 1)) for k in range(b)])
+                   for x in (p0, n0, f0))
+        half = (f[:, ::2, ::2] * 0.5).contiguous()
+        r, taps, masks = kernel_constants(cfg)
+        rs, tw, seg0 = tg.lk_launch(b, h, w, r, centered)
+        # forced blocks: the walker's segments of a step's rows and of the
+        # whole image; the centered tile's heights 8 and 24
+        geos = [(8, tw, 8), (24, tw, 24)] if centered else [(rs, tw, rs), (rs, tw, h)]
+        mode = " centered" if centered else ""
+        for fn in wrappers:
+            fn.cells_staged = fn.cells_out = 0
+        instances = {
+            f"lk_residual{mode}": (lk_fused.lk_residual(p, n, cfg, centered), None, 0),
+            f"lk_level_step{mode}": (lk_step_fused.lk_level_step(p, n, f, cfg, centered), f, 0),
+            f"{HALF}{mode}": (lk_step_fused.lk_level_step(p, n, half, cfg, centered, True), half,
+                              1),
+            f"lk_band_step{mode}": (lk_step_fused.lk_band_step(p, n, f, 0, cfg, h, centered), f, 0),
+        }
+        for name, (want, flow, is_half) in instances.items():
+            for geo in geos:
+                got = torch.empty_like(want)
+                if flow is None:
+                    _build.launch(dev, "of2_lk_residual", p.data_ptr(), n.data_ptr(),
+                                  got.data_ptr(), b, h, w, r, *geo, taps.ctypes.data,
+                                  masks.ctypes.data, float(cfg.det_eps), int(centered))
+                else:
+                    _build.launch(dev, "of2_lk_level_step", p.data_ptr(), n.data_ptr(),
+                                  flow.data_ptr(), got.data_ptr(), b, h, w, 0, h, r, *geo,
+                                  taps.ctypes.data, masks.ctypes.data, float(cfg.det_eps),
+                                  float(cfg.max_displacement), int(centered), is_half)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want),
+                        f"8s {name} {b}x{h}x{w}: block {geo} not torch.equal to the wrapper's "
+                        f"{(rs, tw, seg0)}")
+        # a band over the middle half of the rows: rows at least the warp
+        # halo from its edges
+        margin = r + 2 + int(cfg.max_displacement) + 2
+        lo, hi = h // 4 + 17, 3 * h // 4 - 7
+        band = lk_step_fused.lk_band_step(p[:, lo:hi].contiguous(), n[:, lo:hi].contiguous(),
+                                          f[:, lo:hi].contiguous(), lo, cfg, h, centered)
+        torch.cuda.synchronize()
+        require(torch.equal(band[:, margin:-margin], instances[f"lk_level_step{mode}"][0][
+                    :, lo + margin:hi - margin]),
+                f"8s lk_band_step{mode} rows {lo}-{hi} of {b}x{h}x{w}: not bit-equal to the "
+                "whole image")
+        staged = sum(fn.cells_staged for fn in wrappers)
+        out = sum(fn.cells_out for fn in wrappers)
+        halo[f"{b}x{h}x{w}{mode}"] = staged / out
+        parts.append(f"{b}x{h}x{w} r={r}{mode}: (rs, tw, seg) {(rs, tw, seg0)}, 4 instances "
+                     f"torch.equal at {geos[0]} and {geos[1]}, band rows "
+                     f"{lo + margin}-{hi - margin} bit-equal, halo factor {staged / out:.4f}")
+    print(f"phase 8s LK kernel [{card}]: " + "; ".join(parts))
+    return halo
+
+
 def main(only: str | None = None) -> int:
     if not (ROOT / "cuda_optical_flow_2_torch" / "csrc").is_dir():
         print("chip_smoke: cuda_optical_flow_2_torch/ not found beside this script", file=sys.stderr)
@@ -2907,6 +2997,15 @@ def main(only: str | None = None) -> int:
         # 8r alone: OpenCV's DIS PRESET_MEDIUM through the captured entry
         phase_8r(of, dev, card)
         print(f"chip_smoke --phase 8r: {time.perf_counter() - t_start:.1f} s in all")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
+    if only == "8s":
+        # 8s alone: the LK kernel's geometry
+        phase_8s(of, dev, card)
+        print(f"chip_smoke --phase 8s: {time.perf_counter() - t_start:.1f} s in all")
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -4150,6 +4249,9 @@ def main(only: str | None = None) -> int:
     # 8r. OpenCV's DIS PRESET_MEDIUM through the captured entry
     phase_8r(of, dev, card)
 
+    # 8s. the LK kernel's geometry
+    phase_8s(of, dev, card)
+
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
     for name, n_launch in launches.items():
@@ -4420,8 +4522,9 @@ if __name__ == "__main__":
         sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--nccl-worker"]:
         sys.exit(nccl_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
-    if sys.argv[1:] not in ([], ["--phase", "8p"], ["--phase", "8q"], ["--phase", "8r"]):
-        print(f"usage: python3 {Path(__file__).name} [--phase 8p | --phase 8q | --phase 8r]",
-              file=sys.stderr)
+    if sys.argv[1:] not in ([], ["--phase", "8p"], ["--phase", "8q"], ["--phase", "8r"],
+                            ["--phase", "8s"]):
+        print(f"usage: python3 {Path(__file__).name} [--phase 8p | --phase 8q | --phase 8r | "
+              "--phase 8s]", file=sys.stderr)
         sys.exit(2)
     sys.exit(main(only=sys.argv[2] if sys.argv[1:] else None))

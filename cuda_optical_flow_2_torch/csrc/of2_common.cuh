@@ -62,29 +62,50 @@ __device__ __forceinline__ float of2_warp_pixel_band(const float* __restrict__ i
 // test says, so the loads of several cells can be in flight at once.  For a
 // live cell the arithmetic and the result are of2_warp_pixel_band's: an
 // invalid sample keeps the source pixel, which the clamped tap v00 then is.
-__device__ __forceinline__ float of2_warp_gather(const float* __restrict__ img, int H, int W,
-                                                 int x, int y, bool live, float u, float v,
-                                                 float d, int row0, int Hg) {
+// Its two halves, of2_warp_taps (where the four taps lie and how they
+// weigh) and of2_warp_blend (the sample from the taps' values), let a
+// caller issue the taps' loads (e.g. cp.async) long before it blends them.
+struct Of2WarpTaps {
+  size_t o00, o01, o10, o11;  // offsets of the taps in img
+  float tx, ty;               // the sample's fractions
+  bool valid;                 // the sample lies in the image
+};
+
+__device__ __forceinline__ Of2WarpTaps of2_warp_taps(int H, int W, int x, int y, float u, float v,
+                                                     float d, int row0, int Hg) {
   const float fx = (float)x + of2_clamp(u, -d, d);
   const float fy = (float)(row0 + y) + of2_clamp(v, -d, d);
-  const bool valid = fx >= 0.f && fx <= (float)(W - 1) && fy >= 0.f && fy <= (float)(Hg - 1);
+  Of2WarpTaps t;
+  t.valid = fx >= 0.f && fx <= (float)(W - 1) && fy >= 0.f && fy <= (float)(Hg - 1);
   const float x0 = floorf(fx);
   const float y0 = floorf(fy);
-  const float tx = fx - x0;
-  const float ty = fy - y0;
+  t.tx = fx - x0;
+  t.ty = fy - y0;
   const int xc = min(max(x, 0), W - 1), yc = min(max(y, 0), H - 1);
-  const int x0i = valid ? (int)x0 : xc;
-  const int y0g = valid ? (int)y0 : row0 + yc;
+  const int x0i = t.valid ? (int)x0 : xc;
+  const int y0g = t.valid ? (int)y0 : row0 + yc;
   const int x1i = min(x0i + 1, W - 1);
   const int y0i = min(max(y0g - row0, 0), H - 1);
   const int y1i = min(max(min(y0g + 1, Hg - 1) - row0, 0), H - 1);
-  const float v00 = img[(size_t)y0i * W + x0i];
-  const float v01 = img[(size_t)y0i * W + x1i];
-  const float v10 = img[(size_t)y1i * W + x0i];
-  const float v11 = img[(size_t)y1i * W + x1i];
-  const float top = v00 + tx * (v01 - v00);
-  const float bot = v10 + tx * (v11 - v10);
-  return live ? (valid ? top + ty * (bot - top) : v00) : 0.f;
+  t.o00 = (size_t)y0i * W + x0i;
+  t.o01 = (size_t)y0i * W + x1i;
+  t.o10 = (size_t)y1i * W + x0i;
+  t.o11 = (size_t)y1i * W + x1i;
+  return t;
+}
+
+__device__ __forceinline__ float of2_warp_blend(const Of2WarpTaps& t, float v00, float v01,
+                                                float v10, float v11, bool live) {
+  const float top = v00 + t.tx * (v01 - v00);
+  const float bot = v10 + t.tx * (v11 - v10);
+  return live ? (t.valid ? top + t.ty * (bot - top) : v00) : 0.f;
+}
+
+__device__ __forceinline__ float of2_warp_gather(const float* __restrict__ img, int H, int W,
+                                                 int x, int y, bool live, float u, float v,
+                                                 float d, int row0, int Hg) {
+  const Of2WarpTaps t = of2_warp_taps(H, W, x, y, u, v, d, row0, Hg);
+  return of2_warp_blend(t, img[t.o00], img[t.o01], img[t.o10], img[t.o11], live);
 }
 
 // 0.75 c + 0.25 n with each product and the sum rounded on its own, as

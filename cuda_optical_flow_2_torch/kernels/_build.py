@@ -42,9 +42,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # name -> argtypes; every launch returns a cudaError_t as int, every
 # ``*_compiled`` query 1 when a radius runs a kernel compiled for it, else 0.
 _SIGNATURES = {
-    "of2_lk_residual": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _F, _I, _P],
+    "of2_lk_residual": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _I, _P],
     "of2_lk_level_step": [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _F, _I, _I, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _F, _I, _I, _P,
     ],
     "of2_warp_select": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "of2_pyr_down": [_P, _P, _I, _I, _I, _L, _L, _L, _P],

@@ -9,27 +9,39 @@ count, and ``S_ab - S_a S_b / n`` before the solve).  The CUDA source is
 What bounds it on an H100: bytes.  Per pixel it reads two f32 planes and
 writes one (u, v) pair, against a few hundred flops of stencil and window
 arithmetic, far below the card's flop/byte ratio.  The design keeps every
-intermediate (Ix, Iy, It, the five or nine row-pass sums) in shared memory:
-one block of 256 threads per output tile loads its tile plus an
-(r + 1)-pixel halo once (``prev`` with ``cp.async``), zero outside the
-image, and runs the window as a row pass then a column pass with the taps
-of ``ops.window.window_weight_taps`` (box, tri and gauss alike).  Every pass
-is register-blocked: a thread owns a run of 4 cells, loads each input of
-the run's span once into a ring of registers, and forms the products once
-per gradient cell; the radii of the main paths (r = 4, 7, 9) run a kernel
-compiled for their tap count.  The tile is picked per radius
-(:func:`kernels.tile_geometry.lk_tile`: 48 x 32 at r = 7, 32 x 32 centered
-at r = 4) so that three blocks share an SM where they can; r = 32 centered
-takes 225,792 bytes of shared memory, under the 232,448 a block may have.
-Each window sum keeps one order per pixel (taps 0..2r, rows then columns),
-whatever the tile, so a band and the whole image give the same bits.
-What the TPU kernel did about its own limits (rolls on 128-lane padded rows,
-the O(log r) run-doubling box sum) has no counterpart here.
+intermediate (Ix, Iy, It, the five or eight row-pass sums) in shared memory
+and runs the window as a row pass then a column pass with the taps of
+``ops.window.window_weight_taps`` (box, tri and gauss alike).
+
+The five-sum kernel is a walker: a block of 256 threads owns a strip of 64
+output columns (:func:`kernels.tile_geometry.lk_strip`, at r = 4, 7 and 9)
+and walks down a segment of rows (:func:`kernels.tile_geometry.lk_segment`:
+162 rows at 8 x 1080 x 1920) 16 rows a step, keeping a ring of the last
+2r + 16 rows' row-pass sums, so the window's vertical halo is staged once
+per segment, not once per tile.  A step's ``prev`` rows are copied with
+``cp.async``, and the flow and the four bilinear taps of the step after
+next are loaded into registers, while the steps before compute.  The
+centered (DIS) kernel keeps one 32 x 32 output tile per block of 256
+threads (:func:`kernels.tile_geometry.lk_tile`; 24 rows where the grid
+would not fill the card once), three blocks an SM: its nine sums'
+registers leave the walker two blocks, and there the walker was slower.
+
+Every pass is register-blocked: a thread owns a run of 4 cells, loads each
+input of the run's span once into a ring of registers, and forms the
+products once per gradient cell; the radii of the main paths (r = 4, 7, 9)
+run a kernel compiled for their tap count.  Each window sum keeps one order
+per pixel (taps 0..2r, rows then columns), whatever the block, so a band
+and the whole image give the same bits.  What the TPU kernel did about its
+own limits (rolls on 128-lane padded rows, the O(log r) run-doubling box
+sum) has no counterpart here.
 
 :func:`lk_residual` launches the kernel for CUDA tensors and takes
 :func:`lk_residual_plain` for CPU tensors; ``lk_residual.launches`` counts
 kernel launches and ``lk_residual.launches_centered`` those with
-``centered=True``.
+``centered=True``; ``lk_residual.cells_staged`` and ``.cells_out`` add up
+the source cells the launches staged and the output cells they wrote
+(:func:`kernels.tile_geometry.lk_cells`), whose ratio is the kernel's halo
+factor.
 """
 
 from __future__ import annotations
@@ -40,7 +52,7 @@ import torch
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.constants import MASKS
 from cuda_optical_flow_2_torch.kernels import _build
-from cuda_optical_flow_2_torch.kernels.tile_geometry import lk_tile
+from cuda_optical_flow_2_torch.kernels import tile_geometry
 from cuda_optical_flow_2_torch.ops.band import rows_in_image, zero_outside_global
 from cuda_optical_flow_2_torch.ops.gradients import (
     sobel_scale,
@@ -139,16 +151,29 @@ def lk_residual(
     p, n = planes(prev.reshape(-1, h, w), nxt.reshape(-1, h, w))
     out = torch.empty(p.shape + (2,), dtype=torch.float32, device=dev)
     r, taps, masks = kernel_constants(config)
-    tile = lk_tile(r, centered)
     _build.launch(
-        dev, "of2_lk_residual", p.data_ptr(), n.data_ptr(), out.data_ptr(), p.shape[0], h, w,
-        r, tile.tile_h, tile.tile_w, taps.ctypes.data, masks.ctypes.data, float(config.det_eps),
-        int(centered),
+        dev, "of2_lk_residual", p.data_ptr(), n.data_ptr(), out.data_ptr(), p.shape[0], h, w, r,
+        *tile_geometry.lk_launch(p.shape[0], h, w, r, centered), taps.ctypes.data,
+        masks.ctypes.data, float(config.det_eps), int(centered),
     )
     lk_residual.launches += 1
     lk_residual.launches_centered += int(centered)
+    count_cells(lk_residual, prev, config, centered)
     return out.reshape(lead + (h, w, 2))
+
+
+def count_cells(fn, frames: torch.Tensor, config: LKConfig, centered: bool) -> None:
+    """Add the source cells a launch over (..., H, W) ``frames`` stages and
+    the output cells it writes (:func:`kernels.tile_geometry.lk_cells`) to
+    ``fn.cells_staged`` and ``fn.cells_out``."""
+    h, w = frames.shape[-2:]
+    staged, out = tile_geometry.lk_cells(frames.numel() // (h * w), h, w, config.window // 2,
+                                         centered)
+    fn.cells_staged += staged
+    fn.cells_out += out
 
 
 lk_residual.launches = 0
 lk_residual.launches_centered = 0
+lk_residual.cells_staged = 0
+lk_residual.cells_out = 0

@@ -39,7 +39,9 @@ whole-image entry is the band ``(0, H)``.
 tensors and take their plain versions for CPU tensors; ``.launches`` on each
 counts its kernel launches, ``.launches_centered`` those with
 ``centered=True`` and ``lk_level_step.launches_half`` those with
-``flow_half=True``.
+``flow_half=True``; ``.cells_staged`` and ``.cells_out`` add up the source
+cells the launches warped and the output cells they wrote
+(:func:`kernels.tile_geometry.lk_cells`, the kernel's halo factor).
 """
 
 from __future__ import annotations
@@ -47,9 +49,9 @@ from __future__ import annotations
 import torch
 
 from cuda_optical_flow_2_torch.config import LKConfig
-from cuda_optical_flow_2_torch.kernels import _build
-from cuda_optical_flow_2_torch.kernels.tile_geometry import lk_tile
+from cuda_optical_flow_2_torch.kernels import _build, tile_geometry
 from cuda_optical_flow_2_torch.kernels.lk_fused import (
+    count_cells,
     kernel_constants,
     lk_residual_plain,
     planes,
@@ -134,12 +136,12 @@ def _launch(prev, nxt, flow, config, centered, row0, h_global, flow_half=False) 
     (f,) = planes(flow.reshape(-1, fh, fw, 2))
     out = torch.empty(p.shape + (2,), dtype=torch.float32, device=dev)
     r, taps, masks = kernel_constants(config)
-    tile = lk_tile(r, centered)
     _build.launch(
         dev, "of2_lk_level_step", p.data_ptr(), n.data_ptr(), f.data_ptr(), out.data_ptr(),
-        p.shape[0], h, w, int(row0), int(h_global), r, tile.tile_h, tile.tile_w,
-        taps.ctypes.data, masks.ctypes.data, float(config.det_eps),
-        float(config.max_displacement), int(centered), int(flow_half),
+        p.shape[0], h, w, int(row0), int(h_global), r,
+        *tile_geometry.lk_launch(p.shape[0], h, w, r, centered), taps.ctypes.data,
+        masks.ctypes.data, float(config.det_eps), float(config.max_displacement), int(centered),
+        int(flow_half),
     )
     return out.reshape(lead + (h, w, 2))
 
@@ -163,6 +165,7 @@ def lk_level_step(
     if all(t.device.type == "cpu" for t in (prev, nxt, flow)):
         return lk_level_step_plain(prev, nxt, flow, config, centered, flow_half)
     out = _launch(prev, nxt, flow, config, centered, 0, prev.shape[-2], flow_half)
+    count_cells(lk_level_step, prev, config, centered)
     lk_level_step.launches += 1
     lk_level_step.launches_centered += int(centered)
     lk_level_step.launches_half += int(flow_half)
@@ -190,6 +193,7 @@ def lk_band_step(
     if all(t.device.type == "cpu" for t in (prev, nxt, flow)):
         return lk_band_step_plain(prev, nxt, flow, row0, config, h_global, centered)
     out = _launch(prev, nxt, flow, config, centered, row0, h_global)
+    count_cells(lk_band_step, prev, config, centered)
     lk_band_step.launches += 1
     lk_band_step.launches_centered += int(centered)
     return out
@@ -198,5 +202,9 @@ def lk_band_step(
 lk_level_step.launches = 0
 lk_level_step.launches_centered = 0
 lk_level_step.launches_half = 0
+lk_level_step.cells_staged = 0
+lk_level_step.cells_out = 0
 lk_band_step.launches = 0
 lk_band_step.launches_centered = 0
+lk_band_step.cells_staged = 0
+lk_band_step.cells_out = 0

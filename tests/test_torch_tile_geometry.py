@@ -1,14 +1,15 @@
-"""The output tiles of the window kernels (the LK tile, the Farnebäck step
-and the window solve), as the wrappers pick them from the radii: over the
-whole range each kernel accepts, the tile fits a block's shared memory,
-covers the image, keeps every thread's run inside its pass, and is the same
-for a band and the whole image."""
+"""The output tiles of the window kernels (the Farnebäck step, the window
+solve and the centered LK kernel) and the LK walker's strips and segments,
+as the wrappers pick them: over the whole range each kernel accepts, the
+block fits its shared memory, the grid covers the image, every thread's run
+lies inside its pass, a band and the whole image launch the same block, and
+the walker stages fewer source cells per output than the tile did."""
 
 import numpy as np
 import pytest
 import torch
 
-from cuda_optical_flow_2_torch import FBConfig, LKConfig
+from cuda_optical_flow_2_torch import FBConfig, LKConfig, capture
 from cuda_optical_flow_2_torch.kernels import _build, fb_step_fused, lk_fused, lk_step_fused
 from cuda_optical_flow_2_torch.kernels import tile_geometry as tg
 from cuda_optical_flow_2_torch.kernels.poly_exp_fused import MAX_POLY_N
@@ -24,8 +25,8 @@ SHAPES = [(1, 1), (7, 5), (479, 641), (1080, 1920), (806, 3840), (2160, 3840)]
 
 def all_tiles():
     for r in LK_RADII:
-        for centered in (False, True):
-            yield f"lk r={r} centered={centered}", tg.lk_tile(r, centered)
+        yield f"lk r={r} centered=False", tg.lk_strip(r)
+        yield f"lk r={r} centered=True", tg.lk_tile(r)
     for rw, rp in FB_RADII:
         yield f"fb rw={rw} rp={rp}", tg.fb_tile(rw, rp)
     for rw in WIN_RADII:
@@ -48,14 +49,25 @@ def test_shared_memory_fits_a_block(kernel):
             assert tg.blocks_per_sm(tile.smem_bytes) >= 1, label
 
 
+def _tile_sides(label, tile, b, h, w):
+    """(rows, columns) of a block's output: an LK block's segment (or tile
+    rows) and strip (or tile columns)."""
+    if label.startswith("lk"):
+        r, centered = int(label.split()[1][2:]), label.endswith("True")
+        _, tw, seg = tg.lk_launch(b, h, w, r, centered)
+        return seg, tw
+    return tile.tile_h, tile.tile_w
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_the_grid_covers_the_image(shape):
     h, w = shape
     for label, tile in all_tiles():
-        # the C entries' grid: ceil(H / tile_h) x ceil(W / tile_w) blocks
-        gy, gx = -(-h // tile.tile_h), -(-w // tile.tile_w)
-        assert gy * tile.tile_h >= h and gx * tile.tile_w >= w, (label, shape)
-        assert (gy - 1) * tile.tile_h < h and (gx - 1) * tile.tile_w < w, (label, shape)
+        # the C entries' grid: ceil(H / rows) x ceil(W / columns) blocks
+        th, tw = _tile_sides(label, tile, 1, h, w)
+        gy, gx = -(-h // th), -(-w // tw)
+        assert gy * th >= h and gx * tw >= w, (label, shape)
+        assert (gy - 1) * th < h and (gx - 1) * tw < w, (label, shape)
 
 
 @pytest.mark.parametrize("kernel", ["lk", "fb", "win"])
@@ -63,7 +75,10 @@ def test_every_run_lies_inside_its_pass(kernel):
     for label, tile in all_tiles():
         if not label.startswith(kernel):
             continue
-        assert tile.tile_h % tg.RUN == 0 and tile.tile_w % tg.RUN == 0, label
+        if isinstance(tile, tg.Strip):
+            assert tile.rows_per_step % tg.RUN == 0 and tile.strip_w % tg.RUN == 0, label
+        else:
+            assert tile.tile_h % tg.RUN == 0 and tile.tile_w % tg.RUN == 0, label
         for name, extent in tile.passes:
             starts = tg.run_starts(extent)
             assert extent >= tg.RUN, (label, name)
@@ -82,6 +97,7 @@ def test_runs_of_a_pass_meet_without_gaps():
 
 def test_the_tile_depends_on_the_radii_alone():
     first = [tile for _, tile in all_tiles()]
+    tg.lk_strip.cache_clear()
     tg.lk_tile.cache_clear()
     tg.fb_tile.cache_clear()
     tg.win_tile.cache_clear()
@@ -90,12 +106,22 @@ def test_the_tile_depends_on_the_radii_alone():
 
 @pytest.mark.parametrize(
     "r, centered, expect",
-    [(7, False, (48, 32)), (4, True, (32, 32)), (4, False, (56, 32)), (9, False, (40, 32))],
+    [(7, False, (64, 16, 3)), (4, True, (32, 32, 3)), (4, False, (64, 16, 3)),
+     (9, False, (64, 16, 3))],
 )
 def test_main_path_lk_tiles(r, centered, expect):
-    tile = tg.lk_tile(r, centered)
-    assert (tile.tile_h, tile.tile_w) == expect
-    assert tg.blocks_per_sm(tile.smem_bytes) >= tg.LK_BLOCKS_PER_SM
+    """The main paths' blocks: the walker's strip (columns, rows a step) and
+    the centered tile (rows, columns), three blocks of 256 threads an SM."""
+    if centered:
+        tile = tg.lk_tile(r)
+        assert (tile.tile_h, tile.tile_w, min(tg.blocks_per_sm(tile.smem_bytes),
+                                              tg.LK_BLOCKS_PER_SM)) == expect
+        assert tile.tile_h * tile.tile_w == tg.RUN * tg.LK_MAX_THREADS  # one run a thread
+    else:
+        strip = tg.lk_strip(r)
+        assert (strip.strip_w, strip.rows_per_step, tg.resident_blocks(strip)) == expect
+        assert strip.threads == tg.LK_MAX_THREADS == 256
+    assert tg.LK_MIN_BLOCKS == 3
 
 
 def test_main_path_fb_tile():
@@ -132,6 +158,9 @@ def _spy_launches(monkeypatch):
 
 @pytest.mark.parametrize("centered", [False, True])
 def test_lk_band_and_whole_image_launch_the_same_tile(monkeypatch, centered):
+    """A band and the whole image launch the same strip (rows per step and
+    columns) or centered the same tile; each launch's (rs, tw, seg) is
+    lk_launch's for its own shape."""
     calls = _spy_launches(monkeypatch)
     rng = np.random.default_rng(0)
     frames = [torch.as_tensor(rng.random((64, 96), dtype=np.float32)) for _ in range(2)]
@@ -139,9 +168,108 @@ def test_lk_band_and_whole_image_launch_the_same_tile(monkeypatch, centered):
     cfg = LKConfig(window=15)
     lk_step_fused._launch(*frames, flow, cfg, centered, 0, 64)
     lk_step_fused._launch(frames[0][10:50], frames[1][10:50], flow[10:50], cfg, centered, 10, 64)
-    tile = tg.lk_tile(7, centered)
     assert [name for name, _ in calls] == ["of2_lk_level_step"] * 2
-    assert {args[10:12] for _, args in calls} == {(tile.tile_h, tile.tile_w)}  # after r
+    # after r: rows per step, strip columns, segment rows (centered: tile
+    # rows, columns, rows)
+    assert [args[10:13] for _, args in calls] == [tg.lk_launch(1, h, 96, 7, centered)
+                                                  for h in (64, 40)]
+    assert len({args[10:12] for _, args in calls}) == 1
+    if centered:
+        assert calls[0][1][10] == calls[0][1][12] == 24  # 6 blocks: a wave's shorter tile
+    else:
+        assert calls[0][1][10:12] == (16, 64)
+
+
+LK_GRID_SHAPES = [(1080, 1920), (540, 960), (68, 120), (17, 30), (479, 641), (7, 5), (1, 1)]
+
+
+@pytest.mark.parametrize("r, centered", [(r, c) for r in LK_RADII for c in (False, True)])
+def test_lk_strip_fits_a_block(r, centered):
+    """Every radius the kernel takes, both modes: a walker strip with C's
+    walk (of2_lk_walk), or a centered tile of one column-pass run a thread,
+    whose block fits the shared memory and the thread limit."""
+    if centered:
+        tile = tg.lk_tile(r)
+        assert 0 < tile.smem_bytes <= tg.SMEM_MAX and tg.blocks_per_sm(tile.smem_bytes) >= 1
+        assert tile.tile_h % tg.RUN == 0 and tile.tile_w % tg.RUN == 0
+        assert tile.tile_h * tile.tile_w <= tg.RUN * tg.LK_MAX_THREADS
+        return
+    strip = tg.lk_strip(r)
+    assert 0 < strip.smem_bytes <= tg.SMEM_MAX and tg.resident_blocks(strip) >= 1
+    assert 32 <= strip.threads <= tg.LK_MAX_THREADS
+    assert strip.threads == strip.rows_per_step * strip.strip_w // tg.RUN
+    rs = strip.rows_per_step
+    assert strip.ring_rows == 2 * r + rs  # a step's output rows see 2r + rs row-pass rows
+    assert strip.src_rows == rs + 2 and strip.src_w == strip.strip_w + 2 * r + 2
+    assert strip.steps(1, r) * rs >= 2 * r + 1 > (strip.steps(1, r) - 1) * rs
+
+
+LK_GRID_SHAPES = [(1080, 1920), (540, 960), (68, 120), (17, 30), (479, 641), (7, 5), (1, 1)]
+
+
+@pytest.mark.parametrize("b", [1, 8, 54])
+@pytest.mark.parametrize("shape", LK_GRID_SHAPES)
+def test_lk_grid_covers_the_image(shape, b):
+    """Walker segments whose rows and the window's 2r fill whole steps,
+    centered tiles of lk_tile's size or one height shorter; either covers
+    the rows and columns once (the last block may be shorter), and the
+    staged cells count each block's source rows and columns."""
+    h, w = shape
+    for r, centered in ((4, True), (4, False), (7, False), (9, False), (32, True)):
+        rs, tw, seg = tg.lk_launch(b, h, w, r, centered)
+        n, cols = -(-h // seg), -(-w // tw)
+        assert (n - 1) * seg < h <= n * seg and (cols - 1) * tw < w <= cols * tw
+        staged, out = tg.lk_cells(b, h, w, r, centered)
+        assert out == b * h * w
+        if centered:
+            tile = tg.lk_tile(r)
+            assert rs == seg and tw == tile.tile_w and seg in (tile.tile_h, tile.tile_h - 8)
+            assert staged == b * cols * n * (seg + 2 * r + 2) * (tw + 2 * r + 2)
+            continue
+        strip = tg.lk_strip(r)
+        assert (rs, tw) == (strip.rows_per_step, strip.strip_w)
+        assert seg >= 1 and (seg + 2 * r) % rs == 0
+        assert seg < max(h, rs) + rs
+        assert staged >= b * cols * strip.src_w * (h + 2 * r + 2)
+        steps = [-(-(min(seg, h - y0) + 2 * r) // rs) for y0 in range(0, h, seg)]
+        assert staged == b * cols * strip.src_w * sum(k * rs + 2 for k in steps)
+
+
+@pytest.mark.parametrize(
+    "b, h, w, r, centered, expect",
+    [(8, 1080, 1920, 7, False, 1.3866), (54, 1080, 1920, 7, False, 1.3241),
+     (8, 540, 960, 4, True, 1.7354)],
+    ids=["lk_batch", "lk_streams", "dis_batch"],
+)
+def test_lk_halo_factor_below_the_tiles(b, h, w, r, centered, expect):
+    """At the benchmark's level-0 shapes the walker stages fewer source
+    cells per output than the 48 x 32 tile at r = 7 did, (64 x 48) / (48 x
+    32) = 2.00; the centered kernel keeps its 32 x 32 tile, (42 x 42) / (32 x
+    32) = 1.72, and the tiles past the image's last row."""
+    staged, out = tg.lk_cells(b, h, w, r, centered)
+    assert staged / out == pytest.approx(expect, abs=1e-4)
+    assert staged / out < (1.75 if centered else 1.4)
+
+
+def test_lk_segment_follows_the_launch():
+    """A batch of 8 at 1080 x 1920 (r = 7): seven 162-row segments, 1680
+    blocks over the card's 396 resident ones; 54 frames: four; one frame
+    and the coarse levels: short segments, so the few columns still spread
+    over the SMs; a segment and its 2r rows fill whole steps.  The centered
+    tile: 32 x 32 where its grid fills a wave, 24 x 32 at DIS's coarse
+    levels."""
+    strip = tg.lk_strip(7)
+    assert tg.resident_blocks(strip) * tg.SMS == 396
+    assert tg.lk_segment(8, 1080, 1920, 7) == 162
+    assert tg.lk_segment(54, 1080, 1920, 7) == 274
+    for b, h, w in ((8, 68, 120), (1, 1080, 1920), (8, 270, 480), (1, 1, 1)):
+        seg = tg.lk_segment(b, h, w, 7)
+        assert (seg + 14) % strip.rows_per_step == 0
+        assert seg <= max(-(-h // 2), 2)
+    assert tg.lk_launch(8, 540, 960, 4, True) == (32, 32, 32)
+    assert tg.lk_launch(1, 1080, 1920, 4, True) == (32, 32, 32)
+    assert tg.lk_launch(8, 270, 480, 4, True) == (32, 32, 32)  # 1080 blocks
+    assert tg.lk_launch(8, 135, 240, 4, True) == (24, 32, 24)  # 320 blocks at 32 rows
 
 
 def test_fb_band_and_whole_image_launch_the_same_tile(monkeypatch):
@@ -156,3 +284,33 @@ def test_fb_band_and_whole_image_launch_the_same_tile(monkeypatch):
     tile = tg.fb_tile(cfg.winsize // 2, cfg.poly_n // 2)
     assert [name for name, _ in calls] == ["of2_fb_step"] * 2
     assert {args[15:17] for _, args in calls} == {(tile.tile_h, tile.tile_w)}  # after rw, rp
+
+
+@pytest.mark.parametrize(
+    "b, h, w, window, centered, bound",
+    [(8, 1080, 1920, 15, False, 1.4), (8, 540, 960, 9, True, 1.75)],
+    ids=["lk_1080p", "dis_540p"],
+)
+def test_lk_wrappers_count_cells(monkeypatch, b, h, w, window, centered, bound):
+    """Each of the three LK wrappers adds the cells its launch stages and
+    writes (meta tensors: no data, the launch spied); the launch counters,
+    which kernel_calls_per_replay.batch sums, move by one per call and the
+    cell counts are no launch counters."""
+    calls = _spy_launches(monkeypatch)
+    p, n = (torch.empty(b, h, w, device="meta") for _ in range(2))
+    f = torch.empty(b, h, w, 2, device="meta")
+    cfg = LKConfig(window=window, window_weights="box" if centered else "tri")
+    wrappers = (lk_fused.lk_residual, lk_step_fused.lk_level_step, lk_step_fused.lk_band_step)
+    cells = [(fn.cells_staged, fn.cells_out) for fn in wrappers]
+    before = capture.snapshot()
+    lk_fused.lk_residual(p, n, cfg, centered)
+    lk_step_fused.lk_level_step(p, n, f, cfg, centered)
+    lk_step_fused.lk_band_step(p, n, f, 100, cfg, h + 200, centered)
+    change = capture.delta(before, capture.snapshot())
+    assert [name for name, _ in calls] == ["of2_lk_residual"] + ["of2_lk_level_step"] * 2
+    staged, out = tg.lk_cells(b, h, w, window // 2, centered)
+    assert out == b * h * w and staged / out < bound
+    for fn, (s0, o0) in zip(wrappers, cells):
+        assert (fn.cells_staged - s0, fn.cells_out - o0) == (staged, out)
+    assert sum(v for k, v in change.items() if k.endswith(".launches")) == 3
+    assert not any("cells" in name for name in capture.counters())

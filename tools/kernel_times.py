@@ -2,6 +2,7 @@
 
     python3 tools/kernel_times.py ROOT
     python3 tools/kernel_times.py ROOT --win-tiles
+    python3 tools/kernel_times.py ROOT --lk-strips
 
 ROOT is the root of a checkout of this repo (its ``chip_smoke.py`` and
 ``cuda_optical_flow_2_torch`` are imported from there).  It builds that
@@ -40,6 +41,17 @@ those that fit a block's shared memory) at 1080x1920 and window radii 0, 4,
 7 and 16, each launch checked bit-equal to ``window_solve_plain``, and
 prints one JSON line per radius: the tile ``win_tile`` picks and every
 tile's device ms.
+
+``--lk-strips`` instead sweeps the LK kernel's blocks for
+``lk_level_step``, each launch checked bit-equal to the wrapper's: the
+walker's strip (columns x rows per step, ``tile_geometry.lk_walk``, those
+that fit) and segment (output rows a block walks: the one ``lk_segment``
+picks and a range of others) with ``PAPER_1080P`` at 8 x 1080 x 1920 (video
+batch) and 54 x 1080 x 1920 (camera streams); the centered tile (rows x
+columns, ``tile_geometry.lk_tile_candidate``, those that fit) in the DIS
+9x9 box centered mode at 8 x 540 x 960 and DIS's next three levels.  One
+JSON line per shape: the block ``lk_launch`` picks and every block's
+device ms.
 """
 
 import inspect
@@ -108,6 +120,63 @@ def sweep_win_tiles(p0, n0, f0) -> int:
     return 0
 
 
+LK_SWEEP_STRIPS = ((64, 16), (32, 32), (64, 8), (32, 16), (128, 8), (96, 8), (48, 16))
+
+
+def sweep_lk_strips(textured_pair) -> int:
+    """Device ms of lk_level_step at each block, per shape."""
+    import torch
+
+    import cuda_optical_flow_2_torch as of
+    from cuda_optical_flow_2_torch.kernels import _build, lk_step_fused, tile_geometry as tg
+    from cuda_optical_flow_2_torch.kernels.lk_fused import kernel_constants
+    from cuda_optical_flow_2_torch.models.dis import _lk_like
+
+    dev = torch.device("cuda", 0)
+    dis_lk = _lk_like(of.DISConfig())
+    for label, b, h, w, cfg, centered in (
+            ("lk video_batch", 8, 1080, 1920, of.PAPER_1080P, False),
+            ("lk camera_streams", 54, 1080, 1920, of.PAPER_1080P, False),
+            ("dis video_batch", 8, 540, 960, dis_lk, True),
+            ("dis level 2", 8, 270, 480, dis_lk, True),
+            ("dis level 3", 8, 135, 240, dis_lk, True),
+            ("dis level 4", 8, 68, 120, dis_lk, True)):
+        p0, n0, f0 = (torch.as_tensor(a, device=dev) for a in textured_pair(h, w, seed=h))
+        p, n, f = (x.expand(b, *x.shape).contiguous() for x in (p0, n0, f0))
+        want = lk_step_fused.lk_level_step(p, n, f, cfg, centered)
+        out = torch.empty_like(want)
+        r, taps, masks = kernel_constants(cfg)
+        picked = tg.lk_launch(b, h, w, r, centered)
+        geos = set()
+        if centered:
+            for th in tg.TILE_HEIGHTS:
+                for tw in tg.TILE_WIDTHS:
+                    if tg.lk_tile_candidate(r, th, tw).smem_bytes <= tg.SMEM_MAX:
+                        geos.add((th, tw, th))
+        else:
+            for tw, rs in LK_SWEEP_STRIPS:
+                strip = tg.lk_walk(r, rs, tw)
+                if strip.smem_bytes > tg.SMEM_MAX or strip.threads > tg.LK_MAX_THREADS:
+                    continue
+                geos |= {(rs, tw, strip.segment(-(-h // k), r)) for k in (1, 2, 3, 4, 5, 7, 9, 14)}
+        times = {}
+        for geo in sorted(geos | {picked}):
+            def launch(geo=geo):
+                _build.launch(dev, "of2_lk_level_step", p.data_ptr(), n.data_ptr(),
+                              f.data_ptr(), out.data_ptr(), b, h, w, 0, h, r, *geo,
+                              taps.ctypes.data, masks.ctypes.data, float(cfg.det_eps),
+                              float(cfg.max_displacement), int(centered), 0)
+
+            name = f"{geo[0]}x{geo[1]}" if centered else f"{geo[1]}x{geo[0]}/{geo[2]}"
+            times[name] = device_ms(launch, 20, inner=10)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise SystemExit(f"lk_level_step {label} block {geo}: not bit-equal")
+        print(json.dumps({"shape": label, "lk_launch": picked,
+                          "ms": dict(sorted(times.items(), key=lambda kv: kv[1]))}))
+    return 0
+
+
 def main() -> int:
     root = Path(sys.argv[1]).resolve()
     sys.path.insert(0, str(root))
@@ -141,6 +210,8 @@ def main() -> int:
     p0, n0, f0 = (torch.as_tensor(a, device=dev) for a in cs.textured_pair(1080, 1920, seed=7))
     if "--win-tiles" in sys.argv[2:]:
         return sweep_win_tiles(p0, n0, f0)
+    if "--lk-strips" in sys.argv[2:]:
+        return sweep_lk_strips(cs.textured_pair)
     pair = torch.stack([p0, n0])
     w0 = warp_select.warp_bilinear_select_plain(n0, f0)
     exp0 = poly_exp_fused.poly_expansion_plain(p0, 7, 1.5)
