@@ -86,9 +86,10 @@ then, in order:
    plain composition for that stage (no launch of the kernel) and are held
    against the plain path;
 8i. ``fused_half_upsample=True``: ``PAPER_1080P`` and ``DISConfig()`` at
-   1080x1920 bit-equal to the flag off, with the (2, 1) checks and
-   ``flow_half`` on 3 of their level steps, and a warm LK stream
-   (``levels=3``) over phase 6's frames bit-equal to the flag off;
+   1080x1920 bit-equal to the flag off, with the (2, 1) checks and the flag
+   off's launches (the port takes the same route either way), and a warm
+   LK stream (``levels=3``) over phase 6's frames bit-equal to the flag off
+   with its launches;
 8j. spatial TP for DIS at 2160x3840: ``DISConfig(levels=4)`` and its
    Charbonnier form on 3 shards (``DISConfig()`` does not fit 3 shards at
    4K: level 4 holds 45 rows per shard against a halo of 46),
@@ -241,17 +242,17 @@ then, in order:
    undamped steps drift on this texture).  ``python3 chip_smoke.py --phase
    8r`` runs it alone after the build;
 8s. the LK kernel's geometry (``csrc/of2_lk_tile.cuh``,
-   ``kernels/tile_geometry.lk_launch``): each of the seven instances
-   (``lk_residual``, ``lk_level_step``, its ``flow_half`` mode, each plain
-   and centered, and ``lk_band_step``) at the benchmark's level-0 shapes
+   ``kernels/tile_geometry.lk_launch``): each of the instances
+   (``lk_residual``, ``lk_level_step``, each plain and centered, and
+   ``lk_band_step``) at the benchmark's level-0 shapes
    (``PAPER_1080P`` at 8 x 1080 x 1920, the DIS 9x9 box centered mode at
    8 x 540 x 960) ``torch.equal`` to the same C entry launched with two
    forced blocks (the walker: segments of a step's rows and of the whole
    image; the centered tile: 8 and 24 rows), and ``lk_band_step`` on a band over
    the middle half of the
    rows bit-equal to ``lk_level_step``'s rows at least the warp halo from
-   its edges, both modes; the wrappers' ``cells_staged`` /
-   ``cells_out`` (the halo factor) at those shapes.  ``python3
+   its edges, both modes; the halo factor at those shapes
+   (``tile_geometry.lk_cells``).  ``python3
    chip_smoke.py --phase 8s`` runs it alone after the build;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K; host time included; ``consistent_flow`` with the fill off
@@ -273,10 +274,10 @@ script exits non-zero.  The launch counters are zeroed just before each path
 (phases 4-8m) and read just after it: every kernel must launch on the paths
 that use it.  The line before the last is a JSON object with each kernel's
 numbers, the centered (DIS) modes of ``lk_residual``, ``lk_level_step`` and
-``lk_band_step`` and the ``flow_half`` mode of ``lk_level_step`` as entries
-of their own (``launches`` is its sum over the path runs, ``bound_ms`` the least
-time the card could take for the timed call's work: the larger of its bytes
-over the memory rate and its operations over the peak rate of their kind);
+``lk_band_step`` as entries of their own (``launches`` is its sum over the
+path runs, ``bound_ms`` the least time the card could take for the timed
+call's work: the larger of its bytes over the memory rate and its operations
+over the peak rate of their kind);
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside it, the script exits non-zero and prints no
 result.
@@ -365,9 +366,6 @@ KERNELS = [
 # The DIS (centered=True) mode of three of them, an entry of its own in the
 # kernels line: launches from the wrappers' ``launches_centered``.
 CENTERED = ["lk_residual", "lk_level_step", "lk_band_step"]
-# lk_level_step's in-kernel 2x flow upsample, an entry of its own:
-# launches from ``lk_level_step.launches_half``.
-HALF = "lk_level_step flow_half"
 
 WARP_MAX_ERR = 1e-3      # intensities 0-255: float order of four taps
 PYR_MAX_ERR = 1e-4       # intensities 0-255: 9-tap sum against separable slices
@@ -2839,8 +2837,8 @@ def phase_8r(of, dev, card: str) -> dict:
 def phase_8s(of, dev, card: str) -> dict:
     """The LK kernel: every instance ``torch.equal`` to itself at two forced
     blocks (walker segments, centered tile heights), a band bit-equal to the
-    whole image, and the halo factor the wrappers count.  Print one line per
-    check; return the halo factors."""
+    whole image, and the halo factor (``tile_geometry.lk_cells``).  Print one
+    line per check; return the halo factors."""
     import torch
 
     from cuda_optical_flow_2_torch.kernels import _build, lk_fused, lk_step_fused
@@ -2849,30 +2847,24 @@ def phase_8s(of, dev, card: str) -> dict:
     from cuda_optical_flow_2_torch.models.dis import _lk_like
 
     dis_lk = _lk_like(of.DISConfig())
-    wrappers = (lk_fused.lk_residual, lk_step_fused.lk_level_step, lk_step_fused.lk_band_step)
     halo, parts = {}, []
     for b, h, w, cfg, centered in ((8, 1080, 1920, of.PAPER_1080P, False),
                                    (8, 540, 960, dis_lk, True)):
         p0, n0, f0 = (torch.as_tensor(a, device=dev) for a in textured_pair(h, w, seed=h + 3))
         p, n, f = (torch.stack([torch.roll(x, (k, 2 * k), (0, 1)) for k in range(b)])
                    for x in (p0, n0, f0))
-        half = (f[:, ::2, ::2] * 0.5).contiguous()
         r, taps, masks = kernel_constants(cfg)
         rs, tw, seg0 = tg.lk_launch(b, h, w, r, centered)
         # forced blocks: the walker's segments of a step's rows and of the
         # whole image; the centered tile's heights 8 and 24
         geos = [(8, tw, 8), (24, tw, 24)] if centered else [(rs, tw, rs), (rs, tw, h)]
         mode = " centered" if centered else ""
-        for fn in wrappers:
-            fn.cells_staged = fn.cells_out = 0
         instances = {
-            f"lk_residual{mode}": (lk_fused.lk_residual(p, n, cfg, centered), None, 0),
-            f"lk_level_step{mode}": (lk_step_fused.lk_level_step(p, n, f, cfg, centered), f, 0),
-            f"{HALF}{mode}": (lk_step_fused.lk_level_step(p, n, half, cfg, centered, True), half,
-                              1),
-            f"lk_band_step{mode}": (lk_step_fused.lk_band_step(p, n, f, 0, cfg, h, centered), f, 0),
+            f"lk_residual{mode}": (lk_fused.lk_residual(p, n, cfg, centered), None),
+            f"lk_level_step{mode}": (lk_step_fused.lk_level_step(p, n, f, cfg, centered), f),
+            f"lk_band_step{mode}": (lk_step_fused.lk_band_step(p, n, f, 0, cfg, h, centered), f),
         }
-        for name, (want, flow, is_half) in instances.items():
+        for name, (want, flow) in instances.items():
             for geo in geos:
                 got = torch.empty_like(want)
                 if flow is None:
@@ -2883,7 +2875,7 @@ def phase_8s(of, dev, card: str) -> dict:
                     _build.launch(dev, "of2_lk_level_step", p.data_ptr(), n.data_ptr(),
                                   flow.data_ptr(), got.data_ptr(), b, h, w, 0, h, r, *geo,
                                   taps.ctypes.data, masks.ctypes.data, float(cfg.det_eps),
-                                  float(cfg.max_displacement), int(centered), is_half)
+                                  float(cfg.max_displacement), int(centered))
                 torch.cuda.synchronize()
                 require(torch.equal(got, want),
                         f"8s {name} {b}x{h}x{w}: block {geo} not torch.equal to the wrapper's "
@@ -2899,10 +2891,9 @@ def phase_8s(of, dev, card: str) -> dict:
                     :, lo + margin:hi - margin]),
                 f"8s lk_band_step{mode} rows {lo}-{hi} of {b}x{h}x{w}: not bit-equal to the "
                 "whole image")
-        staged = sum(fn.cells_staged for fn in wrappers)
-        out = sum(fn.cells_out for fn in wrappers)
+        staged, out = tg.lk_cells(b, h, w, r, centered)
         halo[f"{b}x{h}x{w}{mode}"] = staged / out
-        parts.append(f"{b}x{h}x{w} r={r}{mode}: (rs, tw, seg) {(rs, tw, seg0)}, 4 instances "
+        parts.append(f"{b}x{h}x{w} r={r}{mode}: (rs, tw, seg) {(rs, tw, seg0)}, 3 instances "
                      f"torch.equal at {geos[0]} and {geos[1]}, band rows "
                      f"{lo + margin}-{hi - margin} bit-equal, halo factor {staged / out:.4f}")
     print(f"phase 8s LK kernel [{card}]: " + "; ".join(parts))
@@ -2972,13 +2963,11 @@ def main(only: str | None = None) -> int:
             wrapper.launches = 0
         for name in CENTERED:
             wrappers[name].launches_centered = 0
-        lk_step_fused.lk_level_step.launches_half = 0
         out = fn()
         torch.cuda.synchronize()
         capture.settle()  # the cond branches that replays ran count here
         counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
         counts |= {f"{name} centered": wrappers[name].launches_centered for name in CENTERED}
-        counts[HALF] = lk_step_fused.lk_level_step.launches_half
         for name in needs:
             require(counts[name] > 0, f"path {label} did not launch {name}: {counts}")
         path_launches[label] = counts
@@ -3026,7 +3015,6 @@ def main(only: str | None = None) -> int:
 
     # 3. kernels against their plain versions on the card
     max_err = {name: 0.0 for name, *_ in KERNELS} | {f"{n} centered": 0.0 for n in CENTERED}
-    max_err |= {HALF: 0.0, f"{HALF} centered": 0.0}
 
     def check(name, got, want, h, w, label=""):
         torch.cuda.synchronize()
@@ -3061,8 +3049,6 @@ def main(only: str | None = None) -> int:
                         "lk_level_step centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
                         "lk_band_step": (LK_MEDIAN_ERR, LK_P999_ERR),
                         "lk_band_step centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
-                        HALF: (LK_MEDIAN_ERR, LK_P999_ERR),
-                        f"{HALF} centered": (CENTERED_MEDIAN_ERR, CENTERED_P999_ERR),
                         "hs_relax_band": (HS_MEDIAN_ERR, HS_P999_ERR),
                         "tvl1_relax": (TVL1_MEDIAN_ERR, TVL1_P999_ERR),
                         "tvl1_relax_band": (TVL1_MEDIAN_ERR, TVL1_P999_ERR),
@@ -3171,9 +3157,9 @@ def main(only: str | None = None) -> int:
             require(bits == 0.0, f"{name} 2x479x641 {label}: max |d| {bits}, expected bit-equal")
     print("phase 3 kernels ragged 2x479x641 time-tiled relaxations: " + "; ".join(parts))
     # lk_level_step flow_half: the coarser level's flow (half the textured
-    # pair's, in its own pixel units), upsampled in the kernel, must give the
-    # bits of the step on upsample_flow of it, and stay within the step's
-    # limits of the plain version
+    # pair's, in its own pixel units), handed over by the upsample kernel,
+    # must give the bits of the step on upsample_flow of it, and stay within
+    # the step's limits of the plain version
     parts = []
     for (b, h, w), cfg, centered, label in (
         ((1, 1080, 1920), of.PAPER_1080P, False, "15x15 tri"),
@@ -3189,11 +3175,12 @@ def main(only: str | None = None) -> int:
         full = lk_step_fused.lk_level_step(p, n, upsample_flow(half, (h, w)), cfg, centered)
         torch.cuda.synchronize()
         bits = float((got - full).abs().max())
-        require(bits == 0.0, f"{HALF} {label} {b}x{h}x{w}: max |d| {bits} from the step on "
-                             "upsample_flow, expected bit-equal")
+        require(bits == 0.0, f"lk_level_step flow_half {label} {b}x{h}x{w}: max |d| {bits} from "
+                             "the step on upsample_flow, expected bit-equal")
         plain = lk_step_fused.lk_level_step_plain(p, n, half, cfg, centered, flow_half=True)
-        parts.append(check(f"{HALF} centered" if centered else HALF, got, plain, h, w,
-                           f"{label} {b}x{h}x{w}, bit-equal to upsample_flow + step"))
+        parts.append(check("lk_level_step centered" if centered else "lk_level_step", got, plain,
+                           h, w, f"flow_half {label} {b}x{h}x{w}, bit-equal to upsample_flow + "
+                           "step"))
     print("phase 3 kernels lk_level_step flow_half: " + "; ".join(parts))
     # the edges of the window kernels' tile geometry (kernels/tile_geometry.py
     # picks a tile per radius; FB's largest window and expansion are the
@@ -3253,11 +3240,11 @@ def main(only: str | None = None) -> int:
         full = lk_step_fused.lk_level_step(p, n, upsample_flow(half, (h, w)), cfg, centered)
         torch.cuda.synchronize()
         bits = float((got - full).abs().max())
-        require(bits == 0.0, f"{HALF} 2x{h}x{w}: max |d| {bits} from the step on "
-                             "upsample_flow, expected bit-equal")
+        require(bits == 0.0, f"lk_level_step flow_half 2x{h}x{w}: max |d| {bits} from the step "
+                             "on upsample_flow, expected bit-equal")
         plain = lk_step_fused.lk_level_step_plain(p, n, half, cfg, centered, flow_half=True)
-        parts.append(check(f"{HALF} centered" if centered else HALF, got, plain, h, w,
-                           f"batch 2, bit-equal to upsample_flow + step"))
+        parts.append(check("lk_level_step centered" if centered else "lk_level_step", got, plain,
+                           h, w, "flow_half batch 2, bit-equal to upsample_flow + step"))
     print("phase 3 kernels tile edges (ragged batch 2x479x641: LK window 65 and 1, FB 15 and 1; "
           "flow_half 2x478x642): " + "; ".join(parts))
     # the bilateral's 32 x 32 and the expansion's 20 x 128 tiles on the
@@ -3942,15 +3929,14 @@ def main(only: str | None = None) -> int:
               f"path median {e['median']:.3g} p99 {e['p99']:.3g} max {e['max']:.3g}; launches "
               f"{counts}")
 
-    # 8i. fused_half_upsample=True at 1080x1920: the first step of levels 2,
-    # 1 and 0 takes the coarser flow (level 3 has an odd height), bit-equal to
-    # the flag off; the launches as predicted in PERF.md
+    # 8i. fused_half_upsample=True at 1080x1920: accepted, and the route of
+    # the flag off (a handoff launch per finer level, no other step), so the
+    # same bits and the flag off's launches, as predicted in PERF.md
     half_paths = {
         "PAPER_1080P": (of.PAPER_1080P, of.pyramidal_lk, (prev, nxt),
-                        {"pyr_down": 4, "lk_residual": 1, "lk_level_step": 4, HALF: 3,
-                         "upsample_flow": 1}),
-        "DISConfig()": (of.DISConfig(), of.pyramidal_dis, (tp, tn),
-                        full | {HALF: 3, "upsample_flow": 1}),
+                        {"pyr_down": 4, "lk_residual": 1, "lk_level_step": 4,
+                         "upsample_flow": 4}),
+        "DISConfig()": (of.DISConfig(), of.pyramidal_dis, (tp, tn), full),
     }
     for label, (cfg, entry, frames_, expect) in half_paths.items():
         on_cfg = dataclasses.replace(cfg, fused_half_upsample=True)
@@ -3974,9 +3960,8 @@ def main(only: str | None = None) -> int:
               f"bit-equal to the flag off; inner EPE {epe:.4f}, median flow ({m[0]:.4f}, "
               f"{m[1]:.4f}); vs plain path median {e['median']:.3g} p99 {e['p99']:.3g}; launches "
               f"{counts} (as predicted)")
-    # the warm LK stream over phase 6's frames, three levels: every pair runs
-    # levels 1 and 0 with the coarser flow (a warm start enters level 2 at
-    # its own resolution, a cold pair solves it without a step)
+    # the warm LK stream over phase 6's frames, three levels: the flag off's
+    # launches and bits
     stream_cfg = of.LKConfig(levels=3, window=15)
 
     def stream(cfg):
@@ -3984,15 +3969,16 @@ def main(only: str | None = None) -> int:
                                         warm_start=True, recovery=recovery))
 
     flows, counts = run_path("LK serving levels=3 fused_half_upsample", lambda: stream(
-        dataclasses.replace(stream_cfg, fused_half_upsample=True)), ("lk_level_step", HALF))
-    flows_off = stream(stream_cfg)
+        dataclasses.replace(stream_cfg, fused_half_upsample=True)),
+        ("lk_level_step", "upsample_flow"))
+    flows_off, counts_off = run_path("LK serving levels=3", lambda: stream(stream_cfg),
+                                     ("lk_level_step", "upsample_flow"))
     require(sorted(flows) == sorted(flows_off) == [1, 2, 3, 4, 5, 6],
             f"fused_half_upsample stream yielded {sorted(flows)}")
     bits = max(float((flows[i] - flows_off[i]).abs().max()) for i in flows)
     require(bits == 0.0, f"fused_half_upsample stream: max |d| {bits} from the flag off")
-    require(counts[HALF] == 2 * len(flows),
-            f"fused_half_upsample stream: {counts[HALF]} flow_half launches for {len(flows)} "
-            "pairs, predicted 2 per pair")
+    require(counts == counts_off,
+            f"fused_half_upsample stream: launches {counts}, the flag off's {counts_off}")
     m3 = inner_median(flows[3])
     print(f"phase 8i LK serving loop levels=3 fused_half_upsample=True warm + "
           f"RecoveryConfig(levels=3), 8 frames 1080x1920: bit-equal to the flag off over "
@@ -4285,12 +4271,6 @@ def main(only: str | None = None) -> int:
             (lambda c=c: of.pyramidal_dis(tp, tn, c)),
             (lambda c=c: of.pyramidal_dis(tp, tn, dataclasses.replace(c, use_pallas=False))), 10)
            for label, c in dis_cfgs.items()},
-        # the in-kernel upsample beside the flag off (the rows above)
-        **{f"{entry.__name__} {label} fused_half_upsample 1080x1920": (
-            (lambda c=c, g=entry, a=a: g(*a, dataclasses.replace(c, fused_half_upsample=True))),
-            (lambda c=c, g=entry, a=a: g(*a, dataclasses.replace(c, use_pallas=False))),
-            30 if entry is of.pyramidal_lk else 10)
-           for label, (c, entry, a, _e) in half_paths.items()},
     }
     # the quality signals of phase 8k: one call is two flows and the cycle
     # test (and the fill); tracking is 7 pairs
@@ -4387,10 +4367,6 @@ def main(only: str | None = None) -> int:
         ("upsample_flow", "540x960 -> 1080x1920", (half0, (1080, 1920)), {}),
         ("lk_residual", "9x9 box centered", (p0, n0, dis_lk), {"centered": True}),
         ("lk_level_step", "9x9 box centered", (p0, n0, f0, dis_lk), {"centered": True}),
-        ("lk_level_step", "15x15 tri flow_half", (p0, n0, half0, of.PAPER_1080P),
-         {"flow_half": True}),
-        ("lk_level_step", "9x9 box centered flow_half", (p0, n0, half0, dis_lk),
-         {"centered": True, "flow_half": True}),
     ]
     # the occlusion fill at 1080x1920: on phase 8k's disk flow and detected
     # mask (held to its plain version there; the tiles away from the disk's
@@ -4473,8 +4449,7 @@ def main(only: str | None = None) -> int:
         lib_name, lib_fn = library.get(name, (None, None))
         lib_ms = None if lib_fn is None else cuda_ms(lib_fn, reps, inner=10, device=True)
         b_ms, b_by = bound(name, args, kw)
-        key = name + (" centered" if kw.get("centered") else "") + (
-            " flow_half" if kw.get("flow_half") else "")
+        key = name + (" centered" if kw.get("centered") else "")
         timing.setdefault(key, (k_ms, p_ms, b_ms, b_by, lib_ms))
         shape = "x".join(map(str, args[0].shape))
         print(f"phase 9 timing [{card}] {name} {shape} {label}: kernel {k_ms:.4f} ms, plain "
@@ -4499,8 +4474,6 @@ def main(only: str | None = None) -> int:
     entries = [(name, src, rep) for name, _m, _p, src, rep in KERNELS]
     entries += [(f"{name} centered", src, rep)
                 for name, _m, _p, src, rep in KERNELS if name in CENTERED]
-    entries += [(HALF, src, rep) for name, _m, _p, src, rep in KERNELS if name == "lk_level_step"]
-    max_err[HALF] = max(max_err[HALF], max_err.pop(f"{HALF} centered"))
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": max_err[name],

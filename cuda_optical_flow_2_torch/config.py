@@ -15,12 +15,14 @@ config crosses between the packages unchanged (``interop.lk_config_from_jax``):
   selects the Pallas kernels or the XLA twin in the JAX package.
 * ``d_local`` and ``c_max`` bound the TPU select-loop warp.  The port's warp
   is a direct gather and has no such bound; they are validated and ignored.
+* ``fused_half_upsample`` moves the JAX package's 2x flow upsample into its
+  level kernel.  The port accepts and ignores it: every coarse-to-fine
+  handoff is a pass of its own (``kernels.upsample_flow.handoff``, on the
+  kernel path the standalone upsample kernel, which on an H100 is faster
+  than a step that upsamples at each flow read), so the flow and the route
+  are the same either way.
 * ``window_method`` changes only the float summation order; the kernels
   ignore it as the Pallas kernels do.
-* ``fused_half_upsample`` (default False, as in the JAX package) lets a
-  level's first kernel step take the coarser flow and upsample it inside
-  the kernel (``kernels.lk_step_fused`` ``flow_half``), bit for bit as the
-  separate ``ops.resize.upsample_flow`` pass it replaces.
 """
 
 from __future__ import annotations
@@ -64,9 +66,8 @@ class LKConfig:
         (``REFERENCE_GPU`` sets the reference's 9x9 filter).
       use_pallas: take the hand-written kernel path (see module docstring).
       d_local, c_max: TPU select-warp bounds; validated, unused by the port.
-      fused_half_upsample: upsample the coarser flow inside the level
-        kernel (``flow_half``) where ``lk_step_fused.supported_half`` allows;
-        the same flow, one pass fewer.
+      fused_half_upsample: the JAX package's in-kernel upsample; accepted
+        and ignored by the port (see the module docstring).
     """
 
     levels: int = 4

@@ -13,5 +13,5 @@ extern "C" int of2_lk_residual(const float* prev, const float* nxt, float* flow,
                                int W, int r, int rs, int tw, int seg, const float* taps,
                                const float* masks, float det_eps, int centered, void* stream) {
   return of2_lk_launch<false>(prev, nxt, nullptr, flow, B, H, W, 0, H, r, rs, tw, seg, taps,
-                              masks, det_eps, 0.f, centered, 0, stream);
+                              masks, det_eps, 0.f, centered, stream);
 }

@@ -115,28 +115,6 @@ __device__ __forceinline__ float of2_lerp_quarter(float c, float n) {
   return __fadd_rn(__fmul_rn(0.75f, c), __fmul_rn(0.25f, n));
 }
 
-// The flow at pixel (y, x) of a (2 H2) x (2 W2) level, upsampled from the
-// coarser level's (H2, W2, 2) flow c, bit for bit as ops/resize.upsample_flow
-// computes it (rows, then columns, then * 2): fine index i takes coarse
-// k = i >> 1 and its neighbour k - 1 (even i) or k + 1 (odd i), clamped to
-// the coarse plane.
-__device__ __forceinline__ float2 of2_up2x_flow(const float* __restrict__ c, int H2, int W2,
-                                                int y, int x) {
-  const int ky = y >> 1, kx = x >> 1;
-  const int ny = min(max(ky + ((y & 1) ? 1 : -1), 0), H2 - 1);
-  const int nx = min(max(kx + ((x & 1) ? 1 : -1), 0), W2 - 1);
-  const float* rk = c + 2 * (size_t)ky * W2;
-  const float* rn = c + 2 * (size_t)ny * W2;
-  float out[2];
-#pragma unroll
-  for (int ch = 0; ch < 2; ++ch) {
-    const float at_k = of2_lerp_quarter(rk[2 * kx + ch], rn[2 * kx + ch]);
-    const float at_n = of2_lerp_quarter(rk[2 * nx + ch], rn[2 * nx + ch]);
-    out[ch] = __fmul_rn(of2_lerp_quarter(at_k, at_n), 2.f);
-  }
-  return make_float2(out[0], out[1]);
-}
-
 // cp.async: a 4-byte copy from device memory straight into shared memory,
 // without a round trip through registers.  dst[0] = *src if valid, else 0;
 // src must be a valid address either way.

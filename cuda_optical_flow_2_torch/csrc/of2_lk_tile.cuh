@@ -65,11 +65,6 @@
 // image, and everything outside the band reads as zero, as the plain version
 // (kernels/lk_step_fused.lk_band_step_plain) computes.  The whole image is
 // the band row0 = 0, Hg = H.
-//
-// HALF (STEP, whole image only): flow_in is the coarser level's flow, (B,
-// H/2, W/2, 2), and every read of the flow upsamples it at that pixel
-// (of2_up2x_flow): four coarse taps per read, from global memory, in place
-// of the separate upsample pass and its full-size flow plane.
 #pragma once
 
 #include <type_traits>
@@ -133,21 +128,11 @@ static inline size_t of2_lk_smem_floats(int r, int rs, int tw, int seg, bool cen
   return 3 * (size_t)rs * w.ldg + 5 * (size_t)w.ring * w.ldr + 2 * (size_t)w.src * w.sw;
 }
 
-// The incoming flow at pixel (y, x): read, or with HALF upsampled from the
-// coarser level's (H/2, W/2) flow.
-template <bool HALF>
-__device__ __forceinline__ float2 of2_flow_at(const float* __restrict__ f, int H, int W, int y,
-                                              int x) {
-  if (HALF) return of2_up2x_flow(f, H >> 1, W >> 1, y, x);
-  const size_t k = (size_t)y * W + x;
-  return make_float2(f[2 * k], f[2 * k + 1]);
-}
-
 // RT >= 0: the window radius, fixed at compile time (it must equal p.r);
 // RT < 0: any radius.  Both modes hold OF2_LK_MIN_BLOCKS blocks of
 // OF2_LK_MAX_THREADS threads an SM by registers (kernels/tile_geometry
 // mirrors it).
-template <bool STEP, bool CENTERED, bool HALF, int RT>
+template <bool STEP, bool CENTERED, int RT>
 __global__ void __launch_bounds__(OF2_LK_MAX_THREADS, OF2_LK_MIN_BLOCKS)
 of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt,
                    const float* __restrict__ flow_in, float* __restrict__ flow_out,
@@ -169,10 +154,9 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
     float* rows = s_prev;  // R reuses S once the gradients are taken
 
     const size_t plane = (size_t)H * W;
-    const size_t flow_plane = HALF ? (size_t)(H >> 1) * (W >> 1) : plane;
     const float* P = prev + blockIdx.z * plane;
     const float* N = nxt + blockIdx.z * plane;
-    const float* Fin = STEP ? flow_in + 2 * blockIdx.z * flow_plane : nullptr;
+    const float* Fin = STEP ? flow_in + 2 * blockIdx.z * plane : nullptr;
     float* Fout = flow_out + 2 * blockIdx.z * plane;
     const int oy = blockIdx.y * th, ox = blockIdx.x * tw;
 
@@ -198,7 +182,8 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
                           p.row0 + y < p.Hg;
         const int yc = min(max(y, 0), H - 1), xc = min(max(x, 0), W - 1);
         if (STEP) {
-          const float2 f = of2_flow_at<HALF>(Fin, H, W, yc, xc);
+          const size_t fk = (size_t)yc * W + xc;
+          const float2 f = make_float2(Fin[2 * fk], Fin[2 * fk + 1]);
           nv[b] = of2_warp_gather(N, H, W, xc, yc, live, f.x, f.y, p.max_disp, p.row0, p.Hg);
         } else {
           const float n = N[(size_t)yc * W + xc];
@@ -379,7 +364,8 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
         }
         const size_t o = (size_t)y * W + x;
         if (STEP) {
-          const float2 f = of2_flow_at<HALF>(Fin, H, W, y, x);
+          const size_t fk = (size_t)y * W + x;
+          const float2 f = make_float2(Fin[2 * fk], Fin[2 * fk + 1]);
           u += of2_clamp(f.x, -p.max_disp, p.max_disp);
           v += of2_clamp(f.y, -p.max_disp, p.max_disp);
         }
@@ -401,10 +387,9 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
     float* s_next = s_prev + wk.src * sw;
 
     const size_t plane = (size_t)H * W;
-    const size_t flow_plane = HALF ? (size_t)(H >> 1) * (W >> 1) : plane;
     const float* P = prev + blockIdx.z * plane;
     const float* N = nxt + blockIdx.z * plane;
-    const float* Fin = STEP ? flow_in + 2 * blockIdx.z * flow_plane : nullptr;
+    const float* Fin = STEP ? flow_in + 2 * blockIdx.z * plane : nullptr;
     float* Fout = flow_out + 2 * blockIdx.z * plane;
     const int ox = blockIdx.x * tw, y0 = blockIdx.y * p.seg, y1 = min(y0 + p.seg, H);
     const int ga = y0 - r;  // row-pass (and gradient) row k of the walk: ga + k
@@ -457,7 +442,8 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
           cell(i0 + b * nt, t, c);
           const int y = s0 + t, x = ox - r - 1 + c;
           const int yc = min(max(y, 0), H - 1), xc = min(max(x, 0), W - 1);
-          const float2 f = of2_flow_at<HALF>(Fin, H, W, yc, xc);
+          const size_t fk = (size_t)yc * W + xc;
+          const float2 f = make_float2(Fin[2 * fk], Fin[2 * fk + 1]);
           nv[b] = of2_warp_gather(N, H, W, xc, yc, i0 + b * nt < n && live_at(y, x), f.x, f.y,
                                   p.max_disp, p.row0, p.Hg);
         }
@@ -481,7 +467,8 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
         cell(tid + b * nt, t, c);
         const int yc = min(max(src_row(k) + t, 0), H - 1);
         const int xc = min(max(ox - r - 1 + c, 0), W - 1);
-        f[b] = of2_flow_at<HALF>(Fin, H, W, yc, xc);
+        const size_t fk = (size_t)yc * W + xc;
+        f[b] = make_float2(Fin[2 * fk], Fin[2 * fk + 1]);
       }
       a_valid = 0;
 #pragma unroll
@@ -689,7 +676,8 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
           const size_t o = (size_t)y * W + x;
           if (STEP) {
             // Accumulate on the budget-clamped flow, not the border-clamped one.
-            const float2 f = of2_flow_at<HALF>(Fin, H, W, y, x);
+            const size_t fk = (size_t)y * W + x;
+            const float2 f = make_float2(Fin[2 * fk], Fin[2 * fk + 1]);
             u += of2_clamp(f.x, -p.max_disp, p.max_disp);
             v += of2_clamp(f.y, -p.max_disp, p.max_disp);
           }
@@ -706,17 +694,17 @@ of2_lk_tile_kernel(const float* __restrict__ prev, const float* __restrict__ nxt
   }
 }
 
-template <bool STEP, bool CENTERED, bool HALF, int RT>
+template <bool STEP, bool CENTERED, int RT>
 static int of2_lk_run_r(const float* prev, const float* nxt, const float* flow_in, float* flow_out,
                         int B, int H, int W, const Of2LKParams& p, void* stream) {
   const size_t smem = of2_lk_smem_floats(p.r, p.rs, p.tw, p.seg, CENTERED) * sizeof(float);
   if (smem > OF2_SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(of2_lk_tile_kernel<STEP, CENTERED, HALF, RT>,
+  cudaError_t err = cudaFuncSetAttribute(of2_lk_tile_kernel<STEP, CENTERED, RT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + p.tw - 1) / p.tw, (H + p.seg - 1) / p.seg, B);
   const int threads = CENTERED ? OF2_LK_MAX_THREADS : p.rs * p.tw / OF2_RUN;
-  of2_lk_tile_kernel<STEP, CENTERED, HALF, RT><<<grid, threads, smem, (cudaStream_t)stream>>>(
+  of2_lk_tile_kernel<STEP, CENTERED, RT><<<grid, threads, smem, (cudaStream_t)stream>>>(
       prev, nxt, flow_in, flow_out, p);
   return (int)cudaGetLastError();
 }
@@ -725,22 +713,18 @@ static int of2_lk_run_r(const float* prev, const float* nxt, const float* flow_i
 // (PAPER_1080P 15x15, DISConfig() and DIS_REALTIME 9x9, REFERENCE_GPU and
 // LKConfig(levels=4, window=19) 19x19); any other radius runs the generic
 // one.
-template <bool STEP, bool CENTERED, bool HALF>
+template <bool STEP, bool CENTERED>
 static int of2_lk_run(const float* prev, const float* nxt, const float* flow_in, float* flow_out,
                       int B, int H, int W, const Of2LKParams& p, void* stream) {
   switch (p.r) {
     case 4:
-      return of2_lk_run_r<STEP, CENTERED, HALF, 4>(prev, nxt, flow_in, flow_out, B, H, W, p,
-                                                   stream);
+      return of2_lk_run_r<STEP, CENTERED, 4>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
     case 7:
-      return of2_lk_run_r<STEP, CENTERED, HALF, 7>(prev, nxt, flow_in, flow_out, B, H, W, p,
-                                                   stream);
+      return of2_lk_run_r<STEP, CENTERED, 7>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
     case 9:
-      return of2_lk_run_r<STEP, CENTERED, HALF, 9>(prev, nxt, flow_in, flow_out, B, H, W, p,
-                                                   stream);
+      return of2_lk_run_r<STEP, CENTERED, 9>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
     default:
-      return of2_lk_run_r<STEP, CENTERED, HALF, -1>(prev, nxt, flow_in, flow_out, B, H, W, p,
-                                                    stream);
+      return of2_lk_run_r<STEP, CENTERED, -1>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
   }
 }
 
@@ -750,19 +734,16 @@ static int of2_lk_run(const float* prev, const float* nxt, const float* flow_in,
 // whose segment is empty or whose block would exceed OF2_LK_MAX_THREADS
 // threads, a centered tile whose sides are not positive multiples of
 // OF2_RUN or with rs != seg, and a block whose shared memory exceeds what a
-// block may have, are refused.  half != 0 (STEP only) takes the (B, H/2,
-// W/2, 2) coarser flow: even H and W, the whole image.
+// block may have, are refused.
 template <bool STEP>
 static int of2_lk_launch(const float* prev, const float* nxt, const float* flow_in,
                          float* flow_out, int B, int H, int W, int row0, int Hg, int r, int rs,
                          int tw, int seg, const float* taps, const float* masks, float det_eps,
-                         float max_disp, int centered, int half, void* stream) {
+                         float max_disp, int centered, void* stream) {
   if (r < 0 || r > OF2_MAX_R || B < 1 || H < 1 || W < 1 || Hg < 1)
     return (int)cudaErrorInvalidValue;
   if (rs < OF2_RUN || tw < OF2_RUN || rs % OF2_RUN || tw % OF2_RUN || seg < 1 ||
       (centered ? rs != seg : rs * tw / OF2_RUN > OF2_LK_MAX_THREADS))
-    return (int)cudaErrorInvalidValue;
-  if (half && (!STEP || (H & 1) || (W & 1) || row0 != 0 || Hg != H))
     return (int)cudaErrorInvalidValue;
   Of2LKParams p;
   for (int d = 0; d < OF2_MAX_TAPS; ++d) p.taps[d] = d <= 2 * r ? taps[d] : 0.f;
@@ -781,13 +762,6 @@ static int of2_lk_launch(const float* prev, const float* nxt, const float* flow_
   p.rs = rs;
   p.tw = tw;
   p.seg = seg;
-  if constexpr (STEP) {
-    if (half)
-      return centered
-                 ? of2_lk_run<STEP, true, true>(prev, nxt, flow_in, flow_out, B, H, W, p, stream)
-                 : of2_lk_run<STEP, false, true>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
-  }
-  return centered
-             ? of2_lk_run<STEP, true, false>(prev, nxt, flow_in, flow_out, B, H, W, p, stream)
-             : of2_lk_run<STEP, false, false>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
+  return centered ? of2_lk_run<STEP, true>(prev, nxt, flow_in, flow_out, B, H, W, p, stream)
+                  : of2_lk_run<STEP, false>(prev, nxt, flow_in, flow_out, B, H, W, p, stream);
 }

@@ -44,7 +44,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "of2_lk_residual": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _I, _P],
     "of2_lk_level_step": [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _F, _I, _I, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _F, _I, _P,
     ],
     "of2_warp_select": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "of2_pyr_down": [_P, _P, _I, _I, _I, _L, _L, _L, _P],

@@ -38,10 +38,7 @@ sum) has no counterpart here.
 :func:`lk_residual` launches the kernel for CUDA tensors and takes
 :func:`lk_residual_plain` for CPU tensors; ``lk_residual.launches`` counts
 kernel launches and ``lk_residual.launches_centered`` those with
-``centered=True``; ``lk_residual.cells_staged`` and ``.cells_out`` add up
-the source cells the launches staged and the output cells they wrote
-(:func:`kernels.tile_geometry.lk_cells`), whose ratio is the kernel's halo
-factor.
+``centered=True``.
 """
 
 from __future__ import annotations
@@ -158,22 +155,8 @@ def lk_residual(
     )
     lk_residual.launches += 1
     lk_residual.launches_centered += int(centered)
-    count_cells(lk_residual, prev, config, centered)
     return out.reshape(lead + (h, w, 2))
-
-
-def count_cells(fn, frames: torch.Tensor, config: LKConfig, centered: bool) -> None:
-    """Add the source cells a launch over (..., H, W) ``frames`` stages and
-    the output cells it writes (:func:`kernels.tile_geometry.lk_cells`) to
-    ``fn.cells_staged`` and ``fn.cells_out``."""
-    h, w = frames.shape[-2:]
-    staged, out = tile_geometry.lk_cells(frames.numel() // (h * w), h, w, config.window // 2,
-                                         centered)
-    fn.cells_staged += staged
-    fn.cells_out += out
 
 
 lk_residual.launches = 0
 lk_residual.launches_centered = 0
-lk_residual.cells_staged = 0
-lk_residual.cells_out = 0

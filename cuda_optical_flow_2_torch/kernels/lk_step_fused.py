@@ -2,10 +2,10 @@
 
 Replaces ``cuda_optical_flow_2_tpu/kernels/lk_step_fused.py``: the
 whole-image ``lk_level_step`` with its DIS ``centered`` mode and its
-in-kernel 2x flow upsample ``flow_half``, and the spatial-TP band entry
-``lk_band_step``.  CUDA source: ``csrc/lk_step_fused.cu`` with the tile body
-in ``csrc/of2_lk_tile.cuh`` and the clamp + warp and the upsample in
-``csrc/of2_common.cuh``.  It computes::
+``flow_half`` mode, and the spatial-TP band entry ``lk_band_step``.  CUDA
+source: ``csrc/lk_step_fused.cu`` with the tile body in
+``csrc/of2_lk_tile.cuh`` and the clamp + warp in ``csrc/of2_common.cuh``.
+It computes::
 
     fc  = clip(flow, +-max_displacement)
     out = fc + residual(prev, warp_bilinear(next, fc))   # centered: DIS sums
@@ -22,12 +22,10 @@ because the TPU has no gather; here the warp is a direct four-tap gather,
 exact for any flow.
 
 ``flow_half``: the flow argument is the coarser level's, (..., H/2, W/2, 2),
-and each read of the flow upsamples it at that pixel, bit for bit as
-``ops/resize.upsample_flow`` does, so the step reads a quarter-size flow and
-the separate upsample pass with its full-size flow plane goes.  The TPU
-kernel needed a lane-interleave network for it (``kernels/updown.py``); here
-it is index arithmetic over four coarse taps.  :func:`supported_half` gates
-it: even H and W, a flow of exactly (H/2, W/2), and the kernel path.
+as in the JAX kernel's mode of that name.  Here it is upsampled first by the
+handoff kernel (``kernels.upsample_flow``), then stepped: on an H100 that
+pair of launches is faster than a step that upsamples at each flow read
+(PERF.md), so the step kernel takes only a flow at its own resolution.
 
 The band entry is the same kernel with the band's global row ``row0`` and
 the image height ``h_global``: the warp's sample row and bounds test, the
@@ -37,11 +35,8 @@ whole-image entry is the band ``(0, H)``.
 
 :func:`lk_level_step` and :func:`lk_band_step` launch the kernel for CUDA
 tensors and take their plain versions for CPU tensors; ``.launches`` on each
-counts its kernel launches, ``.launches_centered`` those with
-``centered=True`` and ``lk_level_step.launches_half`` those with
-``flow_half=True``; ``.cells_staged`` and ``.cells_out`` add up the source
-cells the launches warped and the output cells they wrote
-(:func:`kernels.tile_geometry.lk_cells`, the kernel's halo factor).
+counts its kernel launches and ``.launches_centered`` those with
+``centered=True``.
 """
 
 from __future__ import annotations
@@ -50,37 +45,12 @@ import torch
 
 from cuda_optical_flow_2_torch.config import LKConfig
 from cuda_optical_flow_2_torch.kernels import _build, tile_geometry
-from cuda_optical_flow_2_torch.kernels.lk_fused import (
-    count_cells,
-    kernel_constants,
-    lk_residual_plain,
-    planes,
-    supported,
-)
+from cuda_optical_flow_2_torch.kernels.lk_fused import kernel_constants, lk_residual_plain, planes
+from cuda_optical_flow_2_torch.kernels.upsample_flow import upsample_flow, upsample_flow_plain
 from cuda_optical_flow_2_torch.ops.band import zero_outside_global
-from cuda_optical_flow_2_torch.ops.resize import upsample_flow
 from cuda_optical_flow_2_torch.ops.warp import warp_bilinear, warp_bilinear_band
 
-__all__ = [
-    "lk_band_step", "lk_band_step_plain", "lk_level_step", "lk_level_step_plain", "supported_half",
-]
-
-
-def supported_half(h: int, w: int, flow_shape, config: LKConfig) -> bool:
-    """Whether the step at an (h, w) level may take the coarser flow of
-    shape ``flow_shape`` (..., h/2, w/2, 2) with ``flow_half``: even h and
-    w, a flow of exactly half the level, and the kernel path (``use_pallas``,
-    the bilinear warp and a window the kernel takes).  The JAX package's
-    power-of-two padded width and ``max_displacement <= 96`` are limits of
-    its TPU kernel; this one has neither."""
-    return (
-        h % 2 == 0
-        and w % 2 == 0
-        and tuple(flow_shape[-3:-1]) == (h // 2, w // 2)
-        and config.use_pallas
-        and config.warp_mode == "bilinear"
-        and supported(config)
-    )
+__all__ = ["lk_band_step", "lk_band_step_plain", "lk_level_step", "lk_level_step_plain"]
 
 
 def lk_level_step_plain(
@@ -94,7 +64,7 @@ def lk_level_step_plain(
     """The plain PyTorch version: (``flow_half``: upsample_flow +) clip +
     warp_bilinear + residual + add."""
     if flow_half:
-        flow = upsample_flow(flow, tuple(prev.shape[-2:]))
+        flow = upsample_flow_plain(flow, tuple(prev.shape[-2:]))
     d = float(config.max_displacement)
     fc = flow.clamp(-d, d)
     return fc + lk_residual_plain(prev, warp_bilinear(nxt, fc), config, centered)
@@ -118,22 +88,16 @@ def lk_band_step_plain(
     return fc + lk_residual_plain(prev, warped, config, centered, row0, h_global)
 
 
-def _launch(prev, nxt, flow, config, centered, row0, h_global, flow_half=False) -> torch.Tensor:
+def _launch(prev, nxt, flow, config, centered, row0, h_global) -> torch.Tensor:
     dev = _build.require_cuda(prev, nxt, flow)
     lead, (h, w) = prev.shape[:-2], prev.shape[-2:]
-    fh, fw = (h // 2, w // 2) if flow_half else (h, w)
-    if (
-        nxt.shape != prev.shape
-        or flow.shape != lead + (fh, fw, 2)
-        or (flow_half and (h % 2 or w % 2))
-    ):
-        want = "(..., H/2, W/2, 2) of an even H and W" if flow_half else "(..., H, W, 2)"
+    if nxt.shape != prev.shape or flow.shape != lead + (h, w, 2):
         raise ValueError(
             f"shapes prev {tuple(prev.shape)}, next {tuple(nxt.shape)}, flow "
-            f"{tuple(flow.shape)}: want (..., H, W) twice and {want}"
+            f"{tuple(flow.shape)}: want (..., H, W) twice and (..., H, W, 2)"
         )
     p, n = planes(prev.reshape(-1, h, w), nxt.reshape(-1, h, w))
-    (f,) = planes(flow.reshape(-1, fh, fw, 2))
+    (f,) = planes(flow.reshape(-1, h, w, 2))
     out = torch.empty(p.shape + (2,), dtype=torch.float32, device=dev)
     r, taps, masks = kernel_constants(config)
     _build.launch(
@@ -141,7 +105,6 @@ def _launch(prev, nxt, flow, config, centered, row0, h_global, flow_half=False) 
         p.shape[0], h, w, int(row0), int(h_global), r,
         *tile_geometry.lk_launch(p.shape[0], h, w, r, centered), taps.ctypes.data,
         masks.ctypes.data, float(config.det_eps), float(config.max_displacement), int(centered),
-        int(flow_half),
     )
     return out.reshape(lead + (h, w, 2))
 
@@ -158,17 +121,17 @@ def lk_level_step(
     of a DIS level, with the mean-normalized sums).
 
     Args: prev/nxt (..., H, W), flow (..., H, W, 2), or with ``flow_half``
-    the coarser level's flow (..., H/2, W/2, 2), upsampled in the kernel
-    (callers gate on :func:`supported_half`).  Returns the updated flow
-    (..., H, W, 2) float32.
+    the coarser level's flow (..., H/2, W/2, 2), upsampled first by
+    :func:`kernels.upsample_flow.upsample_flow` (on CUDA tensors a launch of
+    its own).  Returns the updated flow (..., H, W, 2) float32.
     """
+    if flow_half:
+        flow = upsample_flow(flow, tuple(prev.shape[-2:]))
     if all(t.device.type == "cpu" for t in (prev, nxt, flow)):
-        return lk_level_step_plain(prev, nxt, flow, config, centered, flow_half)
-    out = _launch(prev, nxt, flow, config, centered, 0, prev.shape[-2], flow_half)
-    count_cells(lk_level_step, prev, config, centered)
+        return lk_level_step_plain(prev, nxt, flow, config, centered)
+    out = _launch(prev, nxt, flow, config, centered, 0, prev.shape[-2])
     lk_level_step.launches += 1
     lk_level_step.launches_centered += int(centered)
-    lk_level_step.launches_half += int(flow_half)
     return out
 
 
@@ -193,7 +156,6 @@ def lk_band_step(
     if all(t.device.type == "cpu" for t in (prev, nxt, flow)):
         return lk_band_step_plain(prev, nxt, flow, row0, config, h_global, centered)
     out = _launch(prev, nxt, flow, config, centered, row0, h_global)
-    count_cells(lk_band_step, prev, config, centered)
     lk_band_step.launches += 1
     lk_band_step.launches_centered += int(centered)
     return out
@@ -201,10 +163,5 @@ def lk_band_step(
 
 lk_level_step.launches = 0
 lk_level_step.launches_centered = 0
-lk_level_step.launches_half = 0
-lk_level_step.cells_staged = 0
-lk_level_step.cells_out = 0
 lk_band_step.launches = 0
 lk_band_step.launches_centered = 0
-lk_band_step.cells_staged = 0
-lk_band_step.cells_out = 0

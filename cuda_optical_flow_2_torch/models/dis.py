@@ -22,9 +22,8 @@ refinement warp through ``kernels.warp_select`` and its relaxation through
 wrappers take their plain versions.  ``use_pallas=False`` is the plain
 composition, the JAX package's XLA twin; a window past the LK kernels'
 limit (``lk_fused.supported``) takes it for the search steps, decided from
-the config.  ``fused_half_upsample`` lets each level's first search step
-take the coarser flow and upsample it in the kernel (``flow_half``, the same
-flow bit for bit).  Images (..., H, W), flows (..., H, W, 2).
+the config.  ``fused_half_upsample`` is accepted and changes nothing
+(``config.py``).  Images (..., H, W), flows (..., H, W, 2).
 
 Spans (``utils/profiling.span``, recorded only while a profiler is active:
 in an eager traced call and at a capture, never in a replay): each solved
@@ -45,11 +44,7 @@ from cuda_optical_flow_2_torch.constants import MASKS
 from cuda_optical_flow_2_torch.kernels import (
     hs_sweep, lk_fused, lk_step_fused, upsample_flow, warp_select,
 )
-from cuda_optical_flow_2_torch.models.lucas_kanade import (
-    _fused_half_upsample,
-    _validate,
-    preprocess,
-)
+from cuda_optical_flow_2_torch.models.lucas_kanade import _validate, preprocess
 from cuda_optical_flow_2_torch.ops.clip import clip
 from cuda_optical_flow_2_torch.ops.conv import stencil2d
 from cuda_optical_flow_2_torch.ops.gradients import SOBEL_GAIN
@@ -93,8 +88,8 @@ class DISConfig:
       use_pallas: the hand-written kernel path (see the module docstring).
       max_displacement: warp budget in pixels.
       d_local, c_max: TPU select-warp bounds; validated, unused by the port.
-      fused_half_upsample: upsample the coarser flow inside the first search
-        step's kernel (see ``LKConfig.fused_half_upsample``).
+      fused_half_upsample: accepted for the JAX package's configs; the port
+        takes the same route either way (see ``LKConfig``).
     """
 
     levels: int = 5
@@ -241,24 +236,21 @@ def dis_level(
 ) -> torch.Tensor:
     """One pyramid level: inverse-search GN steps + variational refinement.
     ``flow_init`` is the level-resolution seed (None at a cold coarsest
-    level), or with ``flow_init_half`` the coarser level's flow, which the
-    first kernel step upsamples itself (as ``lucas_kanade.lk_level``).
-    ``level`` is the pyramid level, an attribute of the spans."""
+    level), or with ``flow_init_half`` the coarser level's flow, handed over
+    to this level first (as ``lucas_kanade.lk_level``).  ``level`` is the
+    pyramid level, an attribute of the spans."""
     lk_like = _lk_like(config)
     flow = flow_init
     with span("dis.search", level=level, steps=config.iterations):
-        if flow_init_half and not _kernels(config):
+        if flow_init_half:
             flow = upsample_flow.handoff(flow, tuple(prev.shape[-2:]), config.use_pallas)
-        for it in range(config.iterations):
+        for _ in range(config.iterations):
             if flow is None:
                 # Coarsest start: zero displacement, so the "warped" frame is
                 # the frame itself: one plain centered residual step.
                 flow = _dis_residual(prev, nxt, config)
             elif _kernels(config):
-                flow = lk_step_fused.lk_level_step(
-                    prev, nxt, flow, lk_like, config.mean_normalize,
-                    flow_half=flow_init_half and it == 0,
-                )
+                flow = lk_step_fused.lk_level_step(prev, nxt, flow, lk_like, config.mean_normalize)
             else:
                 flow = flow + _dis_residual_xla(prev, warp_bilinear(nxt, flow), config)
     if config.refine_iterations > 0:
@@ -286,15 +278,10 @@ def dis_coarse_to_fine(
     resolution and units) warm-starts the coarsest level.
     """
     flow = init_flow
-    lk_like = _lk_like(config)
     for k in range(config.levels - 1, config.finest_level - 1, -1):
-        half = False
         if flow is not None:
-            half = _fused_half_upsample(prev_pyr[k], flow, lk_like)
-            if not half:
-                flow = upsample_flow.handoff(flow, tuple(prev_pyr[k].shape[-2:]),
-                                             config.use_pallas)
-        flow = dis_level(prev_pyr[k], next_pyr[k], flow, config, flow_init_half=half, level=k)
+            flow = upsample_flow.handoff(flow, tuple(prev_pyr[k].shape[-2:]), config.use_pallas)
+        flow = dis_level(prev_pyr[k], next_pyr[k], flow, config, level=k)
     if config.finest_level > 0:
         flow = upsample_flow.handoff(flow, tuple(prev_pyr[0].shape[-2:]), config.use_pallas)
     return flow

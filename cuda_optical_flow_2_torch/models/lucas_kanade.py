@@ -12,9 +12,9 @@ coarse-to-fine handoff of the flow (``kernels.upsample_flow.handoff``),
 ``kernels.lk_fused.lk_residual`` at the coarsest level and
 ``kernels.lk_step_fused.lk_level_step`` at each finer level, which clamp
 the flow to ``max_displacement`` before warping and accumulate on the
-clamped flow; with ``config.fused_half_upsample`` a level's first step
-takes the coarser flow and upsamples it in the kernel (``flow_half``).
-For CPU tensors those wrappers take their plain versions.
+clamped flow; ``config.fused_half_upsample`` is accepted and changes
+nothing (``config.py``).  For CPU tensors those wrappers take their plain
+versions.
 ``use_pallas=False`` is the plain ops composition without the clamp, the
 JAX package's XLA twin.  A window past a kernel's limit
 (``lk_fused.supported``, ``bilateral_tap.supported``) takes the plain
@@ -73,9 +73,8 @@ def lk_level(
     """One pyramid level: warp -> gradients -> window sums -> solve, repeated
     ``config.iterations`` times with the refined flow.
 
-    ``flow_init_half``: ``flow_init`` is the coarser level's flow; the
-    kernel step upsamples it itself (``flow_half``, gated by the caller on
-    ``lk_step_fused.supported_half``), the other paths upsample it here.
+    ``flow_init_half``: ``flow_init`` is the coarser level's flow, handed
+    over to this level first (``kernels.upsample_flow.handoff``).
     """
     if flow_init is None:
         # Coarsest level: no prior flow, so no warp.
@@ -86,14 +85,12 @@ def lk_level(
             prev, nxt, flow, dataclasses.replace(config, iterations=config.iterations - 1)
         )
     flow = flow_init
-    if _kernels(config) and config.warp_mode == "bilinear":
-        for it in range(config.iterations):
-            flow = lk_step_fused.lk_level_step(
-                prev, nxt, flow, config, flow_half=flow_init_half and it == 0
-            )
-        return flow
     if flow_init_half:
         flow = upsample_flow.handoff(flow, tuple(prev.shape[-2:]), config.use_pallas)
+    if _kernels(config) and config.warp_mode == "bilinear":
+        for _ in range(config.iterations):
+            flow = lk_step_fused.lk_level_step(prev, nxt, flow, config)
+        return flow
     if config.warp_mode == "none":
         # Without warping, re-iterating recomputes the same residual.
         return flow + _lk_residual(prev, nxt, config)
@@ -148,26 +145,11 @@ def coarse_to_fine(
     flows: list[torch.Tensor | None] = [None] * config.levels
     flow = init_flow
     for k in range(config.levels - 1, -1, -1):
-        half = False
         if flow is not None:
-            half = _fused_half_upsample(prev_pyr[k], flow, config)
-            if not half:
-                flow = upsample_flow.handoff(flow, tuple(prev_pyr[k].shape[-2:]),
-                                             config.use_pallas)
-        flow = lk_level(prev_pyr[k], next_pyr[k], flow, config, flow_init_half=half)
+            flow = upsample_flow.handoff(flow, tuple(prev_pyr[k].shape[-2:]), config.use_pallas)
+        flow = lk_level(prev_pyr[k], next_pyr[k], flow, config)
         flows[k] = flow
     return flows  # type: ignore[return-value]
-
-
-def _fused_half_upsample(prev_k: torch.Tensor, flow: torch.Tensor, config: LKConfig) -> bool:
-    """Whether the level-k step takes the coarser flow and upsamples it in
-    the kernel: opt-in through ``config.fused_half_upsample``, then
-    ``lk_step_fused.supported_half``.  False for a flow already at level-k
-    resolution (a warm start), so only coarse-to-fine handoffs take it."""
-    if not config.fused_half_upsample:
-        return False
-    h, w = prev_k.shape[-2:]
-    return lk_step_fused.supported_half(h, w, flow.shape, config)
 
 
 def pyramidal_lk_pyramid(

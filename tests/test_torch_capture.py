@@ -36,6 +36,7 @@ from cuda_optical_flow_2_tpu.models import tvl1 as jtvl1
 import cuda_optical_flow_2_torch as tof
 from cuda_optical_flow_2_torch import capture, interop
 from cuda_optical_flow_2_torch.kernels import lk_fused, lk_step_fused, pyr_down, warp_select
+from cuda_optical_flow_2_torch.kernels import upsample_flow as upsample_kernel
 from cuda_optical_flow_2_torch.models import dis as tdis
 from cuda_optical_flow_2_torch.models import farneback as tfb
 from cuda_optical_flow_2_torch.models import horn_schunck as ths
@@ -199,7 +200,7 @@ def test_step_key_separates_flow_none_and_flags():
 def test_counter_registry_holds_every_wrapper_counter():
     names = capture.counters()
     for name in ("lk_fused.lk_residual.launches", "lk_fused.lk_residual.launches_centered",
-                 "lk_step_fused.lk_level_step.launches_half", "pyr_down.pyr_down.launches",
+                 "lk_step_fused.lk_level_step.launches_centered", "pyr_down.pyr_down.launches",
                  "hs_sweep.hs_relax_band.launches", "tvl1_sweep.tvl1_relax.launches",
                  "median_select.median_filter_kernel.launches", "win_solve.window_solve.launches",
                  "fb_step_fused.fb_band_step.launches", "bilateral_tap.bilateral_kernel.launches",
@@ -208,13 +209,13 @@ def test_counter_registry_holds_every_wrapper_counter():
                  "occlusion_fill.fill_occluded_flow_kernel.launches",
                  "upsample_flow.upsample_flow.launches"):
         assert name in names
-    assert len(names) == 23
+    assert len(names) == 22
 
 
 @pytest.mark.parametrize("replays", [1, 3, 10])
 def test_counter_delta_replays_give_the_eager_totals(replays):
     """A simulated capture: an eager call's launches (3 pyr_down, 1 residual,
-    3 steps of which 2 flow_half, 1 warp) recorded as the delta over the
+    3 steps, 2 upsamples, 1 warp) recorded as the delta over the
     capture, the counters set back, then N replays: the totals are N eager
     calls'."""
     start = capture.snapshot()
@@ -223,7 +224,7 @@ def test_counter_delta_replays_give_the_eager_totals(replays):
         pyr_down.pyr_down.launches += 3
         lk_fused.lk_residual.launches += 1
         lk_step_fused.lk_level_step.launches += 3
-        lk_step_fused.lk_level_step.launches_half += 2
+        upsample_kernel.upsample_flow.launches += 2
         warp_select.warp_bilinear_select.launches += 1
 
     try:
@@ -244,7 +245,7 @@ def test_counter_delta_replays_give_the_eager_totals(replays):
             "pyr_down.pyr_down.launches": 3 * replays,
             "lk_fused.lk_residual.launches": replays,
             "lk_step_fused.lk_level_step.launches": 3 * replays,
-            "lk_step_fused.lk_level_step.launches_half": 2 * replays,
+            "upsample_flow.upsample_flow.launches": 2 * replays,
             "warp_select.warp_bilinear_select.launches": replays,
         }
     finally:

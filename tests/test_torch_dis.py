@@ -278,11 +278,9 @@ def test_dis_realtime_preset_tracks_motion():
 
 
 def test_fused_half_upsample_is_accepted_and_changes_nothing():
-    """The flag moves the 2x upsample into the first step of each finer
-    level (``flow_half``), and that upsample is ops/resize.upsample_flow bit
-    for bit: in the kernel by construction (chip_smoke.py holds it to
-    max |d| = 0 on the card), on the CPU because the plain step calls
-    upsample_flow itself.  So the flow does not change."""
+    """The port accepts the flag and takes the same route either way: each
+    finer level's flow comes through the handoff (``upsample_flow``), then
+    the plain-flow steps.  So the flow does not change."""
     p, n = _pair(64, 96, velocity=(2.0, 1.0))
     cfg = tof.DISConfig(levels=2, refine_iterations=2, max_displacement=8)
     half = tof.pyramidal_dis(_t(p), _t(n), dataclasses.replace(cfg, fused_half_upsample=True))

@@ -170,68 +170,78 @@ def test_lk_level_step_flow_half_cpu_is_upsample_then_step(rng):
     prev, nxt = _pair(rng, 2 * 18, 2 * 23)
     half = _t(_smooth_flow(18, 23, 3.0))
     cfg = lk_config_from_jax(jof.LKConfig(levels=1, window=9, max_displacement=4))
-    before = (lk_step_fused.lk_level_step.launches, lk_step_fused.lk_level_step.launches_half)
+    before = lk_step_fused.lk_level_step.launches
     for centered in (False, True):
         got = lk_step_fused.lk_level_step(_t(prev), _t(nxt), half, cfg, centered, flow_half=True)
         want = lk_step_fused.lk_level_step_plain(_t(prev), _t(nxt), upsample_flow(half, (36, 46)),
                                                  cfg, centered)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert (lk_step_fused.lk_level_step.launches,
-            lk_step_fused.lk_level_step.launches_half) == before
+    assert lk_step_fused.lk_level_step.launches == before
 
 
 def test_lk_level_step_flow_half_launch_arguments(rng, monkeypatch):
-    """What the wrapper hands the C entry (the launch itself stubbed): the
-    quarter-size flow and half = 1; a flow of the wrong size for the mode,
-    or an odd level, raises before any launch."""
+    """What the wrapper hands the C entries (the launches themselves
+    stubbed, the inputs meta tensors so the kernel path runs): with
+    flow_half, the upsample kernel on the quarter-size flow, then the step
+    on the full-size flow it made, each counted by its own wrapper; a flow
+    of the wrong size for the mode raises before any launch."""
+    from cuda_optical_flow_2_torch.kernels import upsample_flow
+
     calls = []
     monkeypatch.setattr(_build, "require_cuda", lambda *t: torch.device("cpu"))
     monkeypatch.setattr(_build, "launch", lambda dev, name, *args: calls.append((name, args)))
-    prev, nxt = (_t(a) for a in _pair(rng, 32, 48))
-    half, full = _t(_smooth_flow(16, 24, 2.0)), _t(_smooth_flow(32, 48, 2.0))
+    prev, nxt = (torch.empty(32, 48, device="meta") for _ in range(2))
+    half, full = torch.empty(16, 24, 2, device="meta"), torch.empty(32, 48, 2, device="meta")
     cfg = lk_config_from_jax(jof.LKConfig(levels=1, window=9))
-    lk_step_fused._launch(prev, nxt, half, cfg, True, 0, 32, flow_half=True)
-    lk_step_fused._launch(prev, nxt, full, cfg, False, 0, 32)
-    (name, a), (_, b) = calls
-    assert name == "of2_lk_level_step" and a[4:7] == (1, 32, 48)
-    assert a[-2:] == (1, 1) and b[-2:] == (0, 0)  # centered, half
+    launches = (upsample_flow.upsample_flow.launches, lk_step_fused.lk_level_step.launches)
+    lk_step_fused.lk_level_step(prev, nxt, half, cfg, True, flow_half=True)
+    (up, (_, u_out, *u_dims)), (name, a) = calls
+    assert up == "of2_upsample_flow" and u_dims == [1, 16, 24, 32, 48]
+    assert name == "of2_lk_level_step" and a[2] == u_out and a[4:7] == (1, 32, 48)
+    assert a[-1] == 1  # centered
+    assert (upsample_flow.upsample_flow.launches, lk_step_fused.lk_level_step.launches) == (
+        launches[0] + 1, launches[1] + 1)
     for flow, flow_half, p in ((full, True, prev), (half, False, prev), (half, True, prev[:31])):
-        with pytest.raises(ValueError, match="want"):
-            lk_step_fused._launch(p, p, flow, cfg, False, 0, p.shape[-2], flow_half=flow_half)
+        with pytest.raises(ValueError, match="want|octave"):
+            lk_step_fused.lk_level_step(p, p, flow, cfg, flow_half=flow_half)
     assert len(calls) == 2
 
 
 @pytest.mark.parametrize(
-    "shape,flow_shape,kw,want",
+    "shape,flow_shape,kw",
     [
-        ((64, 448), (32, 224), dict(), True),
-        ((128, 448), (64, 224), dict(window=15, max_displacement=16), True),
-        ((64, 448), (64, 448), dict(), False),  # a warm start at level resolution
-        ((63, 448), (31, 224), dict(), False),  # an odd level
-        ((64, 448), (32, 224), dict(use_pallas=False), False),
-        ((64, 448), (32, 224), dict(warp_mode="nearest"), False),
-        ((64, 448), (32, 224), dict(fused_half_upsample=False), False),
+        ((64, 448), (32, 224), dict()),
+        ((128, 448), (64, 224), dict(window=15, max_displacement=16)),
+        ((64, 448), (64, 448), dict()),  # a warm start at level resolution
+        ((63, 448), (31, 224), dict()),  # an odd level
+        ((64, 448), (32, 224), dict(use_pallas=False)),
+        ((64, 448), (32, 224), dict(warp_mode="nearest")),
+        ((64, 448), (32, 224), dict(fused_half_upsample=False)),
     ],
     ids=["half", "window15", "warm_start", "odd", "plain", "nearest", "off"],
 )
-def test_fused_half_gate_matches_jax(monkeypatch, shape, flow_shape, kw, want):
-    """The port's gate against JAX's ``_fused_half_upsample`` where the TPU
-    kernel's padded width is a power of two (its one extra clause): both
-    take the mode exactly for an even level, a flow of half its size and
-    the kernel path, and only when the config opts in."""
+def test_fused_half_gate_matches_jax(rng, shape, flow_shape, kw):
+    """The port's ``lk_level`` against JAX's on the same inputs, JAX on its
+    XLA twin (the semantic arbiter): with ``flow_init_half`` the coarser
+    flow is handed over to the level first, whatever the config's
+    ``fused_half_upsample`` says and whichever path runs (the port has no
+    gate: one route); a warm start is the same call at the level's
+    resolution without it.  The flows stay inside ``max_displacement``, so
+    the kernel path's clamp changes nothing."""
     from cuda_optical_flow_2_tpu.models import lucas_kanade as jlk
 
     from cuda_optical_flow_2_torch.models import lucas_kanade as tlk
 
-    monkeypatch.setenv("OF2_PALLAS_INTERPRET", "1")
     jcfg = jof.LKConfig(levels=2, **{"window": 9, "max_displacement": 8,
                                      "fused_half_upsample": True, **kw})
-    prev, flow = np.zeros(shape, np.float32), np.zeros(flow_shape + (2,), np.float32)
-    assert jlk._fused_half_upsample(_j(prev), _j(flow), jcfg) is want
-    tcfg = lk_config_from_jax(jcfg)
-    assert tlk._fused_half_upsample(_t(prev), _t(flow), tcfg) is want
-    assert lk_step_fused.supported_half(*shape, flow_shape + (2,), tcfg) is (
-        want or not tcfg.fused_half_upsample)
+    prev, nxt = _pair(rng, *shape)
+    flow = _smooth_flow(*flow_shape, 1.0)  # |u| <= 1, |v| <= 2.75: doubled, inside 8
+    half = flow_shape != shape
+    want = jlk.lk_level(_j(prev), _j(nxt), _j(flow), dataclasses.replace(jcfg, use_pallas=False),
+                        flow_init_half=half)
+    got = tlk.lk_level(_t(prev), _t(nxt), _t(flow), lk_config_from_jax(jcfg), flow_init_half=half)
+    assert tuple(got.shape) == shape + (2,)
+    _close(got, want)
 
 
 # --- kernel #3: warp_bilinear_select ------------------------------------

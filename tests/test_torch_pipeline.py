@@ -23,7 +23,7 @@ from cuda_optical_flow_2_tpu.utils.io import synthetic_sequence as j_synthetic_s
 
 import cuda_optical_flow_2_torch as tof
 from cuda_optical_flow_2_torch.interop import flow_state_from_numpy, lk_config_from_jax
-from cuda_optical_flow_2_torch.kernels import lk_fused, lk_step_fused, warp_select
+from cuda_optical_flow_2_torch.kernels import lk_fused, lk_step_fused, upsample_flow, warp_select
 from cuda_optical_flow_2_torch.models import streaming as tstream
 from cuda_optical_flow_2_torch.utils.io import synthetic_sequence
 
@@ -227,61 +227,78 @@ def test_serving_loop_cpu_launches_nothing():
     assert [fn.launches for fn in wrappers] == before
 
 
-# --- fused_half_upsample: the in-kernel 2x upsample of lk_level_step ------
+# --- fused_half_upsample: accepted, and the same route either way ---------
 
 
-def _half_calls(monkeypatch):
-    """A spy on lk_level_step: the flow_half of each call, in order."""
-    calls, orig = [], lk_step_fused.lk_level_step
+def _route(monkeypatch):
+    """Spies on the coarse-to-fine handoff and the LK step: the target
+    shape of each handoff, in order, and for each step whether it was given
+    a flow of another size than its frames (or ``flow_half``)."""
+    handoffs, half_steps = [], []
+    orig_handoff, orig_step = upsample_flow.handoff, lk_step_fused.lk_level_step
 
-    def spy(*args, flow_half=False, **kw):
-        calls.append(flow_half)
-        return orig(*args, flow_half=flow_half, **kw)
+    def handoff(flow, shape, use_pallas):
+        handoffs.append(tuple(shape))
+        return orig_handoff(flow, shape, use_pallas)
 
-    monkeypatch.setattr(lk_step_fused, "lk_level_step", spy)
-    return calls
+    def step(prev, nxt, flow, *args, **kw):
+        half_steps.append(tuple(flow.shape[-3:-1]) != tuple(prev.shape[-2:])
+                          or kw.get("flow_half", False))
+        return orig_step(prev, nxt, flow, *args, **kw)
+
+    monkeypatch.setattr(upsample_flow, "handoff", handoff)
+    monkeypatch.setattr(lk_step_fused, "lk_level_step", step)
+    return handoffs, half_steps
 
 
 @pytest.mark.parametrize(
-    "cfg,entry,half_levels",
+    "cfg,entry,steps",
     [
-        (tof.PAPER_1080P, tof.pyramidal_lk, [False, True, True, True]),
-        (tof.REFERENCE_GPU, tof.pyramidal_lk, [True, True, True]),
-        (tof.DISConfig(), tof.pyramidal_dis, [False] * 3 + [True, False] * 3),
-        (tof.DIS_REALTIME, tof.pyramidal_dis, [False] * 3 + [True, False] * 2),
+        (tof.PAPER_1080P, tof.pyramidal_lk, 4),
+        (tof.REFERENCE_GPU, tof.pyramidal_lk, 3),
+        (tof.DISConfig(), tof.pyramidal_dis, 9),
+        (tof.DIS_REALTIME, tof.pyramidal_dis, 7),
     ],
     ids=["PAPER_1080P", "REFERENCE_GPU", "DISConfig", "DIS_REALTIME"],
 )
-def test_fused_half_upsample_levels_and_bits(monkeypatch, cfg, entry, half_levels):
+def test_fused_half_upsample_levels_and_bits(monkeypatch, cfg, entry, steps):
     """72x96 has 1080x1920's level parities (72, 36, 18, 9, 4 rows): with
-    the flag on, the first step of levels 2, 1 and 0 takes flow_half (level
-    3 has an odd height; a solved coarsest level has no coarser flow), as
-    at 1080x1920: 3 of 4 LK steps, 3 of 9 DIS steps, 2 of 7 with
-    finest_level=1.  The flow is bit-equal to the flag off: on CPU the
-    plain step upsamples with upsample_flow, the pass the flag removes."""
+    the flag on, as off, each finer level takes the coarser flow through
+    one handoff (DIS_REALTIME's last one to the unsolved level 0), and no
+    step is given a half-size flow: 4 of PAPER_1080P's levels, 3 of
+    REFERENCE_GPU's, 4 of DIS's.  The flow is bit-equal to the flag off."""
     fr = _frames(2, 72, 96, velocity=(2.0, 1.0), period=24)
     p, n = torch.from_numpy(fr[0]), torch.from_numpy(fr[1])
-    calls = _half_calls(monkeypatch)
+    handoffs, half_steps = _route(monkeypatch)
     on = entry(p, n, dataclasses.replace(cfg, fused_half_upsample=True))
-    assert calls == half_levels
-    calls.clear()
+    assert len(handoffs) == cfg.levels - 1 and handoffs[-1] == (72, 96)
+    assert [h for h, _ in handoffs] == sorted(h for h, _ in handoffs)  # coarse to fine
+    assert half_steps == [False] * steps
+    route = list(handoffs)
+    handoffs.clear()
+    half_steps.clear()
     off = entry(p, n, cfg)
-    assert calls == [False] * len(half_levels)
+    assert handoffs == route and half_steps == [False] * steps
     torch.testing.assert_close(on, off, rtol=0, atol=0)
 
 
 def test_fused_half_upsample_warm_stream(monkeypatch):
     """A warm LK stream (levels=3) with the flag on: the cold first pair
-    solves its coarsest level without a step; a warm start enters the
-    coarsest level at its own resolution (no flow_half); levels 1 and 0
-    take the coarser flow.  The flows are bit-equal to the flag off."""
+    hands its flow over to levels 1 and 0; a warm pair enters the coarsest
+    level with the previous flow at its own resolution (a handoff to the
+    same shape) and then hands over to levels 1 and 0; no step is given a
+    half-size flow.  The route and the flows are the flag off's."""
     frames = [torch.from_numpy(f) for f in _frames(4, 64, 96, velocity=(2.0, 1.0), period=24)]
     cfg = tof.LKConfig(levels=3, window=11)
-    calls = _half_calls(monkeypatch)
+    handoffs, half_steps = _route(monkeypatch)
     on = dict(tof.process_sequence(frames, dataclasses.replace(cfg, fused_half_upsample=True),
                                    warm_start=True))
-    assert calls == [True, True] + [False, True, True] * 2
+    assert handoffs == [(32, 48), (64, 96)] + [(16, 24), (32, 48), (64, 96)] * 2
+    assert half_steps == [False] * 8
+    route = list(handoffs)
+    handoffs.clear()
     off = dict(tof.process_sequence(frames, cfg, warm_start=True))
+    assert handoffs == route
     assert sorted(on) == sorted(off) == [1, 2, 3]
     for i in on:
         torch.testing.assert_close(on[i], off[i], rtol=0, atol=0)

@@ -10,7 +10,8 @@ checkout's kernels and times, at 1080x1920 with CUDA events and the shapes
 of ``chip_smoke.py``'s phase 9: the kernels of the shared LK tile body,
 ``lk_residual`` (``PAPER_1080P`` and the DIS 9x9 box centered mode),
 ``lk_level_step`` (both, and ``flow_half`` of both where the checkout has
-it) and ``lk_band_step`` (``PAPER_1080P``, the frames as the band of rows
+it: a fused instance, or the handoff kernel then the step) and
+``lk_band_step`` (``PAPER_1080P``, the frames as the band of rows
 497-1577 of a 2160-row image); ``warp_bilinear_select``,
 ``bilateral_kernel`` (9x9, the stacked pair), ``hs_relax`` (100 sweeps,
 quadratic and Charbonnier), ``tvl1_relax`` (14 iterations, warm) and
@@ -165,7 +166,7 @@ def sweep_lk_strips(textured_pair) -> int:
                 _build.launch(dev, "of2_lk_level_step", p.data_ptr(), n.data_ptr(),
                               f.data_ptr(), out.data_ptr(), b, h, w, 0, h, r, *geo,
                               taps.ctypes.data, masks.ctypes.data, float(cfg.det_eps),
-                              float(cfg.max_displacement), int(centered), 0)
+                              float(cfg.max_displacement), int(centered))
 
             name = f"{geo[0]}x{geo[1]}" if centered else f"{geo[1]}x{geo[0]}/{geo[2]}"
             times[name] = device_ms(launch, 20, inner=10)
