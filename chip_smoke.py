@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase 8q   # phase 8q alone (the handoff kernel)
     python3 chip_smoke.py --phase 8r   # phase 8r alone (OpenCV's DIS PRESET_MEDIUM)
     python3 chip_smoke.py --phase 8s   # phase 8s alone (the LK kernel's geometry)
+    python3 chip_smoke.py --phase 8t   # phase 8t alone (TV-L1's clustered relaxation)
 
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``cuda_optical_flow_2_torch/csrc`` (one nvcc per source, in parallel) and
@@ -254,6 +255,20 @@ then, in order:
    its edges, both modes; the halo factor at those shapes
    (``tile_geometry.lk_cells``).  ``python3
    chip_smoke.py --phase 8s`` runs it alone after the build;
+8t. TV-L1's relaxation in thread-block clusters (``csrc/tvl1_sweep.cu``,
+   ``kernels/tile_geometry.tvl1_cluster``): ``tvl1_relax`` (30 iterations)
+   ``torch.equal`` to ``tvl1_relax_plain`` at ``TVL1Config()``'s five level
+   shapes at 1080x1920 with 8 pairs and with one, and on the ragged
+   2x479x641 batch, through the wrapper (its cluster the rule's, counted
+   in ``launches_clustered``) and in every cluster shape compiled in;
+   ``tvl1_relax_band`` (8 iterations, carried duals) ``torch.equal`` to
+   ``tvl1_relax_band_plain`` on the top, an interior and the bottom band
+   of a 3-shard 2160x3840 split, likewise; the counters over one eager
+   ``TVL1Config()`` call at 1080x1920: 25 ``tvl1_relax`` calls, 10
+   clustered with 8 pairs, 5 with one; the card's SMs and
+   ``cudaOccupancyMaxActiveClusters`` per cluster shape, and each level
+   shape's device ms plain and in the rule's cluster.  ``python3
+   chip_smoke.py --phase 8t`` runs it alone after the build;
 9. timing with CUDA events: each path (the TP paths beside their unsharded
    runs at 4K; host time included; ``consistent_flow`` with the fill off
    and on, the fill alone and its plain version, ``good_features`` and
@@ -2900,6 +2915,118 @@ def phase_8s(of, dev, card: str) -> dict:
     return halo
 
 
+TVL1_LEVELS_1080P = ((1080, 1920), (540, 960), (270, 480), (135, 240), (67, 120))
+TVL1_CLUSTERED_CALLS = {8: 10, 1: 5}  # of TVL1Config()'s 25 relaxations at 1080x1920
+
+
+def phase_8t(of, dev, card: str) -> dict:
+    """TV-L1's relaxation in thread-block clusters: the wrapper's launch and
+    every compiled cluster shape ``torch.equal`` to the plain versions at
+    the benchmark's level shapes, the ragged batch and three 4K bands; the
+    counters over eager ``TVL1Config()`` calls; the occupancy and the level
+    shapes' times.  Print one line per part; return the level times."""
+    import torch
+
+    from cuda_optical_flow_2_torch.kernels import tile_geometry as tg
+    from cuda_optical_flow_2_torch.kernels import tvl1_sweep
+
+    tv = of.TVL1Config()
+    kw = dict(lambda_=tv.lambda_, theta=tv.theta, tau=tv.tau, eps=tv.epsilon)
+    relax, band_relax = tvl1_sweep.tvl1_relax, tvl1_sweep.tvl1_relax_band
+    sms = tvl1_sweep.sm_count(dev)
+    occupancy = {f"{cx}x{cy}": tvl1_sweep.max_clusters(dev, (cx, cy))
+                 for cx, cy in tg.TVL1_CLUSTERS}
+    print(f"phase 8t TV-L1 clusters [{card}]: {sms} SMs, cudaOccupancyMaxActiveClusters "
+          f"{occupancy}")
+
+    def batch(h, w, b, seed):
+        p0, n0, f0 = (torch.as_tensor(a, device=dev) for a in textured_pair(h, w, seed=seed))
+        return [torch.stack([torch.roll(x, (k, 2 * k), (0, 1)) for k in range(b)])
+                for x in (p0, n0, f0)]
+
+    times, parts = {}, []
+    for b, h, w in [(b, h, w) for b in (8, 1) for h, w in TVL1_LEVELS_1080P] + [(2, 479, 641)]:
+        p, n, f = batch(h, w, b, seed=h + b)
+        flow = f * 0.9
+        want = tvl1_sweep.tvl1_relax_plain(p, n, f, flow, iterations=tv.iterations, **kw)
+        picked = tg.tvl1_cluster(b, h, w, tvl1_sweep.launch_iterations(tv.iterations)[0], sms)
+        before = (relax.launches, relax.launches_clustered)
+        got = relax(p, n, f, flow, iterations=tv.iterations, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"8t tvl1_relax {b}x{h}x{w} cluster {picked}: not "
+                                        "torch.equal to tvl1_relax_plain")
+        require((relax.launches - before[0], relax.launches_clustered - before[1])
+                == (1, int(picked != (1, 1))), f"8t tvl1_relax {b}x{h}x{w}: counters")
+        for cluster in tg.TVL1_CLUSTERS:
+            got = tvl1_sweep._launch(p, n, f, flow, None, 0, h, tv.iterations, cluster=cluster,
+                                     **kw)[0]
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"8t tvl1_relax {b}x{h}x{w} forced cluster "
+                                            f"{cluster}: not torch.equal to tvl1_relax_plain")
+        if h != 479:
+            run = {c: (lambda c=c: tvl1_sweep._launch(p, n, f, flow, None, 0, h, tv.iterations,
+                                                      cluster=c, **kw)) for c in {(1, 1), picked}}
+            times[f"{b}x{h}x{w}"] = {f"{c[0]}x{c[1]}": cuda_ms(fn, 10, device=True)
+                                     for c, fn in sorted(run.items())}
+        parts.append(f"{b}x{h}x{w} {picked[0]}x{picked[1]}")
+    print(f"phase 8t tvl1_relax torch.equal to the plain version through the wrapper (cluster "
+          f"named) and in each of {tg.TVL1_CLUSTERS}: " + ", ".join(parts))
+
+    # the bands of a 3-shard split of 2160 x 3840, with the TP path's 10-row halo
+    p8, n8, f8 = (x[0] for x in batch(2160, 3840, 1, seed=8))
+    rng = np.random.default_rng(8)
+    duals = [torch.as_tensor(rng.normal(0, 0.05, (2160, 3840)).astype(np.float32), device=dev)
+             for _ in range(4)]
+    for row0 in (-10, 710, 1430):  # 740 rows each: 720 and the halo on both sides
+        rows = slice(max(row0, 0), min(row0 + 740, 2160))
+        pad = (max(-row0, 0), max(row0 + 740 - 2160, 0))
+
+        def cut(x, pad=pad, rows=rows):
+            """Band rows, zero past the image's edges."""
+            x = x[rows]
+            return torch.cat([x.new_zeros((pad[0],) + x.shape[1:]), x,
+                              x.new_zeros((pad[1],) + x.shape[1:])]).contiguous()
+
+        args = (cut(p8), cut(n8), cut(f8),
+                (cut(f8[..., 0] * 0.5), cut(f8[..., 1] * 0.5), *(cut(d) for d in duals)),
+                row0, 2160)
+        want = tvl1_sweep.tvl1_relax_band_plain(*args, iterations=8, **kw)
+        hb = args[0].shape[0]
+        picked = tg.tvl1_cluster(1, hb, 3840, 8, sms)
+        before = band_relax.launches_clustered
+        got = band_relax(*args, iterations=8, **kw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, c) for a, c in zip(got, want)),
+                f"8t tvl1_relax_band rows {row0}-{row0 + hb}: not torch.equal to the plain band")
+        require(band_relax.launches_clustered - before == int(picked != (1, 1)),
+                f"8t tvl1_relax_band rows {row0}-{row0 + hb}: counter")
+        flow, d = torch.stack(args[3][:2], dim=-1), torch.stack(args[3][2:], dim=-1)
+        for cluster in tg.TVL1_CLUSTERS:
+            out, dout, _ = tvl1_sweep._launch(*args[:3], flow, d, row0, 2160, 8,
+                                              cluster=cluster, **kw)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, c) for a, c in zip((*out.unbind(-1), *dout.unbind(-1)),
+                                                           want)),
+                    f"8t tvl1_relax_band rows {row0}-{row0 + hb} forced cluster {cluster}: "
+                    "not torch.equal to the plain band")
+    print(f"phase 8t tvl1_relax_band (8 iterations, carried duals) torch.equal to the plain "
+          f"band on 3 bands of 2160x3840, cluster {picked}")
+
+    # the counters over one eager TVL1Config() call
+    for b, clustered in TVL1_CLUSTERED_CALLS.items():
+        p, n, _ = batch(1080, 1920, b, seed=b)
+        before = (relax.launches, relax.launches_clustered)
+        of.pyramidal_tvl1(p, n, tv)
+        torch.cuda.synchronize()
+        counts = (relax.launches - before[0], relax.launches_clustered - before[1])
+        require(counts == (25, clustered), f"8t TVL1Config() at {b}x1080x1920: tvl1_relax "
+                                           f"launches, clustered {counts}, want (25, {clustered})")
+        print(f"phase 8t TVL1Config() at {b}x1080x1920: {counts[0]} tvl1_relax calls, "
+              f"{counts[1]} clustered")
+    print(f"phase 8t device ms per call (30 iterations), plain and clustered: {times}")
+    return times
+
+
 def main(only: str | None = None) -> int:
     if not (ROOT / "cuda_optical_flow_2_torch" / "csrc").is_dir():
         print("chip_smoke: cuda_optical_flow_2_torch/ not found beside this script", file=sys.stderr)
@@ -2995,6 +3122,15 @@ def main(only: str | None = None) -> int:
         # 8s alone: the LK kernel's geometry
         phase_8s(of, dev, card)
         print(f"chip_smoke --phase 8s: {time.perf_counter() - t_start:.1f} s in all")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
+    if only == "8t":
+        # 8t alone: TV-L1's relaxation in thread-block clusters
+        phase_8t(of, dev, card)
+        print(f"chip_smoke --phase 8t: {time.perf_counter() - t_start:.1f} s in all")
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -4238,6 +4374,9 @@ def main(only: str | None = None) -> int:
     # 8s. the LK kernel's geometry
     phase_8s(of, dev, card)
 
+    # 8t. TV-L1's relaxation in thread-block clusters
+    phase_8t(of, dev, card)
+
     launches = {name: sum(c[name] for c in path_launches.values())
                 for name in next(iter(path_launches.values()))}
     for name, n_launch in launches.items():
@@ -4496,8 +4635,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--nccl-worker"]:
         sys.exit(nccl_worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]))
     if sys.argv[1:] not in ([], ["--phase", "8p"], ["--phase", "8q"], ["--phase", "8r"],
-                            ["--phase", "8s"]):
+                            ["--phase", "8s"], ["--phase", "8t"]):
         print(f"usage: python3 {Path(__file__).name} [--phase 8p | --phase 8q | --phase 8r | "
-              "--phase 8s]", file=sys.stderr)
+              "--phase 8s | --phase 8t]", file=sys.stderr)
         sys.exit(2)
     sys.exit(main(only=sys.argv[2] if sys.argv[1:] else None))

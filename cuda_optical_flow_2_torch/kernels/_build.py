@@ -40,7 +40,8 @@ NVCC_FLAGS = [
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # name -> argtypes; every launch returns a cudaError_t as int, every
-# ``*_compiled`` query 1 when a radius runs a kernel compiled for it, else 0.
+# ``*_compiled`` query 1 when a radius runs a kernel compiled for it, else 0,
+# ``of2_tvl1_max_clusters`` a count or minus a cudaError_t.
 _SIGNATURES = {
     "of2_lk_residual": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _F, _I, _P],
     "of2_lk_level_step": [
@@ -62,8 +63,10 @@ _SIGNATURES = {
     ],
     "of2_median": [_P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _P],
     "of2_tvl1_relax": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _F, _F, _F, _I, _I,
+        _P,
     ],
+    "of2_tvl1_max_clusters": [_I, _I],
     "of2_occlusion_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "of2_upsample_flow": [_P, _P, _I, _I, _I, _I, _I, _P],
     # conditional graph nodes (capture.cond)

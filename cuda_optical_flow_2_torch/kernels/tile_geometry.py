@@ -23,6 +23,15 @@ like the Farnebäck tile, one height shorter where its grid would not fill
 the card once).  :func:`lk_launch` gives the C entry's three numbers for
 either.  None of this changes a pixel's arithmetic.
 
+TV-L1's time-tiled relaxation (``csrc/tvl1_sweep.cu``: ``tvl1_relax``,
+``tvl1_relax_band``) gives each block of 1024 threads a 64 x 64 tile and
+launches its blocks in thread-block clusters: the CTAs of a cluster hand
+each other the rows along their shared edge, so a launch of k iterations
+recomputes a ring of k cells only at the cluster's outer sides
+(:func:`tvl1_cluster` picks the cluster, :func:`tvl1_grid` and
+:func:`tvl1_block_writes` give the launch's blocks and the pixels each
+writes back).
+
 Each thread of a block owns ``RUN`` consecutive cells of a pass (a run)
 and sums them from registers.  A pass over an extent that ``RUN`` does not
 divide moves its last run back to end at the extent: the cells it shares
@@ -38,9 +47,10 @@ import dataclasses
 import functools
 
 __all__ = [
-    "RUN", "SMEM_MAX", "Strip", "Tile", "blocks_per_sm", "fb_tile", "lk_cells", "lk_launch",
-    "lk_segment", "lk_strip", "lk_tile", "lk_tile_candidate", "lk_walk", "resident_blocks",
-    "run_starts", "win_tile", "win_tile_candidate",
+    "RUN", "SMEM_MAX", "Strip", "TVL1_CLUSTER", "Tile", "blocks_per_sm", "fb_tile", "lk_cells",
+    "lk_launch", "lk_segment", "lk_strip", "lk_tile", "lk_tile_candidate", "lk_walk",
+    "resident_blocks", "run_starts", "tvl1_block_writes", "tvl1_cluster", "tvl1_grid",
+    "tvl1_slots", "win_tile", "win_tile_candidate",
 ]
 
 RUN = 4  # OF2_RUN: cells per thread in each register-blocked pass
@@ -294,3 +304,62 @@ def win_tile(rw: int) -> Tile:
     SM, else the last."""
     tiles = [win_tile_candidate(rw, th, WIN_TILE_W) for th in WIN_TILE_HEIGHTS]
     return next((t for t in tiles if blocks_per_sm(t.smem_bytes) >= 2), tiles[-1])
+
+
+TVL1_EXT = 64  # OF2_EXT: a TV-L1 tile block's side in cells, one block per SM
+# The cluster (cx, cy) of TV-L1 tile blocks where clusters pay (swept on an
+# H100 with tools/kernel_times.py --tvl1-clusters: PERF.md §6), and every
+# shape the C entry has compiled in.
+TVL1_CLUSTER = (1, 2)
+TVL1_CLUSTERS = ((1, 1), (1, 2))
+# Clusters pay where the plain grid runs more than this many waves of the
+# card's SMs (one tile block per SM); on thinner grids the cluster's wider
+# rows and its peer waits cost what the smaller ring saves.
+TVL1_CLUSTER_WAVES = 4
+
+
+def tvl1_grid(h: int, w: int, k: int, cluster: tuple[int, int] = (1, 1)) -> tuple[int, int]:
+    """Clusters (rows, columns) of a TV-L1 tile launch of ``k`` iterations on
+    an ``h`` x ``w`` band: each covers (64 cy) x (64 cx) cells and writes
+    back its inner (64 cy - 2k) x (64 cx - 2k)."""
+    cx, cy = cluster
+    return -(-h // (TVL1_EXT * cy - 2 * k)), -(-w // (TVL1_EXT * cx - 2 * k))
+
+
+def tvl1_cluster(b: int, h: int, w: int, k: int, sms: int) -> tuple[int, int]:
+    """The cluster (cx, cy) of a TV-L1 tile launch of ``k`` iterations on a
+    (b, h, w) batch: :data:`TVL1_CLUSTER` where the plain grid (b x its 1 x 1
+    tiles) is more than :data:`TVL1_CLUSTER_WAVES` waves of the card's
+    ``sms`` SMs, else (1, 1)."""
+    ty, tx = tvl1_grid(h, w, k)
+    return TVL1_CLUSTER if b * ty * tx > TVL1_CLUSTER_WAVES * sms else (1, 1)
+
+
+def tvl1_slots(b: int, h: int, w: int, k: int, cluster: tuple[int, int]) -> float:
+    """Cells a TV-L1 tile launch iterates per pixel (the ring's overhead)."""
+    ty, tx = tvl1_grid(h, w, k, cluster)
+    return ty * tx * cluster[0] * cluster[1] * TVL1_EXT * TVL1_EXT / (h * w)
+
+
+def tvl1_block_writes(h: int, w: int, k: int, cluster: tuple[int, int]):
+    """Each block of a TV-L1 tile launch (one batch entry), as the C entry
+    lays them out: ``(by, bx, (y0, y1), (x0, x1), ring)`` with the band
+    rows and columns it writes back (inside the band; y0 >= y1 or x0 >= x1:
+    none) and its ring, the cells (top, bottom, left, right) of its tile
+    that it iterates but does not write for staleness.  Block (bx, by) is
+    tile (bx % cx, by % cy) of cluster (bx // cx, by // cy), whose region
+    starts k cells before its output."""
+    cx, cy = cluster
+    gy, gx = tvl1_grid(h, w, k, cluster)
+    ty, tx = TVL1_EXT * cy - 2 * k, TVL1_EXT * cx - 2 * k
+    e = TVL1_EXT
+    for by in range(gy * cy):
+        ry = by % cy
+        top = by // cy * ty - k + ry * e  # the tile's first band row
+        r0, r1 = max(k - ry * e, 0), min(k + ty - ry * e, e)  # written tile rows
+        for bx in range(gx * cx):
+            rx = bx % cx
+            left = bx // cx * tx - k + rx * e
+            c0, c1 = max(k - rx * e, 0), min(k + tx - rx * e, e)
+            yield (by, bx, (max(top + r0, 0), min(top + r1, h)),
+                   (max(left + c0, 0), min(left + c1, w)), (r0, e - r1, c0, e - c1))

@@ -20,23 +20,30 @@ eight divisions and square roots per pixel and iteration (about 0.055 ms
 for 14 iterations at 1080x1920) against 32 bytes of frames and flows per
 pixel for the call.  The design is time tiling, the TPU kernel's K
 iterations per resident band carried over to 64 x 64 tiles in shared
-memory.  One launch computes the constants (gx, gy, th, max(|g|^2, eps),
-it); then each launch runs up to ``ITERS_PER_LAUNCH`` (K) iterations on
+memory.  One launch computes the constants (gx, gy, it); then each launch
+runs up to ``ITERS_PER_LAUNCH`` (K) iterations on
 each tile, with the six state planes in shared memory and each pixel's
 constants and u0 in the registers of the thread that owns it, and writes
 back only the tile's inner (64 - 2R)^2 pixels.  One iteration reaches one
 cell up and left (the divergence) and one down and right (the forward
 differences), so a ring of ``ring(k)`` = k cells keeps the written pixels
-exact; the neighbouring tiles recompute the ring (64 % more cell updates
-for a launch of 7).  A call of n iterations runs in ceil(n / K) tile
-launches of near equal length, so the state makes one pass over device
-memory per launch, not per iteration.  The C entry point issues every
-launch, so the wrapper makes one ctypes call per warp.  The arithmetic is
-rounded step by step in the plain version's order (no FMA, no reciprocal
-multiply), and a pixel's arithmetic does not depend on its tile, so
-near-ties of the threshold step (``rho`` against ``+-th``) resolve as they
-do in the plain ops and the kernel is bit-equal to the plain version on
-the card.
+exact; the neighbouring tiles recompute the ring (69 % more cell updates
+for a launch of 7 at 1080x1920).  A call of n iterations runs in
+ceil(n / K) tile launches of near equal length, so the state makes one
+pass over device memory per launch, not per iteration.
+
+Where a level's plain grid (B x tiles) is more than four waves of the
+card's SMs, the tile launches run as thread-block clusters of two blocks
+stacked along y (``tile_geometry.TVL1_CLUSTER``,
+:func:`tile_geometry.tvl1_cluster`; the SM count is the device's).  Each
+block hands its row next to the other to it through shared memory
+(distributed shared memory) every half-step, so the pair iterates one
+64 x 128 region and the ring of k cells lies only at its outer edges: 58 %
+more cell updates at k = 8 at 1080x1920, 54 % at k = 7, against 82 % and
+69 % for plain tiles.  Thinner grids (the coarse levels, a single pair's
+second level) run the plain launch.  The tile forms th and max(|g|^2, eps)
+from gx, gy where it needs them (the constants kernel's own rounded
+steps), so the constants are one float2 a pixel.
 
 The band entry runs one chunk of at most ``MAX_ITERS`` iterations on a
 band holding global rows [row0, row0 + HB) of an ``h_global``-row image,
@@ -52,16 +59,20 @@ first), so the kernel stays bit-equal to it on the card.
 :func:`tvl1_relax` and :func:`tvl1_relax_band` launch the kernels for CUDA
 tensors and take their plain versions for CPU tensors; ``.launches`` on
 each counts calls that launched (one per call, whatever its iteration
-count).
+count), ``.launches_clustered`` those of them whose tile launches ran in
+clusters.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from cuda_optical_flow_2_torch.constants import MASKS
 from cuda_optical_flow_2_torch.kernels import _build
+from cuda_optical_flow_2_torch.kernels import tile_geometry as tg
 from cuda_optical_flow_2_torch.kernels.lk_fused import planes
 from cuda_optical_flow_2_torch.ops.band import rows_in_image
 from cuda_optical_flow_2_torch.ops.gradients import SOBEL_GAIN, gradient_magnitude, spatial_gradients
@@ -263,9 +274,10 @@ def tvl1_relax(
     _check_shapes(prev, warped, u0, flow)
     if iterations <= 0:
         return flow.to(torch.float32)
-    out, _ = _launch(prev, warped, u0, flow, None, 0, prev.shape[-2], iterations, lambda_,
-                     theta, tau, eps)
+    out, _, cluster = _launch(prev, warped, u0, flow, None, 0, prev.shape[-2], iterations,
+                              lambda_, theta, tau, eps)
     tvl1_relax.launches += 1
+    tvl1_relax.launches_clustered += cluster != (1, 1)
     return out
 
 
@@ -308,9 +320,10 @@ def tvl1_relax_band(
     if iterations <= 0:
         return tuple(x.to(torch.float32) for x in state)
     duals = torch.stack(state[2:], dim=-1)
-    out, duals = _launch(prev, warped, u0, flow, duals, row0, h_global, iterations, lambda_,
-                         theta, tau, eps)
+    out, duals, cluster = _launch(prev, warped, u0, flow, duals, row0, h_global, iterations,
+                                  lambda_, theta, tau, eps)
     tvl1_relax_band.launches += 1
+    tvl1_relax_band.launches_clustered += cluster != (1, 1)
     return (*out.unbind(-1), *duals.unbind(-1))
 
 
@@ -323,10 +336,25 @@ def _check_shapes(prev, warped, u0, flow) -> None:
         )
 
 
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of the card ``device`` (an H100 SXM's,
+    ``tile_geometry.SMS``, for a device that is not a card)."""
+    if device.type != "cuda":
+        return tg.SMS
+    return _cuda_sms(torch.cuda._get_device_index(device, optional=True))
+
+
+@functools.cache
+def _cuda_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(prev, warped, u0, flow, duals, row0, h_global, iterations, lambda_, theta, tau,
-            eps) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Launch the kernels: the flow (..., H, W, 2) and, when ``duals``
-    (..., H, W, 4) came in, the duals after the last iteration."""
+            eps, cluster=None) -> tuple[torch.Tensor, torch.Tensor | None, tuple[int, int]]:
+    """Launch the kernels: the flow (..., H, W, 2), when ``duals`` (..., H,
+    W, 4) came in the duals after the last iteration, and the cluster (cx,
+    cy) the tile launches ran in (``cluster``, else ``tile_geometry.
+    tvl1_cluster``'s for the first launch's iterations)."""
     tensors = (prev, warped, u0, flow) + (() if duals is None else (duals,))
     dev = _build.require_cuda(*tensors)
     lead, (h, w) = prev.shape[:-2], prev.shape[-2:]
@@ -339,18 +367,33 @@ def _launch(prev, warped, u0, flow, duals, row0, h_global, iterations, lambda_, 
         (d_in,) = planes(duals.reshape(-1, h, w, 4))
         d_out = torch.empty_like(d_in)
     n2 = b * h * w + (b * h * w) % 2  # keeps the float4 scratch planes 16-byte aligned
-    slots = min(len(launch_iterations(iterations)) - 1, 2)
-    scratch = torch.empty((5 + 6 * slots) * n2, dtype=torch.float32, device=dev)
+    ks = launch_iterations(iterations)
+    slots = min(len(ks) - 1, 2)
+    scratch = torch.empty((3 + 6 * slots) * n2, dtype=torch.float32, device=dev)
+    if cluster is None:
+        cluster = tg.tvl1_cluster(b, h, w, ks[0], sm_count(dev))
     _build.launch(
         dev, "of2_tvl1_relax", p.data_ptr(), wp.data_ptr(), f0.data_ptr(), f.data_ptr(),
         None if d_in is None else d_in.data_ptr(), out.data_ptr(),
         None if d_out is None else d_out.data_ptr(), scratch.data_ptr(), b, h, w, int(row0),
         int(h_global), int(iterations), ITERS_PER_LAUNCH, _MASKS.ctypes.data,
-        float(lambda_ * theta), float(theta), float(tau / theta), float(eps),
+        float(lambda_ * theta), float(theta), float(tau / theta), float(eps), *cluster,
     )
     out = out.reshape(lead + (h, w, 2))
-    return out, None if d_out is None else d_out.reshape(lead + (h, w, 4))
+    return out, None if d_out is None else d_out.reshape(lead + (h, w, 4)), cluster
+
+
+def max_clusters(device: torch.device, cluster: tuple[int, int]) -> int:
+    """Clusters of ``cluster`` tile blocks the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    with torch.cuda.device(device):
+        n = _build.library().of2_tvl1_max_clusters(*cluster)
+    if n < 0:
+        raise RuntimeError(f"of2_tvl1_max_clusters: CUDA error {-n}")
+    return n
 
 
 tvl1_relax.launches = 0
+tvl1_relax.launches_clustered = 0
 tvl1_relax_band.launches = 0
+tvl1_relax_band.launches_clustered = 0

@@ -207,9 +207,11 @@ def test_counter_registry_holds_every_wrapper_counter():
                  "poly_exp_fused.poly_expansion_kernel.launches",
                  "warp_select.warp_bilinear_select_band.launches",
                  "occlusion_fill.fill_occluded_flow_kernel.launches",
-                 "upsample_flow.upsample_flow.launches"):
+                 "upsample_flow.upsample_flow.launches",
+                 "tvl1_sweep.tvl1_relax.launches_clustered",
+                 "tvl1_sweep.tvl1_relax_band.launches_clustered"):
         assert name in names
-    assert len(names) == 22
+    assert len(names) == 24
 
 
 @pytest.mark.parametrize("replays", [1, 3, 10])

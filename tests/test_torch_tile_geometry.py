@@ -3,14 +3,18 @@ solve and the centered LK kernel) and the LK walker's strips and segments,
 as the wrappers pick them: over the whole range each kernel accepts, the
 block fits its shared memory, the grid covers the image, every thread's run
 lies inside its pass, a band and the whole image launch the same block, and
-the walker stages fewer source cells per output than the tile did."""
+the walker stages fewer source cells per output than the tile did.  TV-L1's
+clustered tile launches: each pixel written once, the ring only at a
+cluster's outer sides, the cluster rule and its counters."""
 
 import numpy as np
 import pytest
 import torch
 
 from cuda_optical_flow_2_torch import FBConfig, LKConfig, capture
-from cuda_optical_flow_2_torch.kernels import _build, fb_step_fused, lk_fused, lk_step_fused
+from cuda_optical_flow_2_torch.kernels import (
+    _build, fb_step_fused, lk_fused, lk_step_fused, tvl1_sweep,
+)
 from cuda_optical_flow_2_torch.kernels import tile_geometry as tg
 from cuda_optical_flow_2_torch.kernels.poly_exp_fused import MAX_POLY_N
 from cuda_optical_flow_2_torch.kernels.win_solve import MAX_WINDOW as FB_MAX_WINDOW
@@ -313,3 +317,126 @@ def test_lk_wrappers_count_cells(monkeypatch, b, h, w, window, centered, bound):
     assert change == want
     staged, out = tg.lk_cells(b, h, w, window // 2, centered)
     assert out == b * h * w and staged / out < bound
+
+
+# --- TV-L1's relaxation in thread-block clusters ----------------------------
+
+TVL1_LEVELS_1080P = [(1080, 1920), (540, 960), (270, 480), (135, 240), (67, 120)]  # TVL1Config()
+TVL1_SHAPES = TVL1_LEVELS_1080P + [(479, 641), (740, 3840)]  # ragged; a TP band (4K, 3 shards)
+
+
+@pytest.mark.parametrize("cluster", tg.TVL1_CLUSTERS)
+@pytest.mark.parametrize("k", [7, 8])
+@pytest.mark.parametrize("shape", TVL1_SHAPES)
+def test_tvl1_cluster_writes_each_pixel_once(shape, k, cluster):
+    """Every pixel of the band is written back by exactly one block of a
+    tile launch, and each block's ring is k cells on the sides that are its
+    cluster's outer sides and none on the sides it shares with a peer."""
+    h, w = shape
+    cx, cy = cluster
+    written = np.zeros((h, w), np.int32)
+    blocks = 0
+    for by, bx, (y0, y1), (x0, x1), ring in tg.tvl1_block_writes(h, w, k, cluster):
+        rx, ry = bx % cx, by % cy
+        assert ring == (k if ry == 0 else 0, k if ry == cy - 1 else 0,
+                        k if rx == 0 else 0, k if rx == cx - 1 else 0), (by, bx)
+        if y0 < y1 and x0 < x1:
+            written[y0:y1, x0:x1] += 1
+        blocks += 1
+    gy, gx = tg.tvl1_grid(h, w, k, cluster)
+    assert blocks == gy * gx * cx * cy
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("b, clustered", [(8, [0, 1]), (1, [0])])
+def test_tvl1_cluster_rule_follows_the_grid(b, clustered):
+    """TVL1Config() at 1080x1920: 1 x 2 clusters where the plain grid (b x
+    tiles at the call's first k, 8) is more than four waves of an H100's
+    132 SMs (8 x 1080 x 1920: 7360 tiles, 8 x 540 x 960: 1920, 1 x 1080 x
+    1920: 920), the plain launch at the thinner levels (8 x 270 x 480: 480
+    tiles)."""
+    assert tg.TVL1_CLUSTER == (1, 2) and tg.TVL1_CLUSTER_WAVES == 4
+    for level, (h, w) in enumerate(TVL1_LEVELS_1080P):
+        ty, tx = tg.tvl1_grid(h, w, 8)
+        want = tg.TVL1_CLUSTER if level in clustered else (1, 1)
+        assert (b * ty * tx > 4 * tg.SMS) == (level in clustered)
+        assert tg.tvl1_cluster(b, h, w, 8, tg.SMS) == want
+    assert tg.tvl1_cluster(1, 740, 3840, 8, tg.SMS) == tg.TVL1_CLUSTER  # the 4K TP band
+    assert tg.tvl1_cluster(8, 270, 480, 8, 100) == tg.TVL1_CLUSTER  # a card of fewer SMs
+
+
+@pytest.mark.parametrize(
+    "cluster, k, slots",
+    [((1, 1), 8, 1.8173), ((1, 1), 7, 1.6948), (tg.TVL1_CLUSTER, 8, 1.5802),
+     (tg.TVL1_CLUSTER, 7, 1.5407)],
+)
+def test_tvl1_slot_factor_at_1080p(cluster, k, slots):
+    """Cells iterated per pixel at 1080x1920: 920 plain 64 x 64 tiles at k = 8
+    (858 at k = 7) against 400 (390) clusters of 1 x 2 tiles."""
+    assert tg.tvl1_slots(1, 1080, 1920, k, cluster) == pytest.approx(slots, abs=1e-4)
+    assert tg.tvl1_slots(8, 1080, 1920, k, cluster) == tg.tvl1_slots(1, 1080, 1920, k, cluster)
+
+
+def _spy_tvl1(monkeypatch):
+    """Run the TV-L1 wrappers' launch path on meta tensors, recording the C
+    calls' (B, H, W, row0, Hg, iterations, cx, cy)."""
+    calls = []
+    monkeypatch.setattr(_build, "require_cuda", lambda *ts: ts[0].device)
+    monkeypatch.setattr(_build, "launch",
+                        lambda dev, name, *args: calls.append(args[8:15] + args[20:22]))
+    return calls
+
+
+def _tvl1_call(band: bool, b: int, h: int, w: int, iterations: int = 30):
+    kw = dict(iterations=iterations, lambda_=0.15, theta=0.3, tau=0.25, eps=0.01)
+    p, n = (torch.empty(b, h, w, device="meta") for _ in range(2))
+    f = torch.empty(b, h, w, 2, device="meta")
+    if band:
+        state = tuple(torch.empty(b, h, w, device="meta") for _ in range(6))
+        tvl1_sweep.tvl1_relax_band(p, n, f, state, 100, h + 200, **dict(kw, iterations=8))
+    else:
+        tvl1_sweep.tvl1_relax(p, n, f, f, **kw)
+
+
+def test_tvl1_band_and_whole_image_launch_the_same_cluster(monkeypatch):
+    """The whole image and a band of the same shape launch the cluster the
+    rule gives for their shape, whatever the band's rows."""
+    calls = _spy_tvl1(monkeypatch)
+    for band in (False, True):
+        for h, w in ((540, 960), (135, 240)):
+            _tvl1_call(band, 8, h, w)
+    want = [tg.tvl1_cluster(8, h, w, 8, tg.SMS) for h, w in ((540, 960), (135, 240))] * 2
+    assert [c[-2:] for c in calls] == want
+    assert [c[3:5] for c in calls] == [(0, 540), (0, 135), (100, 740), (100, 335)]
+
+
+@pytest.mark.parametrize("b, clustered", [(8, 10), (1, 5)], ids=["video_batch", "single_pair"])
+def test_tvl1_wrappers_count_clustered_calls(monkeypatch, b, clustered):
+    """The counters: a TVL1Config() call at 1080x1920 runs 25 relaxations (5
+    levels x 5 warps), of which 10 clustered with 8 pairs and 5 with one;
+    ``launches_clustered`` is a ``launches*`` counter that
+    kernel_calls_per_replay.batch does not sum (it counts ``.launches``)."""
+    import importlib.util
+    from pathlib import Path
+
+    names = capture.counters()
+    for fn in ("tvl1_relax", "tvl1_relax_band"):
+        assert f"tvl1_sweep.{fn}.launches_clustered" in names
+    path = Path(__file__).parent.parent / "flowbench" / "metrics" / "kernel_calls_per_replay.batch.py"
+    spec = importlib.util.spec_from_file_location("kernel_calls_per_replay_batch", path)
+    metric = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(metric)
+
+    _spy_tvl1(monkeypatch)
+    before = capture.snapshot()
+    for h, w in TVL1_LEVELS_1080P:
+        for _ in range(5):
+            _tvl1_call(False, b, h, w)
+    change = capture.delta(before, capture.snapshot())
+    assert change == {"tvl1_sweep.tvl1_relax.launches": 25,
+                      "tvl1_sweep.tvl1_relax.launches_clustered": clustered}
+    assert metric._total(change) == 25
+    before = capture.snapshot()
+    _tvl1_call(True, 1, 740, 3840)
+    assert capture.delta(before, capture.snapshot()) == {
+        "tvl1_sweep.tvl1_relax_band.launches": 1, "tvl1_sweep.tvl1_relax_band.launches_clustered": 1}

@@ -3,6 +3,7 @@
     python3 tools/kernel_times.py ROOT
     python3 tools/kernel_times.py ROOT --win-tiles
     python3 tools/kernel_times.py ROOT --lk-strips
+    python3 tools/kernel_times.py ROOT --tvl1-clusters
 
 ROOT is the root of a checkout of this repo (its ``chip_smoke.py`` and
 ``cuda_optical_flow_2_torch`` are imported from there).  It builds that
@@ -53,6 +54,17 @@ columns, ``tile_geometry.lk_tile_candidate``, those that fit) in the DIS
 9x9 box centered mode at 8 x 540 x 960 and DIS's next three levels.  One
 JSON line per shape: the block ``lk_launch`` picks and every block's
 device ms.
+
+``--tvl1-clusters`` instead times ``tvl1_relax`` (``TVL1Config()``'s 30
+iterations, warm) at each of its pyramid's five level shapes at 1080x1920,
+with 8 pairs and with one, and ``tvl1_relax_band`` (8 iterations, carried
+duals) at the interior 4K band, in each cluster shape the C entry has
+compiled in (``tile_geometry.TVL1_CLUSTERS``) and, for the clusters, at
+``ITERS_PER_LAUNCH`` 8 and 10; each launch is checked ``torch.equal`` to
+the plain launch (1 x 1 at 8), which is checked against the plain version.
+It prints the card's SMs and ``cudaOccupancyMaxActiveClusters`` per shape,
+then one JSON line per shape: the cluster ``tvl1_cluster`` picks and every
+launch's device ms.
 """
 
 import inspect
@@ -178,6 +190,74 @@ def sweep_lk_strips(textured_pair) -> int:
     return 0
 
 
+TVL1_SWEEP_K = (8, 10)
+
+
+def sweep_tvl1_clusters(textured_pair) -> int:
+    """Device ms of the TV-L1 relaxation per cluster shape, per level shape."""
+    import torch
+
+    import cuda_optical_flow_2_torch as of
+    from cuda_optical_flow_2_torch.kernels import tile_geometry as tg
+    from cuda_optical_flow_2_torch.kernels import tvl1_sweep, warp_select
+
+    dev = torch.device("cuda", 0)
+    print(json.dumps({"sms": tvl1_sweep.sm_count(dev),
+                      "max_active_clusters": {f"{cx}x{cy}": tvl1_sweep.max_clusters(dev, (cx, cy))
+                                              for cx, cy in tg.TVL1_CLUSTERS}}))
+    tv = of.TVL1Config()
+    kw = dict(lambda_=tv.lambda_, theta=tv.theta, tau=tv.tau, eps=tv.epsilon)
+    base_k = tvl1_sweep.ITERS_PER_LAUNCH
+    rng = np.random.default_rng(5)
+    shapes = [(b, h, w) for b in (8, 1)
+              for h, w in ((1080, 1920), (540, 960), (270, 480), (135, 240), (67, 120))]
+    for b, h, w in shapes + [(1, 740, 3840)]:
+        p0, n0, f0 = (torch.as_tensor(a, device=dev) for a in textured_pair(h, w, seed=h + b))
+        w0 = warp_select.warp_bilinear_select_plain(n0, f0)
+        p, wp, f = (x.expand(b, *x.shape).contiguous() for x in (p0, w0, f0))
+        if h == 740:  # the interior band of a 3-shard 4K split, with its halo
+            state = tuple(torch.as_tensor(rng.normal(0, 0.05, (1, h, w)).astype(np.float32),
+                                          device=dev) for _ in range(4))
+            state = (f[..., 0] * 0.5, f[..., 1] * 0.5, *state)
+            duals = torch.stack(state[2:], dim=-1)
+            flow, row0, hg, iters = torch.stack(state[:2], dim=-1), 710, 2160, 8
+            want = tvl1_sweep.tvl1_relax_band_plain(p, wp, f, state, row0, hg, iterations=iters,
+                                                    **kw)
+            want = (torch.stack(want[:2], dim=-1), torch.stack(want[2:], dim=-1))
+        else:
+            duals, flow, row0, hg, iters = None, f * 0.9, 0, h, tv.iterations
+            want = (tvl1_sweep.tvl1_relax_plain(p, wp, f, flow, iterations=iters, **kw), None)
+        picked = tg.tvl1_cluster(b, h, w, tvl1_sweep.launch_iterations(iters)[0],
+                                 tvl1_sweep.sm_count(dev))
+        times, ref = {}, None
+        for k in TVL1_SWEEP_K:
+            for cluster in tg.TVL1_CLUSTERS:
+                if cluster == (1, 1) and k != base_k:
+                    continue
+
+                def launch(cluster=cluster):
+                    return tvl1_sweep._launch(p, wp, f, flow, duals, row0, hg, iters,
+                                              cluster=cluster, **kw)[:2]
+
+                tvl1_sweep.ITERS_PER_LAUNCH = k
+                try:
+                    got = launch()
+                    times[f"{cluster[0]}x{cluster[1]} K={k}"] = device_ms(launch, 10, inner=3)
+                finally:
+                    tvl1_sweep.ITERS_PER_LAUNCH = base_k
+                if ref is None:
+                    ref = got
+                    if not all(a is None or torch.equal(a, c) for a, c in zip(got, want)):
+                        raise SystemExit(f"tvl1 {b}x{h}x{w} plain launch: not bit-equal to "
+                                         "the plain version")
+                if not all(a is None or torch.equal(a, c) for a, c in zip(got, ref)):
+                    raise SystemExit(f"tvl1 {b}x{h}x{w} cluster {cluster} K={k}: not bit-equal")
+        print(json.dumps({"shape": f"{b}x{h}x{w}", "iterations": iters,
+                          "tvl1_cluster": f"{picked[0]}x{picked[1]}",
+                          "ms": dict(sorted(times.items(), key=lambda kv: kv[1]))}), flush=True)
+    return 0
+
+
 def main() -> int:
     root = Path(sys.argv[1]).resolve()
     sys.path.insert(0, str(root))
@@ -213,6 +293,8 @@ def main() -> int:
         return sweep_win_tiles(p0, n0, f0)
     if "--lk-strips" in sys.argv[2:]:
         return sweep_lk_strips(cs.textured_pair)
+    if "--tvl1-clusters" in sys.argv[2:]:
+        return sweep_tvl1_clusters(cs.textured_pair)
     pair = torch.stack([p0, n0])
     w0 = warp_select.warp_bilinear_select_plain(n0, f0)
     exp0 = poly_exp_fused.poly_expansion_plain(p0, 7, 1.5)
